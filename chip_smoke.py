@@ -35,7 +35,21 @@ it stopped:
       the train path calls, its outputs, bank partials and gradients
       against the plain version and autograd through it; then timing with
       CUDA events: the train step, and each unit's train-mode forward and
-      backward kernel against its plain version and its bound.
+      backward kernel against its plain version and its bound;
+  (i) the flash-attention kernel against its plain version at the 224
+      path's MSDA and cross shapes (B=256, the cross keys both contiguous
+      and broadcast over the batch with stride 0), at qavit_v2_extreme_tin's
+      MSDA shape and at the envelope corner (576 queries, 144 keys, D 64),
+      float32 and bf16, with dropout 0 and 0.1 (the same hashed mask); its
+      autograd Function's backward (a recompute) against autograd through
+      the plain version; then its time, the plain version's and
+      ``scaled_dot_product_attention``'s at the 224 shapes (bf16);
+  (j) the 224 path: ``qavit_tpu_torch.cli.evaluate --preset
+      qavit_224_v1_proc`` at full width and depth, B=256, synthetic data
+      from the seed, with every launch count set to 0 just before and read
+      just after (16 flash launches per forward, no unit launch); then its
+      logits through the kernel against the same model with the plain
+      version on the card, bf16 and float32, and its eval forward's time.
 
 Prints the kernels' JSON record and the card's name and power limit
 before the last line, and ends with
@@ -89,6 +103,17 @@ BF16_GRAD_FACTOR = 4.0
 BF16_GRAD_SLACK = 0.25
 ROUNDOFF = 1e-5
 BF16_LOSS_TOLERANCE = 1e-4
+FLAT_PRESET = "qavit_224_v1_proc"
+FLAT_BATCH = 256         # phases (i), (j): the 224 path's batch
+FLAT_BATCHES = 2         # evaluated batches in phase (j)
+# (name, B, Nq, Nkv, H, D, keys broadcast over the batch) of phase (i)
+FLASH_SHAPES = (
+    ("msda_224", FLAT_BATCH, 196, 80, 4, 48, False),
+    ("cross_224", FLAT_BATCH, 196, 16, 4, 48, True),
+    ("cross_224_contiguous", FLAT_BATCH, 196, 16, 4, 48, False),
+    ("msda_extreme_tin", FLAT_BATCH, 256, 48, 4, 48, False),
+    ("envelope", 64, 576, 144, 4, 64, False),
+)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"torch.float32": 67e12, "torch.bfloat16": 989e12}
 REPLACES = {
@@ -100,6 +125,8 @@ REPLACES = {
 for _u, _line in (("swa", 75), ("msda", 82), ("cga", 88), ("cross_tail", 96)):
     REPLACES[f"unit_{_u}_bwd"] = (f"qavit_tpu/kernels/fused_pallas.py:244 "
                                   f"(core {_u}, fused_kernels.py:{_line})")
+REPLACES["flash_attention"] = ("qavit_tpu/kernels/flash_attention.py:74 "
+                               "(pallas_call :122)")
 
 
 def say(msg: str) -> None:
@@ -334,18 +361,19 @@ def train_path(K, cfg):
 
     from qavit_tpu_torch.cli import bench
 
-    K.reset_launches()
+    reset_launches()
     row = bench.main(["--preset", "hqavit_c100", "--train", "--batch-sizes",
                       str(BATCH), "--steps", str(TRAIN_STEPS)])[0]
-    launches = dict(K.LAUNCHES)
+    launches = launch_counts()
     steps = TRAIN_STEPS + 1
     print(f"train path: {steps} steps at B={BATCH}, losses "
           f"{row['first_loss']:.4f} -> {row['last_loss']:.4f}, bank count "
           f"{row['bank_count']}, launches {launches}", flush=True)
     for name, n in launches.items():
-        if n != cfg.depth * steps:
+        want = 0 if name == "flash_attention" else cfg.depth * steps
+        if n != want:
             raise AssertionError(f"{name}: {n} launches in the train path, "
-                                 f"expected {cfg.depth} per step x {steps}")
+                                 f"expected {want}")
     if row["bank_count"] != 24 * steps:
         raise AssertionError(f"bank count {row['bank_count']} after {steps} "
                              f"steps, expected 24 per step")
@@ -602,6 +630,257 @@ def train_unit_checks_and_timing(K, cfg, g, p, dev, launches):
     return fwd_rows + bwd_rows
 
 
+def reset_launches() -> None:
+    """Every kernel's launch count to 0 (the units' and the flash
+    kernel's)."""
+    from qavit_tpu_torch.kernels import flash_attention as FA
+    from qavit_tpu_torch.kernels import fused_kernels as K
+
+    K.reset_launches()
+    FA.reset_launches()
+
+
+def launch_counts() -> dict:
+    from qavit_tpu_torch.kernels import flash_attention as FA
+    from qavit_tpu_torch.kernels import fused_kernels as K
+
+    return {**K.LAUNCHES, **FA.LAUNCHES}
+
+
+def flash_inputs(shape, dtype, dev, gen):
+    """q [B, Nq, H, D], k, v [B, Nkv, H, D] from ``gen``; broadcast keys
+    are one [1, Nkv, H, D] row expanded over the batch (stride 0)."""
+    import torch
+
+    _, b, nq, nkv, h, d, broadcast = shape
+    q = torch.randn(b, nq, h, d, generator=gen).to(dev, dtype)
+    kb = 1 if broadcast else b
+    k, v = (torch.randn(kb, nkv, h, d, generator=gen).to(dev, dtype)
+            .expand(b, -1, -1, -1) for _ in range(2))
+    return q, k, v
+
+
+def flash_work(q, k, v):
+    """(bytes, flops) of one attention call: every distinct element of
+    q, k, v read once (a stride-0 batch is one row), the output written
+    once; 2 x Nq x Nkv x D multiply-adds per (batch, head) for q k^T
+    and again for p v."""
+    def distinct(t):
+        n = 1
+        for size, stride in zip(t.shape, t.stride()):
+            n *= size if stride else 1
+        return n
+
+    b, nq, h, d = q.shape
+    nbytes = (2 * q.numel() + distinct(k) + distinct(v)) * q.element_size()
+    return nbytes, 4 * b * h * nq * k.shape[1] * d
+
+
+def flash_checks(dev):
+    """Phase (i): the flash kernel against its plain version at every
+    shape of FLASH_SHAPES, float32 and bf16, dropout 0 and 0.1; the
+    autograd Function's backward against autograd through the plain
+    version; the times at the 224 path's shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from qavit_tpu_torch.kernels import attention as A
+    from qavit_tpu_torch.kernels import flash_attention as FA
+    from qavit_tpu_torch.kernels import fused_kernels as K
+
+    gen = torch.Generator().manual_seed(5)
+    failed, errs = [], {}
+    for shape in FLASH_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = flash_inputs(shape, dtype, dev, gen)
+            for rate in (0.0, 0.1):
+                with torch.inference_mode():
+                    out = FA.flash_attention(q, k, v, rate, 1234)
+                    torch.cuda.synchronize()
+                    ref = FA.plain(q, k, v, rate, 1234)
+                ok = K.within_tolerance(out, ref)
+                err = K.max_abs_err(out, ref)
+                errs[shape[0], dtype, rate] = err
+                print(f"check flash_attention {shape[0]:20s} q "
+                      f"{tuple(q.shape)} kv {tuple(k.shape)}{' (stride-0 '
+                      'batch)' if shape[6] else ''} {str(dtype):15s} dropout "
+                      f"{rate}: max_abs_err {err:.3e} (relative "
+                      f"{err / ref.float().abs().max().item():.2e}, tolerance"
+                      f" {K.TOLERANCE[dtype]:.2e})  {'ok' if ok else 'FAIL'}",
+                      flush=True)
+                if not ok:
+                    failed.append((shape[0], str(dtype), rate))
+    # the Function the dispatch calls: kernel forward, recompute backward
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (t.detach().clone().requires_grad_(True)
+                   for t in flash_inputs(FLASH_SHAPES[0], dtype, dev, gen))
+        ct = torch.randn(q.shape, generator=gen).to(dev, dtype)
+        out = A._FlashAttention.apply(q, k, v)
+        got = torch.autograd.grad(out, (q, k, v), ct)
+        ref_out = FA.plain(q, k, v)
+        ref = torch.autograd.grad(ref_out, (q, k, v), ct)
+        grad_abs, grad_rel, ok = K.compare_grads(list(zip(got, ref)), dtype)
+        ok = ok and K.within_tolerance(out.detach(), ref_out.detach())
+        print(f"check flash_attention backward (recompute) {dtype}: "
+              f"gradients max_abs_err {grad_abs:.3e}, relative "
+              f"{grad_rel:.2e} (tolerance {K.GRAD_TOLERANCE[dtype]:.2e})  "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failed.append(("backward", str(dtype)))
+    if failed:
+        raise AssertionError(f"flash kernel disagrees: {failed}")
+
+    dtype, rows = torch.bfloat16, []
+    for shape in FLASH_SHAPES[:2]:
+        q, k, v = flash_inputs(shape, dtype, dev, gen)
+        # the library's own layout [B, H, N, D], made outside the timing
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: FA.flash_attention(q, k, v))
+            plain_ms = cuda_ms(lambda: FA.plain(q, k, v))
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt))
+        nbytes, flops = flash_work(q, k, v)
+        t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+        t_ops = 1e3 * flops / PEAK_FLOPS[str(dtype)]
+        rows.append({"shape": shape[0], "q": list(q.shape),
+                     "kv": list(k.shape), "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": lib_ms, "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops else
+                     "operations", "max_abs_err": errs[shape[0], dtype, 0.0]})
+        print(f"time flash_attention {shape[0]:10s} {ms:.4f} ms  plain "
+              f"{plain_ms:.4f} ms  scaled_dot_product_attention "
+              f"{lib_ms:.4f} ms  bound {max(t_bytes, t_ops) * 1e3:.2f} us "
+              f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)", flush=True)
+    return rows
+
+
+def profile_forward(model, images, top: int = 10):
+    """One traced forward after a warm-up: ([(name, device ms, calls)]
+    of the ``top`` kernels by device time, device-busy ms, wall ms).
+    Only the device's own events count (an operator's row would count
+    its kernels again).  Busy ms is 0.0 where the profiler saw no
+    device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        model(images)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model(images)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if us > 0:
+            rows.append((ev.key, us / 1e3, ev.count))
+    rows.sort(key=lambda r: -r[1])
+    return rows[:top], sum(r[1] for r in rows), wall_ms
+
+
+def flat_path(dev, flash_rows):
+    """Phase (j): the 224 eval path through the evaluate CLI with the
+    counts reset just before; then its logits kernel against plain and
+    its forward's time.  Returns the flash kernel's record entry (times
+    per launch averaged over the path's two shapes, whose launches split
+    evenly)."""
+    import torch
+
+    from qavit_tpu_torch.cli import evaluate
+    from qavit_tpu_torch.configs import get_preset
+    from qavit_tpu_torch.data.augment import eval_batch
+    from qavit_tpu_torch.data.datasets import (PIPELINE_BASE, STATS,
+                                               synthetic_dataset)
+    from qavit_tpu_torch.kernels import flash_attention as FA
+    from qavit_tpu_torch.nn.models import build_model
+
+    preset = get_preset(FLAT_PRESET)
+    cfg = preset.model
+    reset_launches()
+    r = evaluate.main(["--preset", FLAT_PRESET, "--synthetic", "--seed", "0",
+                       "--batch-size", str(FLAT_BATCH), "--batches",
+                       str(FLAT_BATCHES)])
+    launches = launch_counts()
+    forwards = FLAT_BATCHES + 2       # + the smoke and the untimed batch
+    print(f"224 path: {r['count']} images, top-1 {r['top1']:.2f}%, loss "
+          f"{r['loss']:.4f}, {r['img_per_s']:.1f} img/s (host clock, "
+          f"{forwards} forwards); launches {launches}", flush=True)
+    want = {n: 2 * cfg.depth * forwards if n == "flash_attention" else 0
+            for n in launches}
+    if launches != want:
+        raise AssertionError(f"224 path launches {launches}, expected "
+                             f"{want} (MSDA and cross in each of "
+                             f"{cfg.depth} blocks per forward)")
+    if not (r["count"] == FLAT_BATCH * FLAT_BATCHES and r["loss"] == r["loss"]
+            and 0.0 <= r["top1"] <= r["top5"] <= 100.0):
+        raise AssertionError(f"224 path result out of range: {r}")
+
+    ds = synthetic_dataset(preset.dataset, cfg.img_size, cfg.num_classes,
+                           n_train=0, n_test=FLAT_BATCH, seed=0)
+    images = eval_batch(torch.from_numpy(ds.test_images).to(dev),
+                        *STATS[PIPELINE_BASE[preset.dataset]])
+    model_tol = {"bfloat16": 2.0 ** -4, "float32": 1e-4}
+    for dtype_name in ("bfloat16", "float32"):
+        model = build_model(cfg.replace(dtype=dtype_name), dev, seed=0)
+        with torch.inference_mode():
+            lk, _ = model(images)
+            with mock.patch.object(FA, "flash_attention", FA.plain):
+                lp, _ = model(images)
+        err = (lk - lp).abs().max().item()
+        bound = model_tol[dtype_name] * lp.abs().max().item()
+        agree = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
+        ok = (bool(torch.isfinite(lk).all()) and err <= bound
+              and tuple(lk.shape) == (FLAT_BATCH, cfg.num_classes))
+        print(f"224 logits kernel vs plain, {dtype_name}: max_abs_err "
+              f"{err:.3e} tolerance {bound:.3e} (max|logit| "
+              f"{lp.abs().max().item():.3e}), top-1 agreement "
+              f"{100 * agree:.2f}%  {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"{dtype_name} 224 logits disagree")
+        del model
+    model = build_model(cfg, dev, seed=0)
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda: model(images), iters=10)
+    flash_ms = cfg.depth * sum(row["ms"] for row in flash_rows)
+    print(f"224 eval forward: {fwd_ms:.3f} ms per batch of {FLAT_BATCH}, "
+          f"{1000 * FLAT_BATCH / fwd_ms:.1f} img/s (CUDA events, bf16); "
+          f"flash launches {flash_ms:.3f} ms of it", flush=True)
+    top, busy_ms, wall_ms = profile_forward(model, images)
+    if busy_ms > 0:
+        print(f"224 eval forward traced (torch.profiler, one forward): "
+              f"device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall, idle "
+              f"share {1 - busy_ms / wall_ms:.3f}", flush=True)
+        for name, ms, calls in top:
+            print(f"  {ms:8.3f} ms  {calls:4d} calls  {name[:90]}",
+                  flush=True)
+    else:
+        print("224 eval forward traced: the profiler saw no device time; "
+              "breakdown not measured", flush=True)
+
+    def mean(key):
+        return sum(row[key] for row in flash_rows) / len(flash_rows)
+
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "qavit_tpu_torch/csrc/flash_attention.cu",
+            "replaces": REPLACES["flash_attention"],
+            "launches": launches["flash_attention"],
+            "max_abs_err": max(row["max_abs_err"] for row in flash_rows),
+            "ms": mean("ms"), "plain_ms": mean("plain_ms"),
+            "bound_ms": mean("bound_ms"), "bound_by": "bytes" if all(
+                row["bound_by"] == "bytes" for row in flash_rows)
+            else "operations", "library_ms": mean("library_ms"),
+            "per_shape": flash_rows}
+
+
 def main() -> int:
     import torch
 
@@ -677,21 +956,22 @@ def main() -> int:
     say("phase (c) kernel checks: done")
 
     say("phase (d) main path: start")
-    K.reset_launches()
+    reset_launches()
     r = evaluate.main(["--preset", "hqavit_c100", "--synthetic", "--seed",
                        "0", "--batch-size", str(BATCH), "--batches",
                        str(MAIN_BATCHES)])
-    launches = dict(K.LAUNCHES)
+    launches = launch_counts()
     forwards = MAIN_BATCHES + 2       # + the smoke and the untimed batch
     print(f"main path: {r['count']} images, top-1 {r['top1']:.2f}%, top-5 "
           f"{r['top5']:.2f}%, loss {r['loss']:.4f}, {r['img_per_s']:.1f} "
           f"img/s (host clock, {forwards} forwards)", flush=True)
     print(f"launches during the main path: {launches}", flush=True)
-    for name in K.UNITS:
-        n = launches[name]
-        if n != cfg.depth * forwards:
-            raise AssertionError(f"{name}: {n} launches, expected "
-                                 f"{cfg.depth} per forward x {forwards}")
+    for name, n in launches.items():
+        want = cfg.depth * forwards if name in K.UNITS else 0
+        if n != want:
+            raise AssertionError(f"{name}: {n} launches, expected {want} "
+                                 f"({cfg.depth} per forward x {forwards} "
+                                 f"for each forward unit)")
     if not (r["count"] == BATCH * MAIN_BATCHES and r["loss"] == r["loss"]
             and 0.0 <= r["top1"] <= r["top5"] <= 100.0):
         raise AssertionError(f"main path result out of range: {r}")
@@ -761,6 +1041,14 @@ def main() -> int:
           f"memory {bench_row['max_memory_allocated'] / 2 ** 30:.2f} GiB; "
           f"card {card_line()}", flush=True)
     say("phase (h) train units at B=1024, timing: done")
+
+    say("phase (i) flash kernel checks: start")
+    flash_rows = flash_checks(dev)
+    say("phase (i) flash kernel checks: done")
+
+    say("phase (j) 224 eval path: start")
+    record.append(flat_path(dev, flash_rows))
+    say("phase (j) 224 eval path: done")
 
     print(card_line(), flush=True)
     print(json.dumps({"kernels": record}), flush=True)

@@ -4,8 +4,9 @@ the port's modules.
 The trees are nested dicts of numpy arrays as ``qavit_tpu.nn.init_model``
 or a restored checkpoint gives them.  Leaves map by path; on the way
 the bridge
-* unstacks the ``nn.scan`` leading axis of ``stage{i}_blocks`` into
-  ``stage{i}_blocks.{j}``,
+* unstacks the ``nn.scan`` leading axis of ``stage{i}_blocks`` (HQAViT)
+  and ``blocks`` (the flat QAViT) into ``stage{i}_blocks.{j}`` and
+  ``blocks.{j}``,
 * transposes convolution kernels HWIO -> OIHW (``nn.Conv2d``),
 * renames BatchNorm ``scale``/``bias``/``mean``/``var`` to
   ``weight``/``bias``/``running_mean``/``running_var``,
@@ -23,7 +24,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-_SCAN = re.compile(r"stage\d+_blocks$")
+_SCAN = re.compile(r"(stage\d+_)?blocks$")
 _BN = {"scale": "weight", "bias": "bias", "mean": "running_mean",
        "var": "running_var"}
 

@@ -15,7 +15,9 @@ Prints one JSON row per batch size: img/s, ms/step, the first and last
 timed loss and ``torch.cuda.max_memory_allocated``.  The train-time data
 augmentation stays out, as in the JAX bench.  ``print_analysis`` (FLOPs
 and parameter breakdown) waits for the port of ``obs/analyzer``
-(ROADMAP.md queue 1 item 15).  Runs on the card unless ``--device cpu``.
+(ROADMAP.md queue 1 item 11).  The flat 224 presets run the eval forward
+only: their train step waits for ROADMAP.md queue 1 item 1.  Runs on the
+card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -115,6 +117,11 @@ def bench_batch(args, device: torch.device, bs: int) -> Dict:
 
 def main(argv: Optional[List[str]] = None) -> List[Dict]:
     args = parse_args(argv)
+    if args.train and not get_preset(args.preset).model.hybrid:
+        raise NotImplementedError(
+            f"{args.preset}: the flat QAViT's train step is not ported yet "
+            f"(ROADMAP.md queue 1 item 1); drop --train to time its eval "
+            f"forward")
     device = resolve_device(args.device)
     rows = []
     for bs in (int(s) for s in args.batch_sizes.split(",")):

@@ -9,8 +9,13 @@ Builds the model at full width from seed-made weights (or from a
 two-image smoke forward and one untimed batch, then evaluates
 ``--batches`` batches of the synthetic test set and prints top-1, top-5,
 loss and images per second (host clock over the evaluated batches).
-Runs on the card unless ``--device cpu`` is given.  Grad-CAM, TTA and
-the plots wait for a later slice.
+Runs on the card unless ``--device cpu`` is given.  Serves every preset
+of ``configs/presets.py``: ``hqavit_c100`` and the flat 224 QAViTs
+(``qavit_224_v1``, ``qavit_224_v1_proc``, ``qavit_v2``,
+``qavit_v2_proc224``), whose synthetic images are made at 224 px (the
+32 -> 224 resize of the ``cifar100_224`` pipeline waits for the data
+path, ROADMAP queue 1 item 3).  Grad-CAM, TTA and the plots wait for a
+later slice.
 """
 
 from __future__ import annotations
@@ -70,8 +75,10 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     print("smoke test passed:", tuple(logits.shape), flush=True)
 
     n = args.batch_size * args.batches
+    # only the test split is used: no train split is drawn (at 224 px it
+    # would be gigabytes of host memory)
     ds = synthetic_dataset(preset.dataset, mc.img_size, mc.num_classes,
-                           n_test=n, seed=args.seed)
+                           n_train=0, n_test=n, seed=args.seed)
     images = torch.from_numpy(ds.test_images).to(device)
     labels = torch.from_numpy(ds.test_labels).long().to(device)
     loader = [(images[i:i + args.batch_size], labels[i:i + args.batch_size])

@@ -24,6 +24,17 @@ class BankConfig:
     value_clamp: float = 0.5
 
 
+# the v1 rule (QAViT.py:183): rate 0.01, update clamp +-0.1, value clamp
+# +-1.0, no warmup counter
+BANK_V1 = BankConfig(
+    update_clamp=0.1,
+    update_rate_warm=0.01,
+    update_rate=0.01,
+    warmup_writes=0,
+    value_clamp=1.0,
+)
+
+
 @dataclass(frozen=True)
 class ModelConfig:
     """Hyper-parameters of QAViT / HQAViT models; defaults are the

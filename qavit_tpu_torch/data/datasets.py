@@ -12,9 +12,12 @@ import numpy as np
 # per-dataset normalisation stats, as hard-coded in the reference trainers
 STATS = {
     "cifar100": ((0.5071, 0.4867, 0.4408), (0.2675, 0.2565, 0.2761)),
+    "proc100": ((0.5, 0.5, 0.5), (0.25, 0.25, 0.25)),
 }
-# the base dataset of each pipeline name a preset uses
-PIPELINE_BASE = {"cifar100_hqa": "cifar100"}
+# the normalisation statistics of each pipeline name a preset uses
+# (``qavit_tpu/data/pipelines.py``: cifar100_224 :28, proc224 :73)
+PIPELINE_BASE = {"cifar100_hqa": "cifar100", "cifar100_224": "cifar100",
+                 "proc224": "proc100"}
 
 
 @dataclass

@@ -342,7 +342,8 @@ SMEM_LIMIT = 232448          # bytes of shared memory a block may opt in to
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C entry points' types and check the struct layouts."""
+    """Declare the C entry points' types (the units' and the flash
+    kernel's) and check the struct layouts."""
     if _BOUND.get(id(lib)):
         return lib
     lib.qv_struct_size.argtypes = [ctypes.c_int]
@@ -361,6 +362,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         smem.restype = ctypes.c_int
     lib.qv_unit_cross_tail_bwd_scratch.argtypes = [ctypes.POINTER(Dims)]
     lib.qv_unit_cross_tail_bwd_scratch.restype = ctypes.c_int
+    # the flash-attention kernel is built into the same library
+    from qavit_tpu_torch.kernels import flash_attention
+    flash_attention.bind(lib)
     _BOUND[id(lib)] = True
     return lib
 

@@ -10,6 +10,8 @@ as an OIHW ``[hidden, 1, 3, 3]`` Conv2d weight).
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.nn as nn
 
@@ -18,6 +20,40 @@ from qavit_tpu_torch.kernels.fused_ref import FusedGeom
 from qavit_tpu_torch.nn.layers import (CCFFFN, DENSE_STD, BottleneckMLP,
                                        Dense, HybridFusion, LayerNorm,
                                        Linformer, normal_)
+
+
+class BlockDims(NamedTuple):
+    """The widths the parameter holders and ``fused_ref.tail_ref`` read
+    (fields named as in :class:`FusedGeom`), for any token grid: the
+    branch path pads SWA windows where the grid does not tile them,
+    which ``make_geom`` refuses."""
+
+    n: int
+    ws2: int
+    lin_k: int
+    groups: int
+    cperg: int
+    bottleneck_hidden: int
+    ccf_hidden: int
+    d_c: int
+    dropout: float
+    stabilized_ccfffn: bool
+    stabilized_dwconv: bool
+    dwconv_bias: bool
+
+
+def block_dims(cfg: ModelConfig) -> BlockDims:
+    """The widths of a flat block over ``cfg.num_patches`` tokens."""
+    c = cfg.embed_dim
+    return BlockDims(
+        n=cfg.num_patches, ws2=cfg.window_size ** 2,
+        lin_k=cfg.linformer_k, groups=cfg.num_channel_groups,
+        cperg=c // 2 // cfg.num_channel_groups,
+        bottleneck_hidden=c // cfg.bottleneck_ratio,
+        ccf_hidden=int(c * cfg.mlp_ratio), d_c=c // cfg.compress_ratio,
+        dropout=cfg.dropout, stabilized_ccfffn=cfg.stabilized_ccfffn,
+        stabilized_dwconv=cfg.stabilized_dwconv,
+        dwconv_bias=cfg.dwconv_bias)
 
 
 class SWAParams(nn.Module):
@@ -73,10 +109,8 @@ class QuadBlockParams(nn.Module):
         super().__init__()
         c = cfg.embed_dim
         self.norm1 = LayerNorm(c)
-        self.swa = SWAParams(c, g)
-        self.msda = MSDAParams(cfg, g)
-        self.cga = CGAParams(c, g)
-        self.cross_attn = CrossParams(c)
+        self.swa, self.msda, self.cga, self.cross_attn = self.branches(cfg,
+                                                                       g)
         self.fusion = HybridFusion(4)
         self.bottleneck_mlp = BottleneckMLP(c, g.bottleneck_hidden)
         self.norm2 = LayerNorm(c)
@@ -85,3 +119,10 @@ class QuadBlockParams(nn.Module):
         for name in ("swa", "msda", "cga", "cross"):
             self.add_module(f"norm_{name}", LayerNorm(c))
             self.add_module(f"compress_{name}", Dense(c, g.d_c))
+
+    def branches(self, cfg: ModelConfig, g: FusedGeom):
+        """The four branches' modules: parameter holders here; the branch
+        path's block returns modules that also compute."""
+        c = cfg.embed_dim
+        return SWAParams(c, g), MSDAParams(cfg, g), CGAParams(c, g), \
+            CrossParams(c)

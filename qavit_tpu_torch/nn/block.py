@@ -1,13 +1,27 @@
 """Quad-Attention blocks and the token compression around them
 (counterpart of ``qavit_tpu/nn/block.py``).
 
-The port always takes the fused dispatch of the JAX package's
-``attn_impl="fused_block"`` (``nn/block.py:53-75``): the block's four
-units run through :func:`qavit_tpu_torch.kernels.fused_block.
-fused_quad_block`, as CUDA kernels on the card and as their plain
-versions on the CPU (which equal the flax reference path).  In training
-(an ``rng`` given) each block draws its masks from its own seed and its
-drop-path rate, and writes the bank three times.
+Two forms of the QuadAttentionBlock, as in the JAX package:
+
+* :class:`QuadAttentionBlock`, the fused dispatch of
+  ``attn_impl="fused_block"`` (``nn/block.py:53-75``): four units run
+  through :func:`qavit_tpu_torch.kernels.fused_block.fused_quad_block`,
+  as CUDA kernels on the card and as their plain versions on the CPU
+  (which equal the flax reference path).  In training (an ``rng`` given)
+  each block draws its masks from its own seed and its drop-path rate,
+  and writes the bank three times.
+* :class:`BranchQuadBlock`, the flax branch path (``nn/block.py:77-119``,
+  eval only): the four branch modules of ``nn/branches.py``, whose
+  attentions go through the per-shape dispatch of
+  ``kernels/attention.py``, then the block tail.
+
+:func:`flat_block` chooses between them for the flat QAViT as
+``nn/block.py:58-75`` does.  HQAViT's TokenLearner blocks always take the
+fused form, whatever ``attn_impl`` says: the JAX package would take the
+branch path there for ``attn_impl != "fused_block"``.  This is a known
+divergence (ROADMAP queue 3), to settle once the unit kernels take more
+geometries; the JAX package holds its fused units to the flax path's
+function (``tests/test_fused_block.py:128``).
 """
 
 from __future__ import annotations
@@ -22,9 +36,15 @@ from qavit_tpu_torch.configs.model import ModelConfig
 from qavit_tpu_torch.kernels import fused_ref as R
 from qavit_tpu_torch.kernels.fused_block import fused_quad_block
 from qavit_tpu_torch.kernels.fused_kernels import UnitTrain
-from qavit_tpu_torch.kernels.fused_params import QuadBlockParams
+from qavit_tpu_torch.kernels.fused_params import (BlockDims,
+                                                  QuadBlockParams,
+                                                  block_dims)
 from qavit_tpu_torch.kernels.fused_ref import make_geom
 from qavit_tpu_torch.nn.bank import BankState
+from qavit_tpu_torch.nn.branches import (ChannelGroupAttention,
+                                         CrossAttentionBranch,
+                                         MultiScaleDilatedAttention,
+                                         SpatialWindowAttention)
 from qavit_tpu_torch.nn.layers import Dense, DropoutRng, LayerNorm, param_tree
 
 Carry = Tuple[torch.Tensor, BankState]
@@ -62,6 +82,43 @@ class QuadAttentionBlock(QuadBlockParams):
                                           self.drop_path), bank_write)
         return fused_quad_block(param_tree(self), x, state, self.geom, dtype,
                                 train, self.bank_cfg)
+
+
+class BranchQuadBlock(QuadBlockParams):
+    """pre-norm -> SWA, MSDA, CGA, cross (each reading the bank) ->
+    per-branch LN + compress -> softmax fusion -> bottleneck MLP ->
+    residual -> norm2 -> CCF-FFN -> residual, eval only.  The tail is
+    ``fused_ref.tail_ref`` without masks (the same function as the flax
+    tail in eval)."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.dims = block_dims(cfg)
+        super().__init__(cfg, self.dims)
+
+    def branches(self, cfg: ModelConfig, dims: BlockDims):
+        return (SpatialWindowAttention(cfg, dims),
+                MultiScaleDilatedAttention(cfg, dims),
+                ChannelGroupAttention(cfg, dims),
+                CrossAttentionBranch(cfg, dims))
+
+    def forward(self, carry: Carry, dtype) -> Carry:
+        x, state = carry
+        x = x.to(dtype)
+        p = param_tree(self)
+        xn = R.layer_norm(x, p["norm1"], dtype)
+        outs = [branch(xn, state, dtype) for branch in
+                (self.swa, self.msda, self.cga, self.cross_attn)]
+        return R.tail_ref(p, x, outs, self.dims, dtype), state
+
+
+def flat_block(cfg: ModelConfig, drop_path: float = 0.0) -> nn.Module:
+    """The flat QAViT's block: the fused units when ``attn_impl`` is
+    "fused_block" and they cover the geometry, else the branch path
+    (``nn/block.py:58-75``).  ``drop_path`` is the block's stochastic
+    depth rate, which only the fused block's training reads."""
+    if cfg.attn_impl == "fused_block" and make_geom(cfg) is not None:
+        return QuadAttentionBlock(cfg, drop_path)
+    return BranchQuadBlock(cfg)
 
 
 class TokenLearner(nn.Module):

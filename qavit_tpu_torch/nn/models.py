@@ -1,12 +1,14 @@
-"""HQAViT, the hybrid staged QA-ViT (counterpart of
-``qavit_tpu/nn/models.py:122-187``), and the model factory.
+"""QAViT, the flat QA-ViT, and HQAViT, the hybrid staged QA-ViT
+(counterparts of ``qavit_tpu/nn/models.py:81-187``), and the model
+factory.
 
-The JAX package stacks each stage's blocks with ``nn.scan``; here a stage
-is an ``nn.ModuleList`` named ``stage{i}_blocks`` and the bridge unstacks
-the scan axis.  Images are NHWC, normalised float; the forward returns
-float32 logits and the bank state after the forward (unchanged in eval;
-in training after three writes per block, for the train step to copy
-into the parameters).  The flat ``QAViT`` waits for a later slice.
+The JAX package stacks blocks with ``nn.scan``; here a stack is an
+``nn.ModuleList`` (``blocks``, ``stage{i}_blocks``) and the bridge
+unstacks the scan axis.  Images are NHWC, normalised float; the forward
+returns float32 logits and the bank state after the forward (unchanged
+in eval; for HQAViT in training after three writes per block, for the
+train step to copy into the parameters).  QAViT serves the eval forward;
+its train step waits for a later slice (ROADMAP queue 1 item 1).
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from qavit_tpu_torch.configs.model import ModelConfig
 from qavit_tpu_torch.device import resolve_device
 from qavit_tpu_torch.nn.bank import (BankState, GlobalBankParams,
                                      bank_init_state)
-from qavit_tpu_torch.nn.block import QuadBlockWithTokenLearner
+from qavit_tpu_torch.nn.block import QuadBlockWithTokenLearner, flat_block
 from qavit_tpu_torch.nn.hybrid import RRCV, CNNStemV1, LMFAdapter, SplitFusion
 from qavit_tpu_torch.nn.layers import (DENSE_STD, Dense, DropoutRng,
                                        LayerNorm, PatchEmbed, dropout,
@@ -34,6 +36,47 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 
 def drop_path_rates(cfg: ModelConfig) -> np.ndarray:
     return np.linspace(0.0, cfg.drop_path, cfg.depth, dtype=np.float32)
+
+
+class QAViT(nn.Module):
+    """Flat Quad-Attention ViT (QAViT.py:654-699): patch embedding and
+    position embedding, ``depth`` quad blocks, LN, mean-pool, head."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        c = cfg.embed_dim
+        self.global_bank = GlobalBankParams(cfg.bank, c)
+        self.patch_embed = PatchEmbed(cfg.patch_size, cfg.in_channels, c)
+        self.pos_embed = nn.Parameter(torch.empty(1, cfg.num_patches, c))
+        dpr = drop_path_rates(cfg)
+        self.blocks = nn.ModuleList(flat_block(cfg, float(dpr[i]))
+                                    for i in range(cfg.depth))
+        self.norm = LayerNorm(c)
+        self.head = Dense(c, cfg.num_classes)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        normal_(self.pos_embed, DENSE_STD, gen)
+
+    def forward(self, x: torch.Tensor, train: bool = False, bank_count=0,
+                rng: Optional[DropoutRng] = None,
+                return_features: bool = False
+                ) -> Tuple[torch.Tensor, BankState]:
+        """Logits (or, with ``return_features``, the pooled features) and
+        the bank state."""
+        if train:
+            raise NotImplementedError(
+                "the flat QAViT's train step is not ported yet (ROADMAP "
+                "queue 1 item 1)")
+        dtype = compute_dtype(self.cfg)
+        t = self.patch_embed(x.to(dtype), dtype) + self.pos_embed.to(dtype)
+        state = bank_init_state(self.global_bank, bank_count)
+        for block in self.blocks:
+            t, state = block((t, state), dtype)
+        pooled = self.norm(t, dtype).float().mean(dim=1).to(dtype)
+        if return_features:
+            return pooled.float(), state
+        return self.head(pooled, dtype).float(), state
 
 
 class HQAViT(nn.Module):
@@ -111,12 +154,11 @@ class HQAViT(nn.Module):
 
 def build_model(cfg: ModelConfig, device="cuda",
                 generator: Optional[torch.Generator] = None,
-                seed: int = 0) -> HQAViT:
-    """An HQAViT on ``device`` (in eval mode) with weights drawn from
-    ``generator`` (a CPU generator seeded with ``seed`` by default), so a
-    seed gives the same weights on every device."""
-    if not cfg.hybrid:
-        raise NotImplementedError("the flat QAViT is not ported yet")
+                seed: int = 0) -> nn.Module:
+    """An HQAViT (``cfg.hybrid``) or a QAViT on ``device`` (in eval mode)
+    with weights drawn from ``generator`` (a CPU generator seeded with
+    ``seed`` by default), so a seed gives the same weights on every
+    device."""
     gen = generator or torch.Generator().manual_seed(seed)
-    model = init_weights(HQAViT(cfg), gen)
+    model = init_weights((HQAViT if cfg.hybrid else QAViT)(cfg), gen)
     return model.to(resolve_device(device)).eval()

@@ -8,7 +8,10 @@ Each unit kernel against its plain version within the stated tolerance
 launches every kernel 8 times and matches the plain path's logits, each
 unit's train-mode forward and backward kernel against the plain version
 and autograd (fused_kernels.GRAD_TOLERANCE), and one full-width train
-step that launches every forward and backward kernel 8 times."""
+step that launches every forward and backward kernel 8 times; the
+flash-attention kernel against its plain version at the 224 shapes, and
+a full-depth qavit_224_v1_proc forward that launches it 16 times and
+matches the plain path's logits."""
 
 from unittest import mock
 
@@ -16,6 +19,7 @@ import pytest
 import torch
 
 from qavit_tpu_torch.configs import get_preset
+from qavit_tpu_torch.kernels import flash_attention as FA
 from qavit_tpu_torch.kernels import fused_kernels as K
 from qavit_tpu_torch.kernels.fused_params import QuadBlockParams
 from qavit_tpu_torch.kernels.fused_ref import make_geom
@@ -120,3 +124,40 @@ def test_train_step_launches_each_kernel_per_block(cuda):
     assert dict(K.LAUNCHES) == {n: cfg.depth for n in K.LAUNCHES}
     assert int(state.bank_count) == 3 * cfg.depth
     assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nkv,broadcast", [(80, False), (16, True),
+                                           (144, False)])
+def test_flash_kernel_matches_plain_on_the_card(cuda, nkv, broadcast, dtype,
+                                                rate):
+    gen = torch.Generator().manual_seed(2)
+    b, nq, h, d = 32, 196, 4, 48 if nkv < 144 else 64
+    q = torch.randn(b, nq, h, d, generator=gen).to(cuda, dtype)
+    k, v = (torch.randn(1 if broadcast else b, nkv, h, d, generator=gen)
+            .to(cuda, dtype).expand(b, -1, -1, -1) for _ in range(2))
+    with torch.inference_mode():
+        out = FA.flash_attention(q, k, v, rate, 99)
+        torch.cuda.synchronize()
+        ref = FA.plain(q, k, v, rate, 99)
+    assert K.within_tolerance(out, ref), K.max_abs_err(out, ref)
+
+
+def test_224_forward_launches_the_flash_kernel(cuda):
+    cfg = get_preset("qavit_224_v1_proc").model
+    model = build_model(cfg, cuda, seed=0)
+    x = torch.randn(8, 224, 224, 3,
+                    generator=torch.Generator().manual_seed(1)).to(cuda)
+    K.reset_launches()
+    FA.reset_launches()
+    with torch.inference_mode():
+        logits, _ = model(x)
+        counts = {**K.LAUNCHES, **FA.LAUNCHES}
+        with mock.patch.object(FA, "flash_attention", FA.plain):
+            ref, _ = model(x)
+    assert counts == {n: 2 * cfg.depth if n == "flash_attention" else 0
+                      for n in counts}
+    assert logits.shape == (8, cfg.num_classes)
+    err = (logits - ref).abs().max().item()
+    assert err <= 2.0 ** -4 * ref.abs().max().item(), err

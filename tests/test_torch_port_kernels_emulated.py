@@ -1,9 +1,10 @@
-"""The CUDA unit kernels' own source (qavit_tpu_torch/csrc), compiled for
+"""The CUDA kernels' own source (qavit_tpu_torch/csrc), compiled for
 the host with g++ against a small emulation of the CUDA built-ins
 (tests/cuda_emulation/qv_emulate.h) and driven through the same ctypes
 launch functions the card uses, held against the plain versions within
-the stated tolerance (fused_kernels.TOLERANCE), at the tiny width and
-the hqavit_c100 width, in float32 and bf16.  This checks the kernels'
+the stated tolerance (fused_kernels.TOLERANCE): the unit kernels at the
+tiny width and the hqavit_c100 width, the flash-attention kernel at the
+224 path's shapes, in float32 and bf16.  This checks the kernels'
 arithmetic, indexing and the batch-wide NaN guard here; that nvcc accepts
 them and that they agree on the card is checked by chip_smoke.py and the
 tests marked ``cuda``."""
@@ -17,6 +18,7 @@ import pytest
 import torch
 
 from qavit_tpu_torch.configs import get_preset
+from qavit_tpu_torch.kernels import flash_attention as FA
 from qavit_tpu_torch.kernels import fused_kernels as K
 from qavit_tpu_torch.kernels.build import CSRC
 from qavit_tpu_torch.kernels.fused_params import QuadBlockParams
@@ -132,3 +134,25 @@ def test_nan_guard_is_batch_wide(emu_lib, case):
                                    torch.float32)
     assert torch.isnan(y[1]).any() and torch.isfinite(y[0]).all()
     _check(y[0], y_ref[0])
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("which", ["msda", "cross"])
+def test_flash_kernel(emu_lib, which, dtype, rate):
+    """The flash kernel at the 224 shapes (one sample, 4 heads of 48):
+    the MSDA attention (196 queries, 80 keys, contiguous) and the cross
+    attention (16 bank keys broadcast over the batch with stride 0, q a
+    strided view), without and with the hashed dropout mask."""
+    gen = torch.Generator().manual_seed(5)
+    b, nq, h, d = 1, 196, 4, 48
+    if which == "msda":
+        q = torch.randn(b, nq, h, d, generator=gen)
+        k, v = (torch.randn(b, 80, h, d, generator=gen) for _ in range(2))
+    else:
+        q = torch.randn(b, nq, 2 * h, d, generator=gen)[:, :, h:]
+        k, v = (torch.randn(1, 16, h, d, generator=gen).expand(b, -1, -1, -1)
+                for _ in range(2))
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    out = FA.launch(emu_lib, q, k, v, rate, 1234)
+    _check(out, FA.plain(q, k, v, rate, 1234))

@@ -184,9 +184,12 @@ def test_port_imports_nothing_of_jax():
 
 def test_every_kernel_entry_point_is_bound():
     """Every ``extern "C"`` entry of qavit_tpu_torch/csrc/*.cu (forward and
-    backward units, their shared-memory sizes, the scratch size and the
-    struct-size check) gets its ctypes types in fused_kernels.bind, and the
-    binding module imports with JAX made unimportable."""
+    backward units, their shared-memory sizes, the scratch size, the flash
+    kernel and the struct-size checks) gets its ctypes types in
+    fused_kernels.bind, and the binding module imports with JAX made
+    unimportable."""
+    from qavit_tpu_torch.kernels import flash_attention as FA
+
     import ctypes
     import re
     import subprocess
@@ -204,8 +207,10 @@ def test_every_kernel_entry_point_is_bound():
         def __init__(self, name, seen):
             self.name, self.seen = name, seen
 
-        def __call__(self, i):      # only qv_struct_size is called
-            return ctypes.sizeof(K._STRUCTS[i])
+        def __call__(self, *i):     # only the struct-size checks are called
+            if self.name == "qv_flash_struct_size":
+                return ctypes.sizeof(FA.FlashArgs)
+            return ctypes.sizeof(K._STRUCTS[i[0]])
 
     class FakeLib:
         def __init__(self):
@@ -220,7 +225,7 @@ def test_every_kernel_entry_point_is_bound():
     lib = FakeLib()
     K.bind(lib)
     assert lib.seen == entries, (entries - lib.seen, lib.seen - entries)
-    assert {f"qv_{u}" for u in K.LAUNCHES} <= entries
+    assert {f"qv_{u}" for u in {**K.LAUNCHES, **FA.LAUNCHES}} <= entries
     root = Path(__file__).resolve().parent.parent
     code = ("import sys\n"
             "for m in ('jax', 'flax', 'optax', 'orbax', 'qavit_tpu'):\n"

@@ -65,8 +65,9 @@ def jax_bundle(jcfg, seed: int = 0, batch: int = 2):
         {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)},
         dummy, train=True))
     rs = np.random.RandomState(seed)
-    variables = {"params": random_tree(shapes["params"], rs),
-                 "batch_stats": random_tree(shapes["batch_stats"], rs)}
+    variables = {"params": random_tree(shapes["params"], rs)}
+    if "batch_stats" in shapes:          # the flat QAViT has no BatchNorm
+        variables["batch_stats"] = random_tree(shapes["batch_stats"], rs)
     return model, variables
 
 
