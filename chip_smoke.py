@@ -49,7 +49,20 @@ it stopped:
       from the seed, with every launch count set to 0 just before and read
       just after (16 flash launches per forward, no unit launch); then its
       logits through the kernel against the same model with the plain
-      version on the card, bf16 and float32, and its eval forward's time.
+      version on the card, bf16 and float32, and its eval forward's time;
+  (k) multi-window unit checks: each forward unit kernel against its
+      plain version at hqavit_proc_tin's geometry (64 tokens on an 8x8
+      grid, four SWA windows, 40 pooled MSDA rows), B=256, float32 and
+      bf16, seed-made perturbed weights, then with the NaN guard tripped
+      in one sample;
+  (l) the multi-window path: ``qavit_tpu_torch.cli.evaluate --preset
+      hqavit_proc_tin`` at full width and depth (12 blocks), B=128, with
+      every launch count set to 0 just before and read just after (12
+      launches of each forward unit per forward, no backward or flash
+      launch); its logits through the kernels against the plain versions
+      on the card, bf16 and float32; the eval forward's time at B=128 and
+      B=1024; each unit kernel's time against its plain version and its
+      bound at B=1024, bf16; one forward traced at B=128.
 
 Prints the kernels' JSON record and the card's name and power limit
 before the last line, and ends with
@@ -114,6 +127,10 @@ FLASH_SHAPES = (
     ("msda_extreme_tin", FLAT_BATCH, 256, 48, 4, 48, False),
     ("envelope", 64, 576, 144, 4, 64, False),
 )
+TIN_PRESET = "hqavit_proc_tin"
+TIN_BATCH = 128          # phase (l): the preset's batch
+TIN_BIG_BATCH = 1024     # phase (l): timing
+TIN_BATCHES = 2          # evaluated batches in phase (l)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"torch.float32": 67e12, "torch.bfloat16": 989e12}
 REPLACES = {
@@ -219,7 +236,9 @@ def unit_work(name, g, b, dtype_bytes, p):
     """(bytes, flops) the unit must move and compute for batch b: each
     activation read once, each output written once, each parameter the
     unit reads once (float32); matmul FLOPs, with the bank projections
-    counted once per batch since every sample shares them."""
+    counted once per batch since every sample shares them.  SWA's
+    Linformer and attention are per window (nw windows of ws2 tokens,
+    nw * ws2 = n), so their per-sample counts are those of n tokens."""
     n, c, h, lk, s = g.n, g.c, g.heads, g.lin_k, g.bank_s
     d, kv = c // h, g.lin_k + g.bank_s
     act = b * n * c * dtype_bytes
@@ -237,11 +256,13 @@ def unit_work(name, g, b, dtype_bytes, p):
             + 2 * n * c * c
         return act + 2 * act + w + bank, b * per
     if name == "unit_msda":
+        # each pooled row averages pool_stride gathered rows
         pm, keep = p["msda"], g.msda_keep
         w = (nbytes({k: pm[k] for k in ("qkv_kernel", "qkv_bias", "proj")})
              + 2 * keep * lk * 4 + n * keep * 4)
-        per = 2 * keep * n * c + 2 * keep * c * 2 * c + 2 * 2 * lk * keep * c \
-            + 2 * n * c * c + 2 * 2 * h * n * kv * d + 2 * n * c * c
+        per = 2 * keep * g.pool_stride * c + 2 * keep * c * 2 * c \
+            + 2 * 2 * lk * keep * c + 2 * n * c * c + 2 * 2 * h * n * kv * d \
+            + 2 * n * c * c
         return act + act + w + bank, b * per
     if name == "unit_cga":
         pc = p["cga"]
@@ -881,6 +902,187 @@ def flat_path(dev, flash_rows):
             "per_shape": flash_rows}
 
 
+def guarded_error(K, out, ref):
+    """(max abs err over the entries that are finite in the plain version,
+    ok): NaNs must sit where the plain version has them."""
+    import torch
+
+    outs = out if isinstance(out, tuple) else (out,)
+    refs = ref if isinstance(ref, tuple) else (ref,)
+    err, ok = 0.0, True
+    for o, r in zip(outs, refs):
+        nan = torch.isnan(r)
+        ok = ok and torch.equal(torch.isnan(o), nan)
+        fin = ~nan
+        if fin.any():
+            e = K.max_abs_err(o[fin], r[fin])
+            err = max(err, e)
+            ok = ok and e <= K.TOLERANCE[r.dtype] * r[fin].float().abs().max(
+            ).item()
+    return err, ok
+
+
+def multiwindow_checks(K, dev):
+    """Phase (k): each forward unit against its plain version at the
+    hqavit_proc_tin geometry, float32 and bf16, B=CHECK_BATCH; then with a
+    NaN in one sample (float32): the guard is batch-wide, so the plain
+    version zeroes every sample's attention output and the kernels must
+    give the same values and the same NaNs."""
+    import torch
+
+    from qavit_tpu_torch.configs import get_preset
+    from qavit_tpu_torch.kernels.fused_ref import make_geom
+    from qavit_tpu_torch.nn.layers import param_tree
+
+    cfg = get_preset(TIN_PRESET).model
+    g = make_geom(cfg)
+    gen = torch.Generator().manual_seed(6)
+    p = param_tree(perturbed_block(cfg, g, gen).to(dev))
+    bank = tuple((torch.randn(1, g.bank_s, g.c, generator=gen) * 0.5).to(dev)
+                 for _ in range(2))
+    print(f"geometry: n={g.n} on a {math.isqrt(g.n)}x{math.isqrt(g.n)} grid, "
+          f"{g.nw} SWA windows of {g.ws2}, {g.msda_keep} pooled MSDA rows, "
+          f"C={g.c}", flush=True)
+    failed = []
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (torch.randn(CHECK_BATCH, g.n, g.c, generator=gen) * 2).to(
+                dev, dtype)
+            for name, (kern, plain) in unit_calls(K, p, g, dtype, x,
+                                                  bank).items():
+                out = kern()
+                torch.cuda.synchronize()
+                err, rel, bound, ok = worst_error(K, out, plain())
+                print(f"check {name:16s} n={g.n} {str(dtype):15s} "
+                      f"B={CHECK_BATCH} max_abs_err {err:.3e} (relative to "
+                      f"max|plain| {rel:.2e}, tolerance "
+                      f"{K.TOLERANCE[dtype]:.2e})  {'ok' if ok else 'FAIL'}",
+                      flush=True)
+                if not ok:
+                    failed.append((name, str(dtype)))
+        x = torch.randn(CHECK_BATCH, g.n, g.c, generator=gen).to(dev)
+        x[7, 3, 5] = float("nan")
+        for name, (kern, plain) in unit_calls(K, p, g, torch.float32, x,
+                                              bank).items():
+            out = kern()
+            torch.cuda.synchronize()
+            err, ok = guarded_error(K, out, plain())
+            print(f"check {name:16s} n={g.n} NaN guard (one NaN in sample "
+                  f"7): NaNs where plain has them, max_abs_err {err:.3e} "
+                  f"elsewhere  {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                failed.append((name, "guard"))
+        out, _ = K.unit_swa(p, x, *bank, g, torch.float32)
+        if not torch.equal(out, p["swa"]["proj"]["bias"].expand_as(out)):
+            failed.append(("unit_swa", "guard not batch-wide"))
+    if failed:
+        raise AssertionError(f"n={g.n} unit kernels disagree: {failed}")
+    return g, p, bank
+
+
+def multiwindow_path(K, dev, g, p, bank):
+    """Phase (l): the hqavit_proc_tin eval path through the evaluate CLI
+    with the counts reset just before; its logits kernels against plain;
+    its forward's time at two batches; each unit's time at B=1024 against
+    its plain version and bound (the kernel record's @n64 rows); one
+    traced forward."""
+    import torch
+
+    from qavit_tpu_torch.cli import evaluate
+    from qavit_tpu_torch.configs import get_preset
+    from qavit_tpu_torch.data.augment import eval_batch
+    from qavit_tpu_torch.data.datasets import (PIPELINE_BASE, STATS,
+                                               synthetic_dataset)
+    from qavit_tpu_torch.nn.models import build_model
+
+    preset = get_preset(TIN_PRESET)
+    cfg = preset.model
+    reset_launches()
+    r = evaluate.main(["--preset", TIN_PRESET, "--synthetic", "--seed", "0",
+                       "--batch-size", str(TIN_BATCH), "--batches",
+                       str(TIN_BATCHES)])
+    launches = launch_counts()
+    forwards = TIN_BATCHES + 2        # + the smoke and the untimed batch
+    print(f"n=64 path ({TIN_PRESET}, {cfg.depth} blocks): {r['count']} "
+          f"images, top-1 {r['top1']:.2f}%, loss {r['loss']:.4f}, "
+          f"{r['img_per_s']:.1f} img/s (host clock, {forwards} forwards); "
+          f"launches {launches}", flush=True)
+    want = {n: cfg.depth * forwards if n in K.UNITS else 0 for n in launches}
+    if launches != want:
+        raise AssertionError(f"n=64 path launches {launches}, expected "
+                             f"{want} ({cfg.depth} of each forward unit per "
+                             f"forward)")
+    if not (r["count"] == TIN_BATCH * TIN_BATCHES and r["loss"] == r["loss"]
+            and 0.0 <= r["top1"] <= r["top5"] <= 100.0):
+        raise AssertionError(f"n=64 path result out of range: {r}")
+
+    ds = synthetic_dataset(preset.dataset, cfg.img_size, cfg.num_classes,
+                           n_train=0, n_test=TIN_BIG_BATCH, seed=0)
+    big = eval_batch(torch.from_numpy(ds.test_images).to(dev),
+                     *STATS[PIPELINE_BASE[preset.dataset]])
+    images = big[:TIN_BATCH]
+    model_tol = {"bfloat16": 2.0 ** -4, "float32": 1e-4}
+    for dtype_name in ("bfloat16", "float32"):
+        model = build_model(cfg.replace(dtype=dtype_name), dev, seed=0)
+        with torch.inference_mode():
+            lk, _ = model(images)
+            with mock.patch.multiple(K, **K.PLAIN):
+                lp, _ = model(images)
+        err = (lk - lp).abs().max().item()
+        bound = model_tol[dtype_name] * lp.abs().max().item()
+        agree = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
+        ok = (bool(torch.isfinite(lk).all()) and err <= bound
+              and tuple(lk.shape) == (TIN_BATCH, cfg.num_classes))
+        print(f"n=64 logits kernels vs plain, {dtype_name}: max_abs_err "
+              f"{err:.3e} tolerance {bound:.3e} (max|logit| "
+              f"{lp.abs().max().item():.3e}), top-1 agreement "
+              f"{100 * agree:.2f}%  {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"{dtype_name} n=64 logits disagree")
+        del model
+    model = build_model(cfg, dev, seed=0)
+    for batch in (images, big):
+        with torch.inference_mode():
+            fwd_ms = cuda_ms(lambda: model(batch), iters=10)
+        b = batch.shape[0]
+        print(f"n=64 eval forward: {fwd_ms:.3f} ms per batch of {b}, "
+              f"{1000 * b / fwd_ms:.1f} img/s (CUDA events, bf16)",
+              flush=True)
+
+    dtype, rows = torch.bfloat16, []
+    gen = torch.Generator().manual_seed(9)
+    with torch.inference_mode():
+        x = torch.randn(TIN_BIG_BATCH, g.n, g.c, generator=gen).to(dev, dtype)
+        for name, (kern, plain_fn) in unit_calls(K, p, g, dtype, x,
+                                                 bank).items():
+            err, _, _, ok = worst_error(K, kern(), plain_fn())
+            if not ok:
+                raise AssertionError(f"{name} n=64 disagrees at "
+                                     f"B={TIN_BIG_BATCH}")
+            rows.append(kernel_row(
+                f"{name}@n64", f"qavit_tpu_torch/csrc/{name}.cu",
+                REPLACES[name], launches[name], err, cuda_ms(kern, iters=10),
+                cuda_ms(plain_fn, iters=10),
+                unit_work(name, g, TIN_BIG_BATCH, 2, p), dtype))
+    print(f"units per forward at B={TIN_BIG_BATCH} ({cfg.depth} blocks): "
+          f"kernels {cfg.depth * sum(r['ms'] for r in rows):.2f} ms, plain "
+          f"{cfg.depth * sum(r['plain_ms'] for r in rows):.2f} ms",
+          flush=True)
+    top, busy_ms, wall_ms = profile_forward(model, images)
+    if busy_ms > 0:
+        print(f"n=64 eval forward traced at B={TIN_BATCH} (torch.profiler, "
+              f"one forward): device busy {busy_ms:.3f} ms of "
+              f"{wall_ms:.3f} ms wall, idle share "
+              f"{1 - busy_ms / wall_ms:.3f}", flush=True)
+        for name, ms, calls in top:
+            print(f"  {ms:8.3f} ms  {calls:4d} calls  {name[:90]}",
+                  flush=True)
+    else:
+        print("n=64 eval forward traced: the profiler saw no device time; "
+              "breakdown not measured", flush=True)
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -1049,6 +1251,14 @@ def main() -> int:
     say("phase (j) 224 eval path: start")
     record.append(flat_path(dev, flash_rows))
     say("phase (j) 224 eval path: done")
+
+    say("phase (k) multi-window unit checks: start")
+    g64, p64, bank64 = multiwindow_checks(K, dev)
+    say("phase (k) multi-window unit checks: done")
+
+    say("phase (l) multi-window path: start")
+    record += multiwindow_path(K, dev, g64, p64, bank64)
+    say("phase (l) multi-window path: done")
 
     print(card_line(), flush=True)
     print(json.dumps({"kernels": record}), flush=True)

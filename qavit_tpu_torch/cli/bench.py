@@ -16,8 +16,10 @@ timed loss and ``torch.cuda.max_memory_allocated``.  The train-time data
 augmentation stays out, as in the JAX bench.  ``print_analysis`` (FLOPs
 and parameter breakdown) waits for the port of ``obs/analyzer``
 (ROADMAP.md queue 1 item 11).  The flat 224 presets run the eval forward
-only: their train step waits for ROADMAP.md queue 1 item 1.  Runs on the
-card unless ``--device cpu``.
+only: their train step waits for ROADMAP.md queue 1 item 1; so do
+``hqavit_tiny_in`` and ``hqavit_proc_tin``, whose n=64 backward kernels
+wait for ROADMAP.md queue 2 item 2.  Runs on the card unless ``--device
+cpu``.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ from qavit_tpu_torch.device import resolve_device
 from qavit_tpu_torch.nn.models import build_model
 from qavit_tpu_torch.train.optim import make_schedule
 from qavit_tpu_torch.train.state import create_train_state
-from qavit_tpu_torch.train.steps import make_train_step
+from qavit_tpu_torch.train.steps import check_train_geometry, make_train_step
 
 SEED = 0        # of the weights, the batch and the steps' draws
 
@@ -122,6 +124,8 @@ def main(argv: Optional[List[str]] = None) -> List[Dict]:
             f"{args.preset}: the flat QAViT's train step is not ported yet "
             f"(ROADMAP.md queue 1 item 1); drop --train to time its eval "
             f"forward")
+    if args.train:
+        check_train_geometry(get_preset(args.preset).model)
     device = resolve_device(args.device)
     rows = []
     for bs in (int(s) for s in args.batch_sizes.split(",")):

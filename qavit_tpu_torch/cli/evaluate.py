@@ -10,12 +10,14 @@ two-image smoke forward and one untimed batch, then evaluates
 ``--batches`` batches of the synthetic test set and prints top-1, top-5,
 loss and images per second (host clock over the evaluated batches).
 Runs on the card unless ``--device cpu`` is given.  Serves every preset
-of ``configs/presets.py``: ``hqavit_c100`` and the flat 224 QAViTs
-(``qavit_224_v1``, ``qavit_224_v1_proc``, ``qavit_v2``,
-``qavit_v2_proc224``), whose synthetic images are made at 224 px (the
-32 -> 224 resize of the ``cifar100_224`` pipeline waits for the data
-path, ROADMAP queue 1 item 3).  Grad-CAM, TTA and the plots wait for a
-later slice.
+of ``configs/presets.py``: ``hqavit_c100``; the depth-12 HQAViT at 64 px
+(``hqavit_tiny_in``, ``hqavit_proc_tin``: 64 learned tokens, the fused
+units at n=64 in four SWA windows), whose synthetic images are 64 px with
+200 classes; and the flat 224 QAViTs (``qavit_224_v1``,
+``qavit_224_v1_proc``, ``qavit_v2``, ``qavit_v2_proc224``), whose
+synthetic images are made at 224 px (the 32 -> 224 resize of the
+``cifar100_224`` pipeline waits for the data path, ROADMAP queue 1 item
+3).  Grad-CAM, TTA and the plots wait for a later slice.
 """
 
 from __future__ import annotations

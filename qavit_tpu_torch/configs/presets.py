@@ -67,12 +67,37 @@ def _hqavit_c100() -> Preset:
                   "cifar100_hqa")
 
 
+def _hqavit_tiny_in() -> Preset:
+    """HQAViT-IN-Tiny @64 (HQAViT_IN_Tiny.py:49-84): depth 12 [2,2,6,2],
+    64 learned tokens (the fused units at n=64, four SWA windows), 200
+    classes."""
+    model = ModelConfig(
+        name="hqavit_tiny_in",
+        img_size=64, patch_size=4, num_classes=200,
+        depth=12, drop_path=0.2, num_learned_tokens=64,
+        stage_blocks=(2, 2, 6, 2),
+    )
+    train = TrainingConfig(batch_size=128, epochs=300, warmup_epochs=15,
+                           base_lr=5e-4)
+    return Preset(model, train, "tiny_imagenet")
+
+
+def _hqavit_proc_tin() -> Preset:
+    """The depth-12 preset on the proc_tin procedural substrate (64 px,
+    200 classes, TinyImageNet-shaped)."""
+    p = _hqavit_tiny_in()
+    return Preset(p.model.replace(name="hqavit_proc_tin"), p.train,
+                  "proc_tin")
+
+
 PRESETS = {
     "qavit_224_v1": _qavit_224_v1,
     "qavit_v2": _qavit_v2,
     "qavit_224_v1_proc": _qavit_224_v1_proc,
     "qavit_v2_proc224": _qavit_v2_proc224,
     "hqavit_c100": _hqavit_c100,
+    "hqavit_tiny_in": _hqavit_tiny_in,
+    "hqavit_proc_tin": _hqavit_proc_tin,
 }
 
 

@@ -1,11 +1,16 @@
 // Shared pieces of the fused-block unit kernels: forward (eval and
 // train) and backward.
 //
-// Every unit kernel holds one sample at a time in a thread block: the
-// sample's 16 tokens, its intermediates and its attention scores stay in
-// shared memory as float32; weights are float32 in device memory and
-// stay in L2 across the grid.  A block loops over the samples
-// b = blockIdx.x, blockIdx.x + gridDim.x, ... (d.grid blocks in all), so
+// Every unit kernel holds one sample (SWA: one window of a sample) at a
+// time in a thread block: its tokens, its intermediates and its attention
+// scores stay in shared memory as float32; weights are float32 in device
+// memory and stay in L2 across the grid.  The token geometry is a runtime
+// value (Dims): n = 16 tokens in one SWA window (hqavit_c100), or, in
+// eval, n = 64 on an 8x8 grid in four 16-token windows (hqavit_tiny_in),
+// where the MSDA, CGA and cross/tail kernels loop over row tiles of NT
+// tokens.  The backward kernels take n = 16 only.  A block loops over the
+// samples b = blockIdx.x, blockIdx.x + gridDim.x, ... (d.grid blocks in
+// all), so
 // sums across samples (the bank-write partials, the weight gradients) are
 // kept per block in its own slice of a float32 workspace and summed over
 // the blocks in a fixed order by reduce_rows_kernel: no float atomics,
@@ -31,13 +36,18 @@
 
 namespace qv {
 
-constexpr int NT = 16;          // tokens per sample (the 4x4 learned grid)
+constexpr int NT = 16;          // row-tile width: the tokens of one SWA
+                                // window, and of one tile of a sample
+constexpr int WS = 4;           // SWA window side (NT = WS * WS)
 constexpr int NTHREADS = 256;   // threads per block
 // The unit kernels declare __launch_bounds__(NTHREADS, 1): their shared
 // memory allows one block per SM (the CGA forward's two: (NTHREADS, 2)),
 // and saying so lets ptxas spend registers accordingly.  Without it ptxas
 // gave the bf16 SWA forward 40 registers and it ran 20% slower.
 constexpr float LN_EPS = 1e-5f;
+// returned by an entry point for arguments its kernels do not take
+// (cudaErrorInvalidValue's code)
+constexpr int ERR_ARGS = 1;
 
 typedef __nv_bfloat16 bf16;
 
@@ -53,6 +63,9 @@ enum MaskKey {
 
 struct Dims {
   int B;                  // samples
+  int n;                  // tokens per sample (a multiple of NT)
+  int side;               // the token grid is side x side
+  int nw;                 // SWA windows per sample (WS x WS tokens each)
   int c;                  // embed dim
   int heads;
   int lin_k;              // Linformer compressed length
@@ -291,6 +304,9 @@ __device__ __forceinline__ Drop attn_drop(const Dims& d, int key) {
   return Drop{d.train && d.drop_on, d.salt[key], d.thr, d.keep};
 }
 
+// no dropout: the kernels of n > NT run in eval only
+__device__ __forceinline__ Drop no_drop() { return Drop{0, 0u, 0u, 1.f}; }
+
 // ---------------------------------------------------------------------------
 // block-wide building blocks; callers __syncthreads() between dependent steps
 // ---------------------------------------------------------------------------
@@ -303,6 +319,47 @@ __device__ void load_tile(float* dst, const T* src, int n) {
 template <typename T>
 __device__ void store_tile(T* dst, const float* src, int n) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = from_f<T>(src[i]);
+}
+
+// The NT rows of SWA window w of one sample (src: the sample's [n, c]),
+// and back: window w's row r is token (wi * WS + r / WS) * side + wj * WS
+// + r % WS, windows and their rows in row-major order over the grid
+// (fused_ref.window_partition); with one window the sample's rows as
+// they are.
+__device__ __forceinline__ int window_base(const Dims& d, int w) {
+  const int nh = d.side / WS;          // windows per grid row
+  const int wi = w / nh;
+  return (wi * d.side + (w - wi * nh)) * WS;
+}
+
+template <typename T>
+__device__ void load_window(float* dst, const T* src, const Dims& d, int w,
+                            int c) {
+  if (d.nw == 1) {
+    load_tile<T>(dst, src, NT * c);
+    return;
+  }
+  const int base = window_base(d, w);
+  for (int i = threadIdx.x; i < NT * c; i += blockDim.x) {
+    const int r = i / c;
+    const int t = base + (r / WS) * d.side + r % WS;
+    dst[i] = to_f<T>(src[(size_t)t * c + (i - r * c)]);
+  }
+}
+
+template <typename T>
+__device__ void store_window(T* dst, const float* src, const Dims& d, int w,
+                             int c) {
+  if (d.nw == 1) {
+    store_tile<T>(dst, src, NT * c);
+    return;
+  }
+  const int base = window_base(d, w);
+  for (int i = threadIdx.x; i < NT * c; i += blockDim.x) {
+    const int r = i / c;
+    const int t = base + (r / WS) * d.side + r % WS;
+    dst[(size_t)t * c + (i - r * c)] = from_f<T>(src[i]);
+  }
 }
 
 // float32 state (the bank) rounded to the working type

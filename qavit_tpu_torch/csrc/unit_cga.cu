@@ -18,6 +18,13 @@
 // projection in ~100 KB of shared memory (two blocks share an SM; 12 KB
 // more in training), so the unit moves only its input and output through
 // device memory; it is latency-bound for now.
+//
+// n = 64 (hqavit_tiny_in, eval): the scores of all 24 virtual heads would
+// take 480 KB, so cga_tiled_kernel projects q/k/v (all groups, 24 KB per
+// tensor) in 16-token tiles, then runs the attention one channel group
+// (4 heads x 64 queries x 80 keys, 80 KB of scores) at a time, and the
+// proj in 16-token tiles: 195 KB of shared memory at C=192, one block
+// per SM.  Every element is summed in the order of the n = 16 kernel.
 #include "unit_cga.cuh"
 
 namespace qv {
@@ -76,10 +83,91 @@ __global__ void __launch_bounds__(NTHREADS, 2) cga_kernel(CgaArgs a) {
     });
 }
 
+__host__ __device__ inline int cga_tiled_smem_floats(const Dims& d) {
+  const int c = d.c, gw = d.groups * d.cperg, s = d.bank_s, n = d.n;
+  const int sc = pad4(d.heads * n * (n + s));
+  return NT * c                 // an xn tile, then a proj output tile
+         + 3 * n * gw           // q, k, v of all groups
+         + 2 * s * d.cperg      // projected bank k, v
+         + n * gw               // attention output
+         + (sc > s * c ? sc : s * c);  // one group's scores; bank rows
+}
+
+// Eval only, n a multiple of NT; one block per sample.
+template <typename T>
+__global__ void __launch_bounds__(NTHREADS, 1) cga_tiled_kernel(CgaArgs a) {
+  QV_SMEM_DECL
+  __shared__ int bad;
+  const Dims& d = a.d;
+  const int c = d.c, S = d.bank_s, cperg = d.cperg, gg = d.groups;
+  const int n = d.n, gw = gg * cperg, cpg = c / gg;
+  float* xt = qv_smem;
+  float* q = xt + NT * c;
+  float* k = q + n * gw;
+  float* v = k + n * gw;
+  float* kbp = v + n * gw;
+  float* vbp = kbp + S * cperg;
+  float* att = vbp + S * cperg;
+  float* sc = att + n * gw;       // the bank rows during the prologue
+  CgaBufs s{};
+  s.kbp = kbp;
+  s.vbp = vbp;
+
+  if (threadIdx.x == 0) bad = 0;
+  cga_prologue<T>(a, nullptr, nullptr, sc, s);
+  auto sample = [&](int b, bool zero_attn) {
+    const T* in = static_cast<const T*>(a.xn) + (size_t)b * n * c;
+    T* out = static_cast<T*>(a.out) + (size_t)b * n * c;
+    for (int t0 = 0; t0 < n; t0 += NT) {
+      load_tile<T>(xt, in + (size_t)t0 * c, NT * c);
+      __syncthreads();
+      const int r = t0 * gw;
+      dense_rows<T>(xt, c, cpg, NT, cpg, a.q_w, cperg, a.q_b, cperg, gg,
+                    q + r, gw);
+      dense_rows<T>(xt, c, cpg, NT, cpg, a.k_w, cperg, a.k_b, cperg, gg,
+                    k + r, gw);
+      dense_rows<T>(xt, c, cpg, NT, cpg, a.v_w, cperg, a.v_b, cperg, gg,
+                    v + r, gw);
+      __syncthreads();
+    }
+    if (zero_attn) {
+      fill(att, n * gw, 0.f);
+      __syncthreads();
+    } else {
+      for (int g = 0; g < gg; ++g)    // group g's heads, bank heads shared
+        attention<T>(q + g * cperg, gw, n, d.heads, cperg / d.heads,
+                     k + g * cperg, v + g * cperg, gw, n, kbp, vbp, cperg, S,
+                     d.heads, att + g * cperg, gw, sc, sc, no_drop(), 0u,
+                     &bad, d.guard != 0);
+    }
+    for (int t0 = 0; t0 < n; t0 += NT) {
+      dense_rows<T>(att + t0 * gw, gw, 0, NT, gw, a.proj_w, c, a.proj_b, c, 1,
+                    xt, c);
+      __syncthreads();
+      store_tile<T>(out + (size_t)t0 * c, xt, NT * c);
+      __syncthreads();
+    }
+  };
+  for (int b = blockIdx.x; b < d.B; b += gridDim.x) sample(b, false);
+  if (d.guard)
+    finish_guard(a.ws, bad, [&] {
+      for (int b = 0; b < d.B; ++b) sample(b, true);
+    });
+}
+
 }  // namespace qv
 
+extern "C" int qv_unit_cga_smem(const qv::Dims* d);
+
 extern "C" int qv_unit_cga(const qv::CgaArgs* a, int is_bf16, void* stream) {
-  const size_t smem = qv::cga_smem_floats(a->d) * sizeof(float);
+  const size_t smem = qv_unit_cga_smem(&a->d);
+  if (a->d.n != qv::NT) {         // eval only
+    if (a->d.train) return qv::ERR_ARGS;
+    return is_bf16 ? qv_launch(qv::cga_tiled_kernel<qv::bf16>, *a, smem,
+                               stream, a->d.grid)
+                   : qv_launch(qv::cga_tiled_kernel<float>, *a, smem, stream,
+                               a->d.grid);
+  }
   const int rc =
       is_bf16 ? qv_launch(qv::cga_kernel<qv::bf16>, *a, smem, stream,
                           a->d.grid)
@@ -90,5 +178,7 @@ extern "C" int qv_unit_cga(const qv::CgaArgs* a, int is_bf16, void* stream) {
 }
 
 extern "C" int qv_unit_cga_smem(const qv::Dims* d) {
-  return qv::cga_smem_floats(*d) * (int)sizeof(float);
+  return (d->n == qv::NT ? qv::cga_smem_floats(*d)
+                         : qv::cga_tiled_smem_floats(*d)) *
+         (int)sizeof(float);
 }

@@ -57,13 +57,21 @@ __device__ __forceinline__ void fusion_weights(const float* logits,
   for (int i = 0; i < 4; ++i) w[i] = w[i] / sum;
 }
 
+// The rows [row0, row0 + NT) of sample b up to the input of the CCF-FFN's
+// dwconv (dwconv_norm's output with stab_ccf, else the GELU), which this
+// returns: the cross branch, the fusion tail, the first residual, norm2,
+// fc1 and GELU.  Every step is row by row, so a sample of n > NT tokens
+// runs as n / NT tiles (eval only: the attention dropout's mask index
+// assumes the whole sample, row0 = 0).
 template <typename T>
-__device__ void cross_tail_body(const CrossTailArgs& a, int b, bool zero_attn,
-                                const CrossTailBufs& s, int* bad) {
+__device__ const float* cross_tail_front(const CrossTailArgs& a, int b,
+                                         int row0, bool zero_attn,
+                                         const CrossTailBufs& s, int* bad) {
   const Dims& d = a.d;
   const int c = d.c, S = d.bank_s, h = d.heads;
   const int hb = d.bottleneck_hidden, hc = d.ccf_hidden, dc = d.d_c;
-  const size_t off = (size_t)b * NT * c;
+  const int t0 = b * d.n + row0;          // flat token index of row 0
+  const size_t off = (size_t)t0 * c;
 
   // ---- cross branch --------------------------------------------------
   load_tile<T>(s.xn, static_cast<const T*>(a.xn) + off, NT * c);
@@ -82,7 +90,7 @@ __device__ void cross_tail_body(const CrossTailArgs& a, int b, bool zero_attn,
   __syncthreads();
   if (d.train && d.drop_on) {
     for (int e = threadIdx.x; e < NT * c; e += blockDim.x)
-      s.X[e] = rnd<T>(drop(d, CROSS_PROJ, (unsigned)(b * NT * c + e), s.X[e]));
+      s.X[e] = rnd<T>(drop(d, CROSS_PROJ, (unsigned)(t0 * c + e), s.X[e]));
     __syncthreads();
   }
 
@@ -112,7 +120,7 @@ __device__ void cross_tail_body(const CrossTailArgs& a, int b, bool zero_attn,
                 hb);
   __syncthreads();
   for (int e = threadIdx.x; e < NT * hb; e += blockDim.x)
-    s.g1[e] = rnd<T>(drop(d, BN1, (unsigned)(b * NT * hb + e),
+    s.g1[e] = rnd<T>(drop(d, BN1, (unsigned)(t0 * hb + e),
                           rnd<T>(gelu_f(s.h1[e]))));
   __syncthreads();
   dense_rows<T>(s.g1, hb, 0, NT, hb, a.bn2_w, c, a.bn2_b, c, 1, s.y2, c);
@@ -120,34 +128,42 @@ __device__ void cross_tail_body(const CrossTailArgs& a, int b, bool zero_attn,
   __syncthreads();
   const float m1 = drop_path_mul(d, DP1, b);
   for (int e = threadIdx.x; e < NT * c; e += blockDim.x) {
-    float v = rnd<T>(drop(d, BN2, (unsigned)(b * NT * c + e), s.y2[e]));
+    float v = rnd<T>(drop(d, BN2, (unsigned)(t0 * c + e), s.y2[e]));
     if (d.train) v = rnd<T>(v * m1);
     s.y2[e] = v;
     s.x1[e] = rnd<T>(s.x1[e] + v);
   }
   __syncthreads();
 
-  // ---- CCF-FFN --------------------------------------------------------
+  // ---- CCF-FFN up to the dwconv ---------------------------------------
   layer_norm_rows<T>(s.x1, c, s.fin, c, NT, c, a.norm2_s, a.norm2_b, s.stats);
   dense_rows<T>(s.fin, c, 0, NT, c, a.fc1_w, hc, a.fc1_b, hc, 1, s.h, hc);
   __syncthreads();
   gelu_rows<T>(s.h, s.hg, NT * hc);
   __syncthreads();
-  const float* dwin = s.hg;
-  if (d.stab_ccf) {
-    layer_norm_rows<T>(s.hg, hc, s.hn, hc, NT, hc, a.dwn_s, a.dwn_b, s.stats);
-    dwin = s.hn;
-  }
+  if (!d.stab_ccf) return s.hg;
+  layer_norm_rows<T>(s.hg, hc, s.hn, hc, NT, hc, a.dwn_s, a.dwn_b, s.stats);
+  return s.hn;
+}
+
+// The 3x3 depthwise correlation (zero halo, bias before the 0.1 scale) of
+// the rows [row0, row0 + NT) on the side x side grid; dwin: the sample's
+// [n, ccf_hidden] dwconv input, every row of it.
+template <typename T>
+__device__ void ccf_dwconv(const CrossTailArgs& a, const float* dwin,
+                           int row0, const CrossTailBufs& s) {
+  const Dims& d = a.d;
+  const int hc = d.ccf_hidden, side = d.side;
   for (int e = threadIdx.x; e < NT * hc; e += blockDim.x) {
-    const int n = e / hc, ch = e - n * hc;
-    const int gi = n / 4, gj = n % 4;          // 4x4 token grid
+    const int n = row0 + e / hc, ch = e % hc;
+    const int gi = n / side, gj = n % side;
     const float* k = a.dw_w + ch * 9;
     float acc = 0.f;
     for (int ki = 0; ki < 3; ++ki) {
       for (int kj = 0; kj < 3; ++kj) {
         const int si = gi + ki - 1, sj = gj + kj - 1;
-        const float v = (si >= 0 && si < 4 && sj >= 0 && sj < 4)
-                            ? dwin[(si * 4 + sj) * hc + ch]
+        const float v = (si >= 0 && si < side && sj >= 0 && sj < side)
+                            ? dwin[(si * side + sj) * hc + ch]
                             : 0.f;
         acc = fmaf(v, k[ki * 3 + kj], acc);
       }
@@ -159,6 +175,16 @@ __device__ void cross_tail_body(const CrossTailArgs& a, int b, bool zero_attn,
     s.dws[e] = yv;
   }
   __syncthreads();
+}
+
+// The rows [row0, row0 + NT) of sample b after the dwconv:
+// post_dwconv_norm, fc2, gamma and the second residual into s.y.
+template <typename T>
+__device__ void cross_tail_back(const CrossTailArgs& a, int b, int row0,
+                                const CrossTailBufs& s) {
+  const Dims& d = a.d;
+  const int c = d.c, hc = d.ccf_hidden;
+  const int t0 = b * d.n + row0;
   const float* pin = s.dws;
   if (d.stab_ccf) {
     layer_norm_rows<T>(s.dws, hc, s.hp, hc, NT, hc, a.pdn_s, a.pdn_b, s.stats);
@@ -169,13 +195,22 @@ __device__ void cross_tail_body(const CrossTailArgs& a, int b, bool zero_attn,
   const float gamma = d.stab_ccf ? a.gamma[0] : 1.f;
   const float m2 = drop_path_mul(d, DP2, b);
   for (int e = threadIdx.x; e < NT * c; e += blockDim.x) {
-    float f = rnd<T>(drop(d, FFN, (unsigned)(b * NT * c + e), s.z[e]));
+    float f = rnd<T>(drop(d, FFN, (unsigned)(t0 * c + e), s.z[e]));
     s.z[e] = f;
     if (d.stab_ccf) f = rnd<T>(f * gamma);
     if (d.train) f = rnd<T>(f * m2);
     s.y[e] = s.x1[e] + f;
   }
   __syncthreads();
+}
+
+// One sample of n = NT tokens, every buffer holding the whole sample.
+template <typename T>
+__device__ void cross_tail_body(const CrossTailArgs& a, int b, bool zero_attn,
+                                const CrossTailBufs& s, int* bad) {
+  const float* dwin = cross_tail_front<T>(a, b, 0, zero_attn, s, bad);
+  ccf_dwconv<T>(a, dwin, 0, s);
+  cross_tail_back<T>(a, b, 0, s);
 }
 
 }  // namespace qv

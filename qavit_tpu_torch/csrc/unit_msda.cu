@@ -16,6 +16,14 @@
 // microseconds.  The design is the SWA unit's: 256 threads hold one
 // sample at a time, all intermediates in ~160 KB of shared memory,
 // float32 FMAs; it is latency-bound, and tensor cores are later work.
+//
+// n = 64 (hqavit_tiny_in, eval): the sample's 64 xn rows (48 KB), its 40
+// pooled rows and their kv (90 KB) do not fit beside all 64 queries'
+// scores, so msda_tiled_kernel keeps xn, the compressed K/V (32 + 16
+// rows per head) and the bank in shared memory, builds the pooled rows
+// and kv once per sample (in 16-row tiles), and then runs q, scores, PV
+// and proj over 16-query tiles in the space the pooled rows held (215 KB
+// at C=192).  Every element is summed in the order of the n = 16 kernel.
 #include "unit_msda.cuh"
 
 namespace qv {
@@ -77,11 +85,93 @@ __global__ void __launch_bounds__(NTHREADS, 1) msda_kernel(MsdaArgs a) {
     });
 }
 
+__host__ __device__ inline int msda_tiled_smem_floats(const Dims& d) {
+  const int c = d.c, kv = d.lin_k + d.bank_s;
+  const int pool = 3 * d.msda_keep * c;                 // pooled, its k|v
+  const int tile = 2 * NT * c + pad4(d.heads * NT * kv);  // q / o, att, sc
+  return d.n * c              // xn
+         + 2 * d.lin_k * c    // compressed k, v
+         + 2 * d.bank_s * c   // bank k, v
+         + (pool > tile ? pool : tile);
+}
+
+// Eval only, n a multiple of NT; one block per sample.
+template <typename T>
+__global__ void __launch_bounds__(NTHREADS, 1)
+    msda_tiled_kernel(MsdaArgs a) {
+  QV_SMEM_DECL
+  __shared__ int bad;
+  const Dims& d = a.d;
+  const int c = d.c, lk = d.lin_k, S = d.bank_s, h = d.heads;
+  const int n = d.n, keep = d.msda_keep;
+  float* xs = qv_smem;
+  float* kc = xs + n * c;
+  float* vc = kc + lk * c;
+  float* bk = vc + lk * c;
+  float* bv = bk + S * c;
+  float* pooled = bv + S * c;     // [keep, c], then the query tiles:
+  float* kvp = pooled + keep * c;  // [keep, 2c]
+  float* q = pooled;              // [NT, c] q, then the proj output
+  float* att = q + NT * c;        // [NT, c]
+  float* sc = att + NT * c;       // [heads, NT, lin_k + S]
+
+  if (threadIdx.x == 0) bad = 0;
+  load_rounded<T>(bk, a.bank_k, S * c);
+  load_rounded<T>(bv, a.bank_v, S * c);
+  __syncthreads();
+  auto sample = [&](int b, bool zero_attn) {
+    const size_t off = (size_t)b * n * c;
+    load_tile<T>(xs, static_cast<const T*>(a.xn) + off, n * c);
+    __syncthreads();
+    token_mix<T>(a.sel_t, keep, n, xs, c, c, pooled, c);
+    __syncthreads();
+    for (int r0 = 0; r0 < keep; r0 += NT)
+      dense_rows<T>(pooled + r0 * c, c, 0, keep - r0 < NT ? keep - r0 : NT, c,
+                    a.qkv_w + c, 3 * c, a.qkv_b + c, 2 * c, 1,
+                    kvp + r0 * 2 * c, 2 * c);
+    __syncthreads();
+    token_mix<T>(a.e_k, lk, keep, kvp, 2 * c, c, kc, c);
+    token_mix<T>(a.e_v, lk, keep, kvp + c, 2 * c, c, vc, c);
+    __syncthreads();
+    for (int t0 = 0; t0 < n; t0 += NT) {
+      dense_rows<T>(xs + t0 * c, c, 0, NT, c, a.qkv_w, 3 * c, a.qkv_b, c, 1,
+                    q, c);
+      __syncthreads();
+      if (zero_attn) {
+        fill(att, NT * c, 0.f);
+        __syncthreads();
+      } else {
+        attention<T>(q, c, NT, h, c / h, kc, vc, c, lk, bk, bv, c, S, h, att,
+                     c, sc, sc, no_drop(), 0u, &bad, d.guard != 0);
+      }
+      dense_rows<T>(att, c, 0, NT, c, a.proj_w, c, a.proj_b, c, 1, q, c);
+      __syncthreads();
+      store_tile<T>(static_cast<T*>(a.out) + off + (size_t)t0 * c, q,
+                    NT * c);
+      __syncthreads();
+    }
+  };
+  for (int b = blockIdx.x; b < d.B; b += gridDim.x) sample(b, false);
+  if (d.guard)
+    finish_guard(a.ws, bad, [&] {
+      for (int b = 0; b < d.B; ++b) sample(b, true);
+    });
+}
+
 }  // namespace qv
+
+extern "C" int qv_unit_msda_smem(const qv::Dims* d);
 
 extern "C" int qv_unit_msda(const qv::MsdaArgs* a, int is_bf16,
                             void* stream) {
-  const size_t smem = qv::msda_smem_floats(a->d) * sizeof(float);
+  const size_t smem = qv_unit_msda_smem(&a->d);
+  if (a->d.n != qv::NT) {         // eval only
+    if (a->d.train) return qv::ERR_ARGS;
+    return is_bf16 ? qv_launch(qv::msda_tiled_kernel<qv::bf16>, *a, smem,
+                               stream, a->d.grid)
+                   : qv_launch(qv::msda_tiled_kernel<float>, *a, smem,
+                               stream, a->d.grid);
+  }
   const int rc =
       is_bf16 ? qv_launch(qv::msda_kernel<qv::bf16>, *a, smem, stream,
                           a->d.grid)
@@ -92,5 +182,7 @@ extern "C" int qv_unit_msda(const qv::MsdaArgs* a, int is_bf16,
 }
 
 extern "C" int qv_unit_msda_smem(const qv::Dims* d) {
-  return qv::msda_smem_floats(*d) * (int)sizeof(float);
+  return (d->n == qv::NT ? qv::msda_smem_floats(*d)
+                         : qv::msda_tiled_smem_floats(*d)) *
+         (int)sizeof(float);
 }

@@ -5,12 +5,17 @@
 // make_cores.core_swa (fused_cores.py:672 swa_bd), run through
 // fused_pallas.py:190-212 fwd_call.
 //
-// Per sample: xn = LN(x); qkv = xn @ W[192, 576]; Linformer E_k/E_v take
-// the 16 window tokens to 32 rows; the 16 raw bank rows are appended
-// (kv = 48); 4-head softmax attention; proj 192 -> 192.  In training the
-// attention-probability and proj dropout masks come from the counter
-// hash (common.cuh), and the branch LN feeds the bank-write partial sums,
-// kept per block and summed over the blocks by the reduction pass.
+// Per window of 16 tokens (the whole 4x4 sample of hqavit_c100, or one of
+// the four 4x4 windows of hqavit_tiny_in's 8x8 grid, gathered from the
+// sample's rows and scattered back, fused_ref.window_partition):
+// xn = LN(x); qkv = xn @ W[192, 576]; Linformer E_k/E_v take the 16
+// window tokens to 32 rows; the 16 raw bank rows are appended (kv = 48);
+// 4-head softmax attention; proj 192 -> 192.  Each (sample, window) is a
+// block in eval, so the shared memory per block is the same at n = 64.
+// In training (one window per sample) the attention-probability and proj
+// dropout masks come from the counter hash (common.cuh), and the branch
+// LN feeds the bank-write partial sums, kept per block and summed over
+// the blocks by the reduction pass.
 //
 // Bound on the H100 at B=1024 (bf16): it reads 6.3 MB and writes 12.6 MB
 // (~5.6 us at 3.35 TB/s) and does ~5.9 GFLOP (~6 us at 989 TFLOP/s), so
@@ -58,28 +63,35 @@ __global__ void __launch_bounds__(NTHREADS, 1) swa_kernel(SwaArgs a) {
   load_rounded<T>(bv, a.bank_v, S * c);
   if (part != nullptr) fill(part, 2 * S * c, 0.f);
   __syncthreads();
-  auto sample = [&](int b, bool zero_attn, float* acc) {
-    swa_body<T>(a, b, zero_attn, s, &bad);
-    store_tile<T>(static_cast<T*>(a.xn) + (size_t)b * NT * c, xn, NT * c);
-    store_tile<T>(static_cast<T*>(a.out) + (size_t)b * NT * c, qkv, NT * c);
+  // window bw = b * nw + w; the bank partials (training) need the whole
+  // sample in one window (the wrapper refuses training otherwise)
+  auto window = [&](int bw, bool zero_attn, float* acc) {
+    swa_body<T>(a, bw, zero_attn, s, &bad);
+    const int b = bw / d.nw, w = bw - b * d.nw;
+    const size_t off = (size_t)b * d.n * c;
+    store_window<T>(static_cast<T*>(a.xn) + off, xn, d, w, c);
+    store_window<T>(static_cast<T*>(a.out) + off, qkv, d, w, c);
     __syncthreads();
     if (acc != nullptr)
       bank_partials<T>(qkv, a.bw, c, S, x, xn, sc, stats, acc);
   };
-  for (int b = blockIdx.x; b < d.B; b += gridDim.x) sample(b, false, part);
+  const int windows = d.B * d.nw;
+  for (int bw = blockIdx.x; bw < windows; bw += gridDim.x)
+    window(bw, false, part);
   if (d.guard)
     finish_guard(a.ws, bad, [&] {
       if (part != nullptr) {   // every block's partials restart here
         fill(a.bw.part, d.grid * 2 * S * c, 0.f);
         __syncthreads();
       }
-      for (int b = 0; b < d.B; ++b) sample(b, true, part);
+      for (int bw = 0; bw < windows; ++bw) window(bw, true, part);
     });
 }
 
 }  // namespace qv
 
 extern "C" int qv_unit_swa(const qv::SwaArgs* a, int is_bf16, void* stream) {
+  if (a->d.train && a->d.nw != 1) return qv::ERR_ARGS;
   const size_t smem = qv::swa_smem_floats(a->d) * sizeof(float);
   const int rc = is_bf16
                      ? qv_launch(qv::swa_kernel<qv::bf16>, *a, smem, stream,

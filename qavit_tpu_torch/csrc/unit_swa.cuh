@@ -1,7 +1,8 @@
-// The per-sample body of unit 1 (norm1 LayerNorm + SWA branch), shared by
+// The per-window body of unit 1 (norm1 LayerNorm + SWA branch), shared by
 // the forward kernel (unit_swa.cu) and the backward kernel
 // (unit_swa_bwd.cu), which recomputes the sample through this same code
-// and so sees the forward's values bit for bit.
+// and so sees the forward's values bit for bit.  A window is NT tokens of
+// one sample; with one window per sample (n = NT) it is the sample.
 #pragma once
 #include "common.cuh"
 
@@ -24,12 +25,16 @@ struct SwaBufs {
   float* stats;  // 2*NT
 };
 
+// Window bw = b * nw + w (window w of sample b), the index of the JAX
+// package's [B * nw, ws2, ...] window layout, which its masks follow.
 template <typename T>
-__device__ void swa_body(const SwaArgs& a, int b, bool zero_attn,
+__device__ void swa_body(const SwaArgs& a, int bw, bool zero_attn,
                          const SwaBufs& s, int* bad) {
   const Dims& d = a.d;
   const int c = d.c, lk = d.lin_k, S = d.bank_s, h = d.heads;
-  load_tile<T>(s.x, static_cast<const T*>(a.x) + (size_t)b * NT * c, NT * c);
+  const int b = bw / d.nw;
+  load_window<T>(s.x, static_cast<const T*>(a.x) + (size_t)b * d.n * c, d,
+                 bw - b * d.nw, c);
   __syncthreads();
   layer_norm_rows<T>(s.x, c, s.xn, c, NT, c, a.norm1_s, a.norm1_b, s.stats);
   dense_rows<T>(s.xn, c, 0, NT, c, a.qkv_w, 3 * c, a.qkv_b, 3 * c, 1, s.qkv,
@@ -44,13 +49,13 @@ __device__ void swa_body(const SwaArgs& a, int b, bool zero_attn,
   } else {
     attention<T>(s.qkv, 3 * c, NT, h, c / h, s.kc, s.vc, c, lk, s.bk, s.bv,
                  c, S, h, s.att, c, s.sc, s.pr, attn_drop(d, SWA_ATTN),
-                 (unsigned)b * h * NT * (lk + S), bad, d.guard != 0);
+                 (unsigned)bw * h * NT * (lk + S), bad, d.guard != 0);
   }
   dense_rows<T>(s.att, c, 0, NT, c, a.proj_w, c, a.proj_b, c, 1, s.o, c);
   __syncthreads();
   if (d.train && d.drop_on) {
     for (int i = threadIdx.x; i < NT * c; i += blockDim.x)
-      s.o[i] = rnd<T>(drop(d, SWA_PROJ, (unsigned)(b * NT * c + i), s.o[i]));
+      s.o[i] = rnd<T>(drop(d, SWA_PROJ, (unsigned)(bw * NT * c + i), s.o[i]));
     __syncthreads();
   }
 }

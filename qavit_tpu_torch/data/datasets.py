@@ -13,11 +13,15 @@ import numpy as np
 STATS = {
     "cifar100": ((0.5071, 0.4867, 0.4408), (0.2675, 0.2565, 0.2761)),
     "proc100": ((0.5, 0.5, 0.5), (0.25, 0.25, 0.25)),
+    "tiny_imagenet": ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225)),
+    "proc_tin": ((0.5, 0.5, 0.5), (0.25, 0.25, 0.25)),
 }
 # the normalisation statistics of each pipeline name a preset uses
-# (``qavit_tpu/data/pipelines.py``: cifar100_224 :28, proc224 :73)
+# (``qavit_tpu/data/pipelines.py``: cifar100_224 :28, proc224 :73,
+# tiny_imagenet :83, proc_tin :89)
 PIPELINE_BASE = {"cifar100_hqa": "cifar100", "cifar100_224": "cifar100",
-                 "proc224": "proc100"}
+                 "proc224": "proc100", "tiny_imagenet": "tiny_imagenet",
+                 "proc_tin": "proc_tin"}
 
 
 @dataclass

@@ -17,12 +17,15 @@ outputs and launches its kernel on the current stream, or raises.  In
 training (``train=UnitTrain(...)``) a unit is a ``torch.autograd.Function``:
 the forward kernel saves only the unit's inputs, and the backward kernel
 ``unit_*_bwd`` recomputes the unit in-kernel with the same masks.  Every
-launch adds one to ``LAUNCHES[name]``.
+launch adds one to ``LAUNCHES[name]``.  The kernels take the geometries of
+:data:`EVAL_GEOMETRIES` (training: :data:`TRAIN_GEOMETRIES`); any other
+raises, naming the reason (:func:`kernel_geometry_error`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -181,10 +184,10 @@ PLAIN = {"unit_swa": swa_plain, "unit_msda": msda_plain,
 # ---------------------------------------------------------------------------
 
 _P = ctypes.c_void_p
-_DIM_FIELDS = ("B", "c", "heads", "lin_k", "bank_s", "msda_keep", "groups",
-               "cperg", "ccf_hidden", "bottleneck_hidden", "d_c", "guard",
-               "stab_ccf", "stab_dw", "dw_bias", "grid", "train", "drop_on",
-               "rgrid")
+_DIM_FIELDS = ("B", "n", "side", "nw", "c", "heads", "lin_k", "bank_s",
+               "msda_keep", "groups", "cperg", "ccf_hidden",
+               "bottleneck_hidden", "d_c", "guard", "stab_ccf", "stab_dw",
+               "dw_bias", "grid", "train", "drop_on", "rgrid")
 
 
 class Dims(ctypes.Structure):
@@ -369,12 +372,30 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def kernel_geometry_error(g: FusedGeom) -> Optional[str]:
-    """Why the kernels cannot run geometry ``g`` (None if they can)."""
+# token geometries the kernels take: (tokens, SWA windows) -> the most
+# pooled MSDA rows.  n = 16 in one window (hqavit_c100) in eval and in
+# training; n = 64 in four 16-token windows (hqavit_tiny_in) in eval only
+EVAL_GEOMETRIES = {(16, 1): 16, (64, 4): 40}
+TRAIN_GEOMETRIES = {(16, 1): 16}
+
+
+def kernel_geometry_error(g: FusedGeom, train: bool = False
+                          ) -> Optional[str]:
+    """Why the kernels cannot run geometry ``g`` (None if they can); with
+    ``train``, in train mode and for the backward kernels."""
     cpg = g.c // g.groups
+    table = TRAIN_GEOMETRIES if train else EVAL_GEOMETRIES
+    keep = table.get((g.n, g.nw))
+    if keep is None or g.ws2 != 16:
+        mode = "in train mode and for the backward kernels" if train \
+            else "in eval"
+        shapes = " or ".join(f"{n} tokens in {w} SWA window(s) of 16"
+                             for n, w in table)
+        return (f"the CUDA units take {shapes} {mode} (ROADMAP queue 2 item "
+                f"2); got n={g.n} in {g.nw} window(s) of {g.ws2}")
     checks = (
-        (g.n == 16 and g.nw == 1, "16 tokens in one SWA window"),
-        (g.bank_s <= 16 and g.msda_keep <= 16, "at most 16 bank / MSDA rows"),
+        (g.bank_s <= 16, "at most 16 bank rows"),
+        (g.msda_keep <= keep, f"at most {keep} pooled MSDA rows at n={g.n}"),
         (all(v % 4 == 0 for v in (g.c, cpg, g.groups * g.cperg,
                                   g.ccf_hidden, g.bottleneck_hidden)),
          "widths that are multiples of 4"),
@@ -390,7 +411,8 @@ def kernel_geometry_error(g: FusedGeom) -> Optional[str]:
 def _dims(g: FusedGeom, b: int, p: Params, grid: int, rgrid: int,
           rng: Optional[R.BlockRng]) -> Dims:
     dw = p["ccf_ffn"]["dwconv"]
-    d = Dims(B=b, c=g.c, heads=g.heads, lin_k=g.lin_k, bank_s=g.bank_s,
+    d = Dims(B=b, n=g.n, side=math.isqrt(g.n), nw=g.nw, c=g.c,
+             heads=g.heads, lin_k=g.lin_k, bank_s=g.bank_s,
              msda_keep=g.msda_keep, groups=g.groups, cperg=g.cperg,
              ccf_hidden=g.ccf_hidden,
              bottleneck_hidden=g.bottleneck_hidden, d_c=g.d_c,
@@ -428,11 +450,12 @@ def train_grid(device: torch.device, b: int) -> "Grid":
 class _Launch:
     """Argument checks and pointer collection for one launch."""
 
-    def __init__(self, lib, name: str, g: FusedGeom, dtype, lead):
+    def __init__(self, lib, name: str, g: FusedGeom, dtype, lead,
+                 train: bool = False):
         if dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"{name}: working dtype must be float32 or "
                             f"bfloat16, got {dtype}")
-        err = kernel_geometry_error(g)
+        err = kernel_geometry_error(g, train)
         if err is not None:
             raise ValueError(f"{name}: {err}")
         self.lib, self.name, self.g, self.dtype = lib, name, g, dtype
@@ -548,7 +571,7 @@ def _fwd_dims(lc: _Launch, p: Params, train: Optional[UnitTrain],
 def launch_swa(lib, p: Params, x, bank_k, bank_v, g: FusedGeom, dtype,
                stream=None, train: Optional[UnitTrain] = None,
                grid: Optional[Grid] = None):
-    lc = _Launch(lib, "unit_swa", g, dtype, x)
+    lc = _Launch(lib, "unit_swa", g, dtype, x, train is not None)
     c, ps = g.c, p["swa"]
     out, xn = torch.empty_like(x), torch.empty_like(x)
     a = SwaArgs()
@@ -559,8 +582,8 @@ def launch_swa(lib, p: Params, x, bank_k, bank_v, g: FusedGeom, dtype,
     a.e_v = lc.w(ps["linformer"]["E_v"], g.ws2, g.lin_k)
     a.bank_k, a.bank_v = _bank(lc, bank_k, bank_v)
     a.proj_w, a.proj_b = lc.dense(ps["proj"], c, c)
-    if train is None:
-        lc.run(a, _fwd_dims(lc, p, None, None), stream)
+    if train is None:     # eval: one block per (sample, window)
+        lc.run(a, _dims(g, lc.b, p, lc.b * g.nw, 1, None), stream)
         return out, xn
     part = _bank_write(lc, a, p, "swa", train, grid)
     ws = lc.run(a, _fwd_dims(lc, p, train, grid), stream)
@@ -570,7 +593,7 @@ def launch_swa(lib, p: Params, x, bank_k, bank_v, g: FusedGeom, dtype,
 def launch_msda(lib, p: Params, xn, bank_k, bank_v, g: FusedGeom, dtype,
                 stream=None, train: Optional[UnitTrain] = None,
                 grid: Optional[Grid] = None):
-    lc = _Launch(lib, "unit_msda", g, dtype, xn)
+    lc = _Launch(lib, "unit_msda", g, dtype, xn, train is not None)
     c, pm = g.c, p["msda"]
     out = torch.empty_like(xn)
     sel_t = _msda_sel_t(g, xn.device)
@@ -595,7 +618,7 @@ def launch_msda(lib, p: Params, xn, bank_k, bank_v, g: FusedGeom, dtype,
 def launch_cga(lib, p: Params, xn, bank_k, bank_v, g: FusedGeom, dtype,
                stream=None, train: Optional[UnitTrain] = None,
                grid: Optional[Grid] = None):
-    lc = _Launch(lib, "unit_cga", g, dtype, xn)
+    lc = _Launch(lib, "unit_cga", g, dtype, xn, train is not None)
     c, pc = g.c, p["cga"]
     cpg = c // g.groups
     out = torch.empty_like(xn)
@@ -649,7 +672,8 @@ def launch_cross_tail(lib, p: Params, x, xn, out_swa, out_msda, out_cga,
                       bank_k, bank_v, g: FusedGeom, dtype, stream=None,
                       train: Optional[UnitTrain] = None,
                       grid: Optional[Grid] = None):
-    lc = _Launch(lib, "unit_cross_tail", g, dtype, x)
+    lc = _Launch(lib, "unit_cross_tail", g, dtype, x,
+                 train is not None)
     y = torch.empty_like(x)
     a = CrossTailArgs()
     a.x, a.xn, a.y = lc.act(x), lc.act(xn), lc.act(y)
@@ -743,7 +767,7 @@ def _run_bwd(lc: _Launch, args, d: Dims, stream) -> None:
 def launch_swa_bwd(lib, p: Params, x, bank_k, bank_v, g: FusedGeom, dtype,
                    stream, train: UnitTrain, grid: Grid, ws, d_out, d_xn):
     """-> ((d_x, d_bank_k, d_bank_v), {param path: gradient})"""
-    lc = _Launch(lib, "unit_swa", g, dtype, x)
+    lc = _Launch(lib, "unit_swa", g, dtype, x, True)
     a = SwaBwdArgs()
     f = a.f
     c, ps = g.c, p["swa"]
@@ -768,7 +792,7 @@ def launch_swa_bwd(lib, p: Params, x, bank_k, bank_v, g: FusedGeom, dtype,
 def launch_msda_bwd(lib, p: Params, xn, bank_k, bank_v, g: FusedGeom, dtype,
                     stream, train: UnitTrain, grid: Grid, ws, d_out):
     """-> ((d_xn, d_bank_k, d_bank_v), {param path: gradient})"""
-    lc = _Launch(lib, "unit_msda", g, dtype, xn)
+    lc = _Launch(lib, "unit_msda", g, dtype, xn, True)
     a = MsdaBwdArgs()
     f = a.f
     c, pm = g.c, p["msda"]
@@ -795,7 +819,7 @@ def launch_msda_bwd(lib, p: Params, xn, bank_k, bank_v, g: FusedGeom, dtype,
 def launch_cga_bwd(lib, p: Params, xn, bank_k, bank_v, g: FusedGeom, dtype,
                    stream, train: UnitTrain, grid: Grid, ws, d_out):
     """-> ((d_xn, d_bank_k, d_bank_v), {param path: gradient})"""
-    lc = _Launch(lib, "unit_cga", g, dtype, xn)
+    lc = _Launch(lib, "unit_cga", g, dtype, xn, True)
     a = CgaBwdArgs()
     f = a.f
     c, pc = g.c, p["cga"]
@@ -824,7 +848,7 @@ def launch_cross_tail_bwd(lib, p: Params, x, xn, out_swa, out_msda, out_cga,
                           train: UnitTrain, grid: Grid, ws, d_y):
     """-> ((d_x, d_xn, d_swa, d_msda, d_cga, d_bank_k, d_bank_v),
     {param path: gradient})"""
-    lc = _Launch(lib, "unit_cross_tail", g, dtype, x)
+    lc = _Launch(lib, "unit_cross_tail", g, dtype, x, True)
     a = CrossTailBwdArgs()
     f = a.f
     f.x, f.xn = lc.act(x), lc.act(xn)

@@ -20,7 +20,8 @@ from torch.func import functional_call
 
 from qavit_tpu_torch.configs.model import ModelConfig
 from qavit_tpu_torch.configs.training import TrainingConfig
-from qavit_tpu_torch.kernels.fused_ref import fmix32
+from qavit_tpu_torch.kernels.fused_kernels import kernel_geometry_error
+from qavit_tpu_torch.kernels.fused_ref import fmix32, make_geom
 from qavit_tpu_torch.nn.layers import DropoutRng
 from qavit_tpu_torch.train.mix import apply_mix, mixed_loss
 from qavit_tpu_torch.train.optim import (adamw_update, apply_clipping, decays,
@@ -32,6 +33,21 @@ from qavit_tpu_torch.train.state import (TrainState, copy_buffers, ema_update,
 def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md "
                               f"{item})")
+
+
+def check_train_geometry(mc: ModelConfig) -> None:
+    """Raise unless the fused units' backward kernels take ``mc``'s block
+    geometry (HQAViT; the flat QAViT's train step raises on its own, queue
+    1 item 1): today n=16 in one SWA window.  The n=64 eval geometry of
+    ``hqavit_tiny_in`` trains in the next slice."""
+    if not mc.hybrid:
+        return
+    geom = make_geom(mc)
+    err = ("no fused-block geometry" if geom is None
+           else kernel_geometry_error(geom, train=True))
+    if err is not None:
+        _not_ported(f"{mc.name}'s train step: {err}",
+                    "queue 2 item 2, the train slice at n=64")
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -66,15 +82,16 @@ def make_train_step(mc: ModelConfig, tc: TrainingConfig,
     """``train_step(state, images, targets, seed) -> metrics``; updates
     ``state`` (and its model) in place.  images: [B, H, W, C] normalised
     float32 on the model's device; targets: [B] int."""
+    check_train_geometry(mc)
     if int(getattr(tc, "gradient_accumulation_steps", 1)) > 1:
         _not_ported("gradient_accumulation_steps > 1",
-                    "queue 1 item 5 (gradient accumulation)")
+                    "queue 1 item 4 (gradient accumulation)")
     if getattr(tc, "flat_optimizer", False):
-        _not_ported("flat_optimizer", "queue 1 item 15 (train/flat_optim)")
+        _not_ported("flat_optimizer", "queue 1 item 4 (train/flat_optim)")
     if tc.lr_groups is not None:
-        _not_ported("lr_groups", "queue 1 item 5 (layerwise LR groups)")
+        _not_ported("lr_groups", "queue 1 item 4 (layerwise LR groups)")
     if debug_grads:
-        _not_ported("debug_grads", "queue 1 item 9 (obs/monitor)")
+        _not_ported("debug_grads", "queue 1 item 4 (obs/monitor)")
 
     def train_step(state: TrainState, images: torch.Tensor,
                    targets: torch.Tensor, seed: int) -> Dict:

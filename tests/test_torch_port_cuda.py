@@ -4,8 +4,11 @@
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
 Each unit kernel against its plain version within the stated tolerance
-(fused_kernels.TOLERANCE), a full-width hqavit_c100 forward that
-launches every kernel 8 times and matches the plain path's logits, each
+(fused_kernels.TOLERANCE) at the hqavit_c100 and the hqavit_proc_tin
+geometries (16 tokens in one SWA window; 64 in four), a full-width
+hqavit_c100 forward that launches every kernel 8 times and a full-depth
+hqavit_proc_tin forward that launches each forward unit 12 times, both
+matching the plain path's logits, each
 unit's train-mode forward and backward kernel against the plain version
 and autograd (fused_kernels.GRAD_TOLERANCE), and one full-width train
 step that launches every forward and backward kernel 8 times; the
@@ -38,9 +41,8 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_units_match_plain_on_the_card(cuda, dtype):
-    cfg = get_preset("hqavit_c100").model
+def _units_match_plain(cuda, preset, dtype):
+    cfg = get_preset(preset).model
     g = make_geom(cfg)
     gen = torch.Generator().manual_seed(0)
     p = param_tree(init_weights(QuadBlockParams(cfg, g), gen).to(cuda))
@@ -59,6 +61,37 @@ def test_units_match_plain_on_the_card(cuda, dtype):
         torch.cuda.synchronize()
     for out, ref in ((o, ro), (xn, rxn), (m, rm), (c, rc), (y, ry)):
         assert K.within_tolerance(out, ref), K.max_abs_err(out, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_units_match_plain_on_the_card(cuda, dtype):
+    _units_match_plain(cuda, "hqavit_c100", dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_multiwindow_units_match_plain_on_the_card(cuda, dtype):
+    """The n=64 geometry (four SWA windows, 40 pooled MSDA rows)."""
+    _units_match_plain(cuda, "hqavit_proc_tin", dtype)
+
+
+def test_multiwindow_forward_launches_each_unit_per_block(cuda):
+    """hqavit_proc_tin: 12 launches of each forward unit per forward, no
+    backward or flash launch, logits as the plain path's."""
+    cfg = get_preset("hqavit_proc_tin").model
+    model = build_model(cfg, cuda, seed=0)
+    x = torch.randn(8, 64, 64, 3, generator=torch.Generator().manual_seed(1))
+    x = x.to(cuda)
+    K.reset_launches()
+    FA.reset_launches()
+    with torch.inference_mode():
+        logits, _ = model(x)
+        counts = {**K.LAUNCHES, **FA.LAUNCHES}
+        with mock.patch.multiple(K, **K.PLAIN):
+            ref, _ = model(x)
+    assert counts == {n: cfg.depth if n in K.UNITS else 0 for n in counts}
+    assert cfg.depth == 12 and logits.shape == (8, cfg.num_classes)
+    err = (logits - ref).abs().max().item()
+    assert err <= 2.0 ** -4 * ref.abs().max().item(), err
 
 
 def test_forward_launches_each_kernel_per_block(cuda):

@@ -3,11 +3,12 @@ the host with g++ against a small emulation of the CUDA built-ins
 (tests/cuda_emulation/qv_emulate.h) and driven through the same ctypes
 launch functions the card uses, held against the plain versions within
 the stated tolerance (fused_kernels.TOLERANCE): the unit kernels at the
-tiny width and the hqavit_c100 width, the flash-attention kernel at the
-224 path's shapes, in float32 and bf16.  This checks the kernels'
-arithmetic, indexing and the batch-wide NaN guard here; that nvcc accepts
-them and that they agree on the card is checked by chip_smoke.py and the
-tests marked ``cuda``."""
+tiny width, the hqavit_c100 width (16 tokens, one SWA window) and the
+hqavit_tiny_in geometry (64 tokens, four SWA windows, full width), the
+flash-attention kernel at the 224 path's shapes, in float32 and bf16.
+This checks the kernels' arithmetic, indexing and the batch-wide NaN
+guard here; that nvcc accepts them and that they agree on the card is
+checked by chip_smoke.py and the tests marked ``cuda``."""
 
 import ctypes
 import shutil
@@ -43,13 +44,16 @@ def emu_lib(tmp_path_factory):
 
 
 def _cfg(width):
+    if width == "multiwindow":
+        return get_preset("hqavit_tiny_in").model
     cfg = get_preset("hqavit_c100").model
     if width == "tiny":
         cfg = cfg.replace(embed_dim=48, linformer_k=8, msda_pad_len=32)
     return cfg
 
 
-@pytest.fixture(scope="module", params=["tiny", "flagship_width"])
+@pytest.fixture(scope="module",
+                params=["tiny", "flagship_width", "multiwindow"])
 def case(request):
     """Seed-made block weights (perturbed so LN scales, biases, fusion
     weights and gamma are not at their constant inits), bank and input."""

@@ -29,19 +29,11 @@ from qavit_tpu_torch.nn.bank import BankState
 from qavit_tpu_torch.nn.block import (BranchQuadBlock, QuadAttentionBlock,
                                       flat_block)
 from qavit_tpu_torch.nn.models import QAViT
-from torch_port_common import (assert_close, jax_bundle, port_cfg,
-                               random_tree, to_np)
+from torch_port_common import (BF16_VS_F32, BF16_VS_JAX, assert_close,
+                               jax_bundle, port_cfg, random_tree, to_np)
 
 FLAT_PRESETS = ("qavit_224_v1", "qavit_v2", "qavit_224_v1_proc",
                 "qavit_v2_proc224")
-# the bf16 model check: the port's bf16 logits may differ from JAX's bf16
-# logits by at most BF16_VS_JAX x JAX's own bf16-vs-float32 distance, and
-# from JAX's float32 logits by at most BF16_VS_F32 x that distance (both
-# frameworks round at the same points, but bf16 ties and float32 sums
-# fall differently; at depth 2 the port read 0.78-1.45x and 0.94-0.95x
-# of JAX's own distance on seeds 7 and 11)
-BF16_VS_JAX = 2.0
-BF16_VS_F32 = 1.5
 
 
 def _224_depth2(dtype="float32"):

@@ -1,7 +1,9 @@
 """The port's plain unit functions (qavit_tpu_torch/kernels/fused_ref.py)
 against the JAX package's twins (qavit_tpu/kernels/fused_ref.py) on the
-same seed-made weights and inputs, at the tiny test width and at the
-hqavit_c100 width.  These plain functions are the CPU path and the
+same seed-made weights and inputs, at the tiny test width, at the
+hqavit_c100 width (16 tokens, one SWA window) and at the hqavit_tiny_in
+geometry at full width (64 tokens on an 8x8 grid, four SWA windows, 40
+pooled MSDA rows).  These plain functions are the CPU path and the
 reference the CUDA kernels are held against on the card."""
 
 import jax.numpy as jnp
@@ -16,17 +18,20 @@ from qavit_tpu_torch.kernels import fused_ref as RT
 from qavit_tpu_torch.kernels.fused_params import QuadBlockParams
 from qavit_tpu_torch.nn.layers import param_tree
 from torch_port_common import (assert_close, block_tree,
-                               flagship_width_depth2, jax_bundle, port_cfg)
+                               flagship_width_depth2, jax_bundle,
+                               multiwindow_depth2, port_cfg)
 
 B = 3
 
 
-@pytest.fixture(scope="module", params=["tiny", "flagship_width"])
+@pytest.fixture(scope="module",
+                params=["tiny", "flagship_width", "multiwindow"])
 def unit_case(request, tiny_cfg):
     """(JAX geometry, port geometry, JAX block params, port block tree,
-    bank k/v, x) for one width."""
-    jcfg = (tiny_cfg.replace(attn_impl="fused_block")
-            if request.param == "tiny" else flagship_width_depth2())
+    bank k/v, x) for one width and token geometry."""
+    jcfg = {"tiny": lambda: tiny_cfg.replace(attn_impl="fused_block"),
+            "flagship_width": flagship_width_depth2,
+            "multiwindow": multiwindow_depth2}[request.param]()
     _, variables = jax_bundle(jcfg, seed=1)
     pj_np = block_tree(variables)
     cfg = port_cfg(jcfg)

@@ -20,6 +20,14 @@ from qavit_tpu_torch.configs.model import BankConfig, ModelConfig
 # of the largest output (2**-6 relative to max|ref|)
 F32 = dict(rtol=1e-4, atol=1e-5)
 BF16_REL_TO_MAX = 2.0 ** -6
+# the bf16 model check: the port's bf16 logits may differ from JAX's bf16
+# logits by at most BF16_VS_JAX x JAX's own bf16-vs-float32 distance, and
+# from JAX's float32 logits by at most BF16_VS_F32 x that distance (both
+# frameworks round at the same points, but bf16 ties and float32 sums
+# fall differently; at depth 2 the flat 224 QAViT read 0.78-1.45x and
+# 0.94-0.95x of JAX's own distance on seeds 7 and 11)
+BF16_VS_JAX = 2.0
+BF16_VS_F32 = 1.5
 
 
 def flagship_width_depth2():
@@ -27,6 +35,25 @@ def flagship_width_depth2():
     depth cut to 2 (one block in each of the first two stages), fp32."""
     return jax_get_preset("hqavit_c100").model.replace(
         depth=2, stage_blocks=(1, 1, 0, 0), dtype="float32",
+        attn_impl="fused_block")
+
+
+def multiwindow_depth2():
+    """hqavit_tiny_in's block geometry at full width (C=192, 64 learned
+    tokens on an 8x8 grid, four SWA windows of 16, 40 pooled MSDA rows)
+    with depth cut to 2, fp32."""
+    return jax_get_preset("hqavit_tiny_in").model.replace(
+        depth=2, stage_blocks=(1, 1, 0, 0), dtype="float32",
+        attn_impl="fused_block")
+
+
+def narrow_tiny_in(dtype: str = "float32"):
+    """hqavit_tiny_in at its token geometry (64 px, patch 4, 256 patches,
+    64 learned tokens, four SWA windows, 200 classes) but narrow and
+    shallow: C=48, depth 4 as [1, 1, 1, 1], a narrow CNN side path."""
+    return jax_get_preset("hqavit_tiny_in").model.replace(
+        embed_dim=48, depth=4, stage_blocks=(1, 1, 1, 1), linformer_k=8,
+        cnn_c2=8, cnn_c3=12, cnn_c4=16, rrcv_channels=8, dtype=dtype,
         attn_impl="fused_block")
 
 
