@@ -6,7 +6,10 @@ Phases, each between flushed ``[t=...s]`` lines so a cut run shows where
 it stopped:
 
   (a) environment: torch / CUDA versions, the card's name and power limit;
-  (b) build: the single nvcc build of qavit_tpu_torch/csrc (cache hit?);
+  (b) build: the single nvcc build of qavit_tpu_torch/csrc (cache hit?),
+      each kernel's registers, static shared memory and spills from
+      ptxas, and the tensor-core primitives' self-test (ldmatrix ->
+      mma.sync against A @ B, B read with and without .trans);
   (c) kernel checks: each fused-block unit kernel against its plain
       PyTorch version at B=256, hqavit_c100 shapes, float32 and bf16,
       seed-made weights and inputs, plus the batch-wide NaN guard;
@@ -42,8 +45,10 @@ it stopped:
       MSDA shape and at the envelope corner (576 queries, 144 keys, D 64),
       float32 and bf16, with dropout 0 and 0.1 (the same hashed mask); its
       autograd Function's backward (a recompute) against autograd through
-      the plain version; then its time, the plain version's and
-      ``scaled_dot_product_attention``'s at the 224 shapes (bf16);
+      the plain version; then its time at the 224 shapes (bf16) on the
+      device (torch.profiler) and per call (CUDA events), the plain
+      version's and ``scaled_dot_product_attention``'s, beside the bf16
+      tensor-core kernel's registers, spills and shared memory;
   (j) the 224 path: ``qavit_tpu_torch.cli.evaluate --preset
       qavit_224_v1_proc`` at full width and depth, B=256, synthetic data
       from the seed, with every launch count set to 0 just before and read
@@ -54,7 +59,8 @@ it stopped:
       plain version at hqavit_proc_tin's geometry (64 tokens on an 8x8
       grid, four SWA windows, 40 pooled MSDA rows), B=256, float32 and
       bf16, seed-made perturbed weights, then with the NaN guard tripped
-      in one sample;
+      in one sample (float32, and bf16 for the MSDA unit); the bf16
+      tensor-core MSDA kernel's registers, spills and shared memory;
   (l) the multi-window path: ``qavit_tpu_torch.cli.evaluate --preset
       hqavit_proc_tin`` at full width and depth (12 blocks), B=128, with
       every launch count set to 0 just before and read just after (12
@@ -159,7 +165,8 @@ def card_line() -> str:
 
 def ptxas_summary(log: str):
     """One line per kernel entry of nvcc's -Xptxas=-v log: registers,
-    stack frame and spills."""
+    static shared memory, stack frame and spills (a template's integer
+    arguments in angle brackets)."""
     import re
 
     name, frame = None, ""
@@ -168,16 +175,27 @@ def ptxas_summary(log: str):
         if m:
             raw = m.group(1)
             kern = re.search(r"qv\d+(\w+?_kernel)", raw)
+            ints = re.findall(r"Li(\d+)E", raw)
             name = (kern.group(1) if kern else raw) + (
+                f"<{','.join(ints)}>" if ints else "") + (
                 "<bf16>" if "bf16" in raw or "13__nv_bfloat16" in raw
                 else "")
             continue
         if name and "stack frame" in line:
             frame = line.split(":")[-1].strip()
-        m = re.search(r"Used (\d+) registers", line)
+        m = re.search(r"Used (\d+) registers(.*)", line)
         if name and m:
-            yield f"{name}: {m.group(1)} registers, {frame}"
+            yield f"{name}: {m.group(1)} registers{m.group(2)}, {frame}"
             name, frame = None, ""
+
+
+def print_ptxas(prefix: str) -> None:
+    """The ptxas lines of the kernels whose name starts with ``prefix``."""
+    from qavit_tpu_torch.kernels import build
+
+    for line in ptxas_summary(build.load().log):
+        if line.startswith(prefix):
+            print("ptxas:", line, flush=True)
 
 
 def perturbed_block(cfg, g, gen):
@@ -706,6 +724,7 @@ def flash_checks(dev):
     import torch.nn.functional as F
 
     from qavit_tpu_torch.kernels import attention as A
+    from qavit_tpu_torch.kernels import build
     from qavit_tpu_torch.kernels import flash_attention as FA
     from qavit_tpu_torch.kernels import fused_kernels as K
 
@@ -752,38 +771,84 @@ def flash_checks(dev):
         raise AssertionError(f"flash kernel disagrees: {failed}")
 
     dtype, rows = torch.bfloat16, []
+    print_ptxas("flash_mma_kernel")
+    lib = K.bind(build.load().lib)
     for shape in FLASH_SHAPES[:2]:
         q, k, v = flash_inputs(shape, dtype, dev, gen)
+        print(f"flash_mma_kernel at {shape[0]}: "
+              f"{FA.smem_bytes(lib, q, k, v)} B of dynamic shared memory "
+              f"per block", flush=True)
         # the library's own layout [B, H, N, D], made outside the timing
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         with torch.inference_mode():
-            ms = cuda_ms(lambda: FA.flash_attention(q, k, v))
+            call_ms = cuda_ms(lambda: FA.flash_attention(q, k, v))
+            dev_ms = device_ms(lambda: FA.flash_attention(q, k, v))
             plain_ms = cuda_ms(lambda: FA.plain(q, k, v))
             lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt))
+        # the kernel's own time where the profiler saw it, else per call
+        ms = call_ms if dev_ms is None else dev_ms
         nbytes, flops = flash_work(q, k, v)
         t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
         t_ops = 1e3 * flops / PEAK_FLOPS[str(dtype)]
         rows.append({"shape": shape[0], "q": list(q.shape),
-                     "kv": list(k.shape), "ms": ms, "plain_ms": plain_ms,
+                     "kv": list(k.shape), "ms": ms, "call_ms": call_ms,
+                     "plain_ms": plain_ms,
                      "library_ms": lib_ms, "bound_ms": max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops else
                      "operations", "max_abs_err": errs[shape[0], dtype, 0.0]})
-        print(f"time flash_attention {shape[0]:10s} {ms:.4f} ms  plain "
-              f"{plain_ms:.4f} ms  scaled_dot_product_attention "
-              f"{lib_ms:.4f} ms  bound {max(t_bytes, t_ops) * 1e3:.2f} us "
-              f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)", flush=True)
+        print(f"time flash_attention {shape[0]:10s} {ms:.4f} ms on the "
+              f"device (torch.profiler; {call_ms:.4f} ms per call, CUDA "
+              f"events)  plain {plain_ms:.4f} ms  "
+              f"scaled_dot_product_attention {lib_ms:.4f} ms  bound "
+              f"{max(t_bytes, t_ops) * 1e3:.2f} us ({nbytes / 1e6:.1f} MB, "
+              f"{flops / 1e9:.2f} GFLOP)", flush=True)
     return rows
+
+
+def device_kernels(prof):
+    """[(name, device ms, calls)] of the device's own events in a
+    ``torch.profiler`` run, longest first (an operator's row would count
+    its kernels again)."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if us > 0:
+            rows.append((ev.key, us / 1e3, ev.count))
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def device_ms(fn, iters: int = 20):
+    """Device time per call of the kernels ``fn`` launches, from
+    ``torch.profiler`` after a warm-up (None where the profiler saw no
+    device time).  CUDA events around back-to-back calls measure the
+    host instead when a call's host work outlasts its kernel, as the
+    flash wrapper's does at some 0.05 ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(ms for _, ms, _ in device_kernels(prof))
+    return total / iters if total > 0 else None
 
 
 def profile_forward(model, images, top: int = 10):
     """One traced forward after a warm-up: ([(name, device ms, calls)]
     of the ``top`` kernels by device time, device-busy ms, wall ms).
-    Only the device's own events count (an operator's row would count
-    its kernels again).  Busy ms is 0.0 where the profiler saw no
-    device time."""
+    Busy ms is 0.0 where the profiler saw no device time."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with torch.inference_mode():
@@ -795,16 +860,7 @@ def profile_forward(model, images, top: int = 10):
             model(images)
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
-    rows = []
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0.0)
-        if us > 0:
-            rows.append((ev.key, us / 1e3, ev.count))
-    rows.sort(key=lambda r: -r[1])
+    rows = device_kernels(prof)
     return rows[:top], sum(r[1] for r in rows), wall_ms
 
 
@@ -895,7 +951,8 @@ def flat_path(dev, flash_rows):
             "replaces": REPLACES["flash_attention"],
             "launches": launches["flash_attention"],
             "max_abs_err": max(row["max_abs_err"] for row in flash_rows),
-            "ms": mean("ms"), "plain_ms": mean("plain_ms"),
+            "ms": mean("ms"), "call_ms": mean("call_ms"),
+            "plain_ms": mean("plain_ms"),
             "bound_ms": mean("bound_ms"), "bound_by": "bytes" if all(
                 row["bound_by"] == "bytes" for row in flash_rows)
             else "operations", "library_ms": mean("library_ms"),
@@ -931,6 +988,7 @@ def multiwindow_checks(K, dev):
     import torch
 
     from qavit_tpu_torch.configs import get_preset
+    from qavit_tpu_torch.kernels import build
     from qavit_tpu_torch.kernels.fused_ref import make_geom
     from qavit_tpu_torch.nn.layers import param_tree
 
@@ -975,8 +1033,25 @@ def multiwindow_checks(K, dev):
         out, _ = K.unit_swa(p, x, *bank, g, torch.float32)
         if not torch.equal(out, p["swa"]["proj"]["bias"].expand_as(out)):
             failed.append(("unit_swa", "guard not batch-wide"))
+        # the bf16 tensor-core MSDA kernel's guard: every sample proj(0)
+        xn = K.swa_plain(p, x.to(torch.bfloat16), *bank, g,
+                         torch.bfloat16)[1]
+        out = K.unit_msda(p, xn, *bank, g, torch.bfloat16)
+        torch.cuda.synchronize()
+        ref = K.msda_plain(p, xn, *bank, g, torch.bfloat16)
+        ok = torch.equal(out, ref)
+        print(f"check unit_msda         n={g.n} NaN guard bf16 (one NaN in "
+              f"sample 7): equal to plain {ok}, max_abs_err "
+              f"{K.max_abs_err(out, ref):.3e}  {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            failed.append(("unit_msda", "guard bf16"))
     if failed:
         raise AssertionError(f"n={g.n} unit kernels disagree: {failed}")
+    print_ptxas("msda_mma_kernel")
+    lib = K.bind(build.load().lib)
+    print(f"msda_mma_kernel: {lib.qv_unit_msda_mma_smem(None)} B of dynamic "
+          f"shared memory per block", flush=True)
     return g, p, bank
 
 
@@ -1118,6 +1193,16 @@ def main() -> int:
           f"{kl.path.name}", flush=True)
     for line in ptxas_summary(kl.log):
         print("ptxas:", line, flush=True)
+    from qavit_tpu_torch.kernels import mma_selftest as MS
+
+    rows, ok = MS.check(kl.lib, seed=0, device=torch.device("cuda"),
+                        stream=torch.cuda.current_stream().cuda_stream)
+    for trans, err, bound in rows:
+        print(f"check mma self-test (ldmatrix{'.trans' if trans else ''} -> "
+              f"mma.sync m16n8k16 vs A @ B): max_abs_err {err:.3e} bound "
+              f"{bound:.3e}  {'ok' if err <= bound else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the tensor-core primitives disagree with A @ B")
     say("phase (b) build: done")
 
     cfg = get_preset("hqavit_c100").model

@@ -5,25 +5,55 @@
 // fused_pallas.py:190-212 fwd_call.
 //
 // Per sample: the dilated (1,2) gather and stride-2 landmark pooling are
-// one constant [10, 16] mixing matrix; kv = pooled @ W[:, 192:576]; the
-// Linformer E uses only its first msda_keep = 10 rows (the rest meet the
+// one constant [keep, n] mixing matrix; kv = pooled @ W[:, 192:576]; the
+// Linformer E uses only its first msda_keep rows (the rest meet the
 // zero padding); the 16 raw bank rows are appended (kv = 48);
 // q = xn @ W[:, :192]; 4-head softmax attention; proj 192 -> 192.  In
 // training: the hash masks and the bank-write partials, as in unit 1.
 //
-// Bound on the H100 at B=1024 (bf16): 6.3 MB read + 6.3 MB written
-// (~3.8 us) and ~3.5 GFLOP (~3.5 us): either limit allows a few
-// microseconds.  The design is the SWA unit's: 256 threads hold one
-// sample at a time, all intermediates in ~160 KB of shared memory,
-// float32 FMAs; it is latency-bound, and tensor cores are later work.
+// n = 16 (hqavit_c100), msda_kernel: bound on the H100 at B=1024 (bf16):
+// 6.3 MB read + 6.3 MB written (~3.8 us) and ~3.5 GFLOP (~3.5 us): either
+// limit allows a few microseconds.  The design is the SWA unit's: 256
+// threads hold one sample at a time, all intermediates in ~160 KB of
+// shared memory, float32 FMAs; it is latency-bound.
 //
-// n = 64 (hqavit_tiny_in, eval): the sample's 64 xn rows (48 KB), its 40
-// pooled rows and their kv (90 KB) do not fit beside all 64 queries'
-// scores, so msda_tiled_kernel keeps xn, the compressed K/V (32 + 16
-// rows per head) and the bank in shared memory, builds the pooled rows
-// and kv once per sample (in 16-row tiles), and then runs q, scores, PV
-// and proj over 16-query tiles in the space the pooled rows held (215 KB
-// at C=192).  Every element is summed in the order of the n = 16 kernel.
+// n = 64 (hqavit_tiny_in / hqavit_proc_tin, eval), 64 queries, 40 pooled
+// rows.  Bound on the H100 at B=1024 (bf16): 51 MB of xn, out and the
+// float32 weights (~15 us at 3.35 TB/s) against 19.2 GFLOP (~19.4 us at
+// 989 TFLOP/s): the operations bound it, most of them the kv, q and proj
+// products, so the bf16 kernel runs every product on the tensor cores.
+//
+// float32, msda_tiled_kernel (CUDA cores; TF32 keeps too few digits for
+// the 1e-4 tolerance): xn, the compressed K/V (32 + 16 rows per head) and
+// the bank stay in shared memory; the pooled rows and their kv are built
+// once per sample, then q, scores, PV and proj run over 16-query tiles in
+// the space the pooled rows held (215 KB at C=192), every element summed
+// in the order of the n = 16 kernel.
+//
+// bf16, msda_mma_kernel: every product on the tensor cores (mma.sync
+// m16n8k16, bf16 operands, float32 sums; mma.cuh), every intermediate
+// that the plain version rounds to bf16 held as bf16 in shared memory
+// (177 KB).  One block per SM walks the samples; while one sample's
+// attention and proj run, cp.async brings the next one's xn.  Per sample:
+// the pooling as a gather (each pooled row sums its sel_t non-zeros in
+// token order, as token_mix does, so it is bit-identical); kv = pooled @
+// W_kv + b (48 padded rows x 384 x 192) with W_kv streamed in 32-row
+// slices through a two-buffer cp.async ring; kc | vc = E^T @ k | v (32 x
+// 192 x 48, E^T zero-padded past msda_keep); then each warp takes 16
+// queries x 2 heads: q = xn @ W_q + b through the ring, rounded straight
+// into A fragments, the 48 scores of each head in registers (divided by
+// sqrt(D) as common.cuh's attention does), float32 softmax by quad
+// shuffles, rnd(P) V, and the attention rows to shared memory; proj =
+// att @ W_p + b through the ring, stored from registers.  The weights
+// reach the kernel as bf16: the wrapper casts W_qkv and W_proj once per
+// call (rnd<bf16> of a float32 weight is its bf16 cast), so cp.async can
+// copy them.  The batch-wide NaN guard is kept: q, kc, vc, the bank and
+// the attention output are checked, and the redo writes proj(0) to every
+// sample.  Time at B=1024 on an NVIDIA H100 80GB HBM3, 700.00 W
+// (chip_smoke.py phase l, PERF.md section 6 row 2 @n64): 0.281-0.286 ms
+// per launch, 15x its bound, against 7.60-7.62 ms for the CUDA-core
+// tiled kernel in the same runs and 2.53-2.60 ms for the plain version.
+#include "mma.cuh"
 #include "unit_msda.cuh"
 
 namespace qv {
@@ -158,6 +188,411 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     });
 }
 
+// --- n = 64, bf16: the tensor-core kernel -----------------------------------
+
+struct MsdaMmaArgs {
+  MsdaArgs f;             // the unit's arguments (f.qkv_w, f.proj_w unread)
+  const bf16* qkv_w16;    // [C, 3C] qkv_w rounded to bf16
+  const bf16* proj_w16;   // [C, C]
+};
+
+// the geometry msda_mma_kernel is written for (fused_kernels.msda_mma_error)
+constexpr int MM_N = 64, MM_C = 192, MM_H = 4, MM_D = MM_C / MM_H;
+constexpr int MM_LK = 32;               // compressed keys
+constexpr int MM_S = 16;                // bank rows, at most
+constexpr int MM_KEEP = 48;             // pooled rows, padded to 3 m16 tiles
+constexpr int MM_POOL = 8;              // terms of a pooled row, at most
+constexpr int MM_KS = 32;               // weight rows per ring slice
+// leading dims: 8 bf16 past the width, so that the 8 rows one ldmatrix
+// reads start in distinct banks
+constexpr int MM_LDX = MM_C + 8, MM_LDKV = 2 * MM_C + 8;
+constexpr int MM_LDE = MM_KEEP + 8;
+// shared memory, in bf16 elements, then the pooling lists (4-byte words)
+constexpr int MM_BANK = 2 * MM_S * MM_LDX;         // bank k, v
+constexpr int MM_ET = 2 * MM_LK * MM_LDE;          // E_k^T, E_v^T
+constexpr int MM_XS = MM_N * MM_LDX;               // xn
+constexpr int MM_REGION = MM_KEEP * (MM_LDX + MM_LDKV);  // pooled + kv;
+                                                   // then the attention rows
+constexpr int MM_KCVC = 2 * MM_LK * MM_LDX;        // kc, vc
+constexpr int MM_RING = 2 * MM_KS * MM_LDKV;       // weight slices
+constexpr int MM_BF16 = MM_BANK + MM_ET + MM_XS + MM_REGION + MM_KCVC +
+                        MM_RING;
+constexpr int MM_SMEM_BYTES =
+    MM_BF16 * 2 + MM_KEEP * (1 + 2 * MM_POOL) * 4;
+
+// acc[mt][j] = A @ W over the warp's 16-row tiles mt (A's rows from a, in
+// shared memory, leading dim lda, K columns) and 8-column tiles j from
+// column n0: W is bf16 [K, ldw] in device memory, its N columns staged in
+// MM_KS-row slices through the two-buffer ring (leading dim ldr) by
+// cp.async, the next slice in flight while this one is multiplied.
+// Block-wide: every thread calls it; the ring is free again on return.
+template <int MT, int NT8>
+__device__ void ring_gemm(const bf16* a, int lda, const bf16* W, int ldw,
+                          int N, int K, bf16* ring, int ldr, int n0,
+                          float (&acc)[MT][NT8][4]) {
+  const int lane = threadIdx.x & 31, cpr = N / 8, nsl = K / MM_KS;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < NT8; ++j)
+      acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.f;
+  auto issue = [&](int sl) {
+    bf16* dst = ring + (sl & 1) * MM_KS * ldr;
+    const bf16* src = W + (size_t)sl * MM_KS * ldw;
+    for (int i = threadIdx.x; i < MM_KS * cpr; i += blockDim.x) {
+      const int r = i / cpr, c = (i - r * cpr) * 8;
+      cp_async_16(dst + r * ldr + c, src + (size_t)r * ldw + c);
+    }
+    cp_async_commit();
+  };
+  issue(0);
+  for (int sl = 0; sl < nsl; ++sl) {
+    if (sl + 1 < nsl) {
+      issue(sl + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* buf = ring + (sl & 1) * MM_KS * ldr;
+#pragma unroll
+    for (int kk = 0; kk < MM_KS / 16; ++kk) {
+      unsigned af[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        load_a(af[mt], a + mt * 16 * lda + sl * MM_KS + kk * 16, lda, lane);
+#pragma unroll
+      for (int np = 0; np < NT8 / 2; ++np) {
+        unsigned wb[4];
+        load_b_kn(wb, buf + kk * 16 * ldr + n0 + np * 16, ldr, lane);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16_16816(acc[mt][2 * np], af[mt], wb);
+          mma_bf16_16816(acc[mt][2 * np + 1], af[mt], wb + 2);
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// A dense layer's epilogue, as dense_rows: rnd(rnd(acc) + rnd(bias))
+__device__ __forceinline__ float dense_out(float acc, float bias) {
+  return rnd<bf16>(rnd<bf16>(acc) + rnd<bf16>(bias));
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+    msda_mma_kernel(MsdaMmaArgs m) {
+  QV_SMEM_DECL
+  __shared__ int bad;
+  const MsdaArgs& a = m.f;
+  const Dims& d = a.d;
+  const int S = d.bank_s, keep = d.msda_keep, C = MM_C;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  bf16* bk = reinterpret_cast<bf16*>(qv_smem);
+  bf16* bv = bk + MM_S * MM_LDX;
+  bf16* et = bv + MM_S * MM_LDX;           // [2][MM_LK][MM_LDE]
+  bf16* xs = et + MM_ET;
+  bf16* pooled = xs + MM_XS;               // [MM_KEEP][MM_LDX]
+  bf16* kvp = pooled + MM_KEEP * MM_LDX;   // [MM_KEEP][MM_LDKV]
+  bf16* att = pooled;                      // [MM_N][MM_LDX], after kc | vc
+  bf16* kc = pooled + MM_REGION;
+  bf16* vc = kc + MM_LK * MM_LDX;
+  bf16* ring = vc + MM_LK * MM_LDX;
+  int* pool_n = reinterpret_cast<int*>(ring + MM_RING);
+  int* pool_src = pool_n + MM_KEEP;        // [MM_KEEP][MM_POOL]
+  float* pool_w = reinterpret_cast<float*>(pool_src + MM_KEEP * MM_POOL);
+  const bf16 zero = from_f<bf16>(0.f);
+
+  if (threadIdx.x == 0) bad = 0;
+  __syncthreads();
+  // per block: the bank rows rounded (rows past S zero), E_k^T and E_v^T
+  // rounded (columns past msda_keep zero), and the pooling's non-zeros
+  // read off sel_t [n, keep], staged through the ring
+  float* sel = reinterpret_cast<float*>(ring);
+  for (int i = threadIdx.x; i < MM_N * keep; i += blockDim.x)
+    sel[i] = a.sel_t[i];
+  for (int i = threadIdx.x; i < MM_S * C; i += blockDim.x) {
+    const int r = i / C, c = i - r * C;
+    const float vk = r < S ? rnd<bf16>(a.bank_k[r * C + c]) : 0.f;
+    const float vv = r < S ? rnd<bf16>(a.bank_v[r * C + c]) : 0.f;
+    if (d.guard && (isnan(vk) || isnan(vv))) bad = 1;
+    bk[r * MM_LDX + c] = from_f<bf16>(vk);
+    bv[r * MM_LDX + c] = from_f<bf16>(vv);
+  }
+  for (int i = threadIdx.x; i < 2 * MM_LK * MM_KEEP; i += blockDim.x) {
+    const int w = i / (MM_LK * MM_KEEP), r = i - w * MM_LK * MM_KEEP;
+    const int mrow = r / MM_KEEP, k = r - mrow * MM_KEEP;
+    const float* e = w ? a.e_v : a.e_k;
+    et[w * MM_LK * MM_LDE + mrow * MM_LDE + k] =
+        k < keep ? from_f<bf16>(rnd<bf16>(e[k * MM_LK + mrow])) : zero;
+  }
+  __syncthreads();
+  if (threadIdx.x < keep) {
+    const int r = threadIdx.x;
+    int cnt = 0;
+    for (int n = 0; n < MM_N; ++n) {
+      const float w = sel[n * keep + r];
+      if (w != 0.f && cnt < MM_POOL) {
+        pool_src[r * MM_POOL + cnt] = n;
+        pool_w[r * MM_POOL + cnt] = rnd<bf16>(w);
+        ++cnt;
+      }
+    }
+    pool_n[r] = cnt;
+  }
+
+  auto stage_xn = [&](int b) {
+    const bf16* src = static_cast<const bf16*>(a.xn) + (size_t)b * MM_N * C;
+    for (int i = threadIdx.x; i < MM_N * (C / 8); i += blockDim.x) {
+      const int r = i / (C / 8), c = (i - r * (C / 8)) * 8;
+      cp_async_16(xs + r * MM_LDX + c, src + r * C + c);
+    }
+    cp_async_commit();
+  };
+  // the warp's queries and heads in q, attention and proj
+  const int mt = warp >> 1, half = warp & 1;
+  const int qcol = half * (C / 2);         // first of the warp's 96 columns
+  const float sqrt_d = sqrtf((float)MM_D);
+
+  if (blockIdx.x < d.B) stage_xn(blockIdx.x);
+  for (int b = blockIdx.x; b < d.B; b += gridDim.x) {
+    cp_async_wait<0>();
+    __syncthreads();
+    // pooled rows: each the sum of its non-zeros in token order
+    for (int i = threadIdx.x; i < MM_KEEP * C; i += blockDim.x) {
+      const int r = i / C, c = i - r * C;
+      float acc = 0.f;
+      if (r < keep)
+        for (int p = 0; p < pool_n[r]; ++p)
+          acc = fmaf(pool_w[r * MM_POOL + p],
+                     to_f<bf16>(xs[pool_src[r * MM_POOL + p] * MM_LDX + c]),
+                     acc);
+      pooled[r * MM_LDX + c] = from_f<bf16>(acc);
+    }
+    __syncthreads();
+    {  // kv = pooled @ W_kv + b: warp w, columns 48w.. of 384, all rows
+      float acc[3][6][4];
+      ring_gemm<3, 6>(pooled, MM_LDX, m.qkv_w16 + C, 3 * C, 2 * C, C, ring,
+                      MM_LDKV, 48 * warp, acc);
+#pragma unroll
+      for (int mi = 0; mi < 3; ++mi)
+#pragma unroll
+        for (int j = 0; j < 6; ++j) {
+          const int col = 48 * warp + 8 * j + 2 * t;
+          const float b0 = a.qkv_b[C + col], b1 = a.qkv_b[C + col + 1];
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf)
+            store_bf16x2(kvp + (mi * 16 + g + 8 * hf) * MM_LDKV + col,
+                         pack_bf16x2(dense_out(acc[mi][j][2 * hf], b0),
+                                     dense_out(acc[mi][j][2 * hf + 1], b1)));
+        }
+    }
+    __syncthreads();
+    {  // kc | vc = rnd(E^T @ k | v): warps 0-3 k, 4-7 v, 48 columns each
+      const int w = warp >> 2, c0 = 48 * (warp & 3);
+      const bf16* ew = et + w * MM_LK * MM_LDE;
+      float acc[2][6][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int j = 0; j < 6; ++j)
+          acc[mi][j][0] = acc[mi][j][1] = acc[mi][j][2] = acc[mi][j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < MM_KEEP / 16; ++kk) {
+        unsigned af[2][4];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+          load_a(af[mi], ew + mi * 16 * MM_LDE + kk * 16, MM_LDE, lane);
+#pragma unroll
+        for (int np = 0; np < 3; ++np) {
+          unsigned kb[4];
+          load_b_kn(kb, kvp + kk * 16 * MM_LDKV + w * C + c0 + np * 16,
+                    MM_LDKV, lane);
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+            mma_bf16_16816(acc[mi][2 * np], af[mi], kb);
+            mma_bf16_16816(acc[mi][2 * np + 1], af[mi], kb + 2);
+          }
+        }
+      }
+      bf16* dst = w ? vc : kc;
+      bool nan_seen = false;
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int j = 0; j < 6; ++j)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const float x0 = acc[mi][j][2 * hf], x1 = acc[mi][j][2 * hf + 1];
+            nan_seen = nan_seen || isnan(x0) || isnan(x1);
+            store_bf16x2(dst + (mi * 16 + g + 8 * hf) * MM_LDX + c0 + 8 * j +
+                             2 * t,
+                         pack_bf16x2(x0, x1));
+          }
+      if (d.guard && nan_seen) bad = 1;
+    }
+    __syncthreads();
+    // q = xn @ W_q + b: warp (mt, half) rows 16 mt.., columns qcol..
+    unsigned qa[2][3][4];            // [head][16-column step] A fragments
+    {
+      float acc[1][12][4];
+      ring_gemm<1, 12>(xs + mt * 16 * MM_LDX, MM_LDX, m.qkv_w16, 3 * C, C, C,
+                       ring, MM_LDX, qcol, acc);
+      bool nan_seen = false;
+#pragma unroll
+      for (int j = 0; j < 12; ++j) {
+        const int col = qcol + 8 * j + 2 * t;
+        const float b0 = a.qkv_b[col], b1 = a.qkv_b[col + 1];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[0][j][e] = dense_out(acc[0][j][e], e & 1 ? b1 : b0);
+          nan_seen = nan_seen || isnan(acc[0][j][e]);
+        }
+      }
+      if (d.guard && nan_seen) bad = 1;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int ks = 0; ks < 3; ++ks) {
+          const float* c0 = acc[0][6 * hh + 2 * ks];
+          const float* c1 = acc[0][6 * hh + 2 * ks + 1];
+          qa[hh][ks][0] = pack_bf16x2(c0[0], c0[1]);
+          qa[hh][ks][1] = pack_bf16x2(c0[2], c0[3]);
+          qa[hh][ks][2] = pack_bf16x2(c1[0], c1[1]);
+          qa[hh][ks][3] = pack_bf16x2(c1[2], c1[3]);
+        }
+    }
+    // xs is free: bring the next sample's xn while this one finishes
+    if (b + (int)gridDim.x < d.B) stage_xn(b + gridDim.x);
+    {  // attention of the warp's 16 queries, heads 2 half and 2 half + 1,
+       // over 32 compressed keys and MM_S bank keys (past 32 + S: -inf)
+      bool nan_seen = false;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int hc = (2 * half + hh) * MM_D;
+        float s[6][4];
+#pragma unroll
+        for (int j = 0; j < 6; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+        for (int ks = 0; ks < 3; ++ks)
+#pragma unroll
+          for (int np = 0; np < 3; ++np) {
+            unsigned kb[4];
+            load_b_nk(kb, (np < 2 ? kc + np * 16 * MM_LDX : bk) + hc + ks * 16,
+                      MM_LDX, lane);
+            mma_bf16_16816(s[2 * np], qa[hh][ks], kb);
+            mma_bf16_16816(s[2 * np + 1], qa[hh][ks], kb + 2);
+          }
+        float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 6; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const bool in = 8 * j + 2 * t + e < MM_LK + S;
+            s[j][e] = in ? s[j][e] / sqrt_d : -INFINITY;
+            s[j][2 + e] = in ? s[j][2 + e] / sqrt_d : -INFINITY;
+            m0 = fmaxf(m0, s[j][e]);
+            m1 = fmaxf(m1, s[j][2 + e]);
+          }
+#pragma unroll
+        for (int o = 1; o < 4; o <<= 1) {
+          m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
+          m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
+        }
+        float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+        for (int j = 0; j < 6; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            s[j][e] = expf(s[j][e] - m0);
+            s[j][2 + e] = expf(s[j][2 + e] - m1);
+            l0 += s[j][e];
+            l1 += s[j][2 + e];
+          }
+#pragma unroll
+        for (int o = 1; o < 4; o <<= 1) {
+          l0 += __shfl_xor_sync(0xffffffffu, l0, o);
+          l1 += __shfl_xor_sync(0xffffffffu, l1, o);
+        }
+        float o[6][4];
+#pragma unroll
+        for (int j = 0; j < 6; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < 3; ++kk) {
+          const unsigned pa[4] = {
+              pack_bf16x2(s[2 * kk][0] / l0, s[2 * kk][1] / l0),
+              pack_bf16x2(s[2 * kk][2] / l1, s[2 * kk][3] / l1),
+              pack_bf16x2(s[2 * kk + 1][0] / l0, s[2 * kk + 1][1] / l0),
+              pack_bf16x2(s[2 * kk + 1][2] / l1, s[2 * kk + 1][3] / l1)};
+          const bf16* vr = kk < 2 ? vc + kk * 16 * MM_LDX : bv;
+#pragma unroll
+          for (int dp = 0; dp < 3; ++dp) {
+            unsigned vb[4];
+            load_b_kn(vb, vr + hc + dp * 16, MM_LDX, lane);
+            mma_bf16_16816(o[2 * dp], pa, vb);
+            mma_bf16_16816(o[2 * dp + 1], pa, vb + 2);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 6; ++j)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const float x0 = o[j][2 * hf], x1 = o[j][2 * hf + 1];
+            nan_seen = nan_seen || isnan(x0) || isnan(x1);
+            store_bf16x2(att + (mt * 16 + g + 8 * hf) * MM_LDX + hc + 8 * j +
+                             2 * t,
+                         pack_bf16x2(x0, x1));
+          }
+      }
+      if (d.guard && nan_seen) bad = 1;
+    }
+    __syncthreads();
+    {  // proj = att @ W_p + b, stored from the fragments
+      float acc[1][12][4];
+      ring_gemm<1, 12>(att + mt * 16 * MM_LDX, MM_LDX, m.proj_w16, C, C, C,
+                       ring, MM_LDX, qcol, acc);
+      bf16* out = static_cast<bf16*>(a.out) + ((size_t)b * MM_N + mt * 16) * C;
+#pragma unroll
+      for (int j = 0; j < 12; ++j) {
+        const int col = qcol + 8 * j + 2 * t;
+        const float b0 = a.proj_b[col], b1 = a.proj_b[col + 1];
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          store_bf16x2(out + (g + 8 * hf) * C + col,
+                       pack_bf16x2(dense_out(acc[0][j][2 * hf], b0),
+                                   dense_out(acc[0][j][2 * hf + 1], b1)));
+      }
+    }
+  }
+  if (d.guard)
+    finish_guard(a.ws, bad, [&] {
+      // the redo: a zero attention output, so every sample's rows are
+      // proj(0), computed once
+      for (int i = threadIdx.x; i < MM_N * MM_LDX; i += blockDim.x)
+        att[i] = zero;
+      __syncthreads();
+      float acc[1][12][4];
+      ring_gemm<1, 12>(att + mt * 16 * MM_LDX, MM_LDX, m.proj_w16, C, C, C,
+                       ring, MM_LDX, qcol, acc);
+      for (int b = 0; b < d.B; ++b) {
+        bf16* out =
+            static_cast<bf16*>(a.out) + ((size_t)b * MM_N + mt * 16) * C;
+#pragma unroll
+        for (int j = 0; j < 12; ++j) {
+          const int col = qcol + 8 * j + 2 * t;
+          const float b0 = a.proj_b[col], b1 = a.proj_b[col + 1];
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf)
+            store_bf16x2(out + (g + 8 * hf) * C + col,
+                         pack_bf16x2(dense_out(acc[0][j][2 * hf], b0),
+                                     dense_out(acc[0][j][2 * hf + 1], b1)));
+        }
+      }
+    });
+}
+
 }  // namespace qv
 
 extern "C" int qv_unit_msda_smem(const qv::Dims* d);
@@ -165,12 +600,10 @@ extern "C" int qv_unit_msda_smem(const qv::Dims* d);
 extern "C" int qv_unit_msda(const qv::MsdaArgs* a, int is_bf16,
                             void* stream) {
   const size_t smem = qv_unit_msda_smem(&a->d);
-  if (a->d.n != qv::NT) {         // eval only
-    if (a->d.train) return qv::ERR_ARGS;
-    return is_bf16 ? qv_launch(qv::msda_tiled_kernel<qv::bf16>, *a, smem,
-                               stream, a->d.grid)
-                   : qv_launch(qv::msda_tiled_kernel<float>, *a, smem,
-                               stream, a->d.grid);
+  if (a->d.n != qv::NT) {         // eval only; bf16 is qv_unit_msda_mma's
+    if (a->d.train || is_bf16) return qv::ERR_ARGS;
+    return qv_launch(qv::msda_tiled_kernel<float>, *a, smem, stream,
+                     a->d.grid);
   }
   const int rc =
       is_bf16 ? qv_launch(qv::msda_kernel<qv::bf16>, *a, smem, stream,
@@ -185,4 +618,25 @@ extern "C" int qv_unit_msda_smem(const qv::Dims* d) {
   return (d->n == qv::NT ? qv::msda_smem_floats(*d)
                          : qv::msda_tiled_smem_floats(*d)) *
          (int)sizeof(float);
+}
+
+// The n = 64 bf16 eval kernel: `a` as for qv_unit_msda, the qkv and proj
+// kernels rounded to bf16 beside it.  ERR_ARGS for any other geometry or
+// type (the wrapper checks them first, msda_mma_error).
+extern "C" int qv_unit_msda_mma(const qv::MsdaArgs* a, const void* qkv_w16,
+                                const void* proj_w16, int is_bf16,
+                                void* stream) {
+  const qv::Dims& d = a->d;
+  if (!is_bf16 || d.train || d.n != qv::MM_N || d.c != qv::MM_C ||
+      d.heads != qv::MM_H || d.lin_k != qv::MM_LK || d.bank_s > qv::MM_S ||
+      d.msda_keep > qv::MM_KEEP || d.grid > d.B)
+    return qv::ERR_ARGS;
+  const qv::MsdaMmaArgs m{*a, static_cast<const qv::bf16*>(qkv_w16),
+                          static_cast<const qv::bf16*>(proj_w16)};
+  return qv_launch(qv::msda_mma_kernel, m, qv::MM_SMEM_BYTES, stream,
+                   d.grid);
+}
+
+extern "C" int qv_unit_msda_mma_smem(const qv::Dims*) {
+  return qv::MM_SMEM_BYTES;
 }

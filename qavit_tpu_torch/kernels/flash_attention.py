@@ -1,6 +1,6 @@
 """Small-KV attention as a hand-written CUDA kernel for Hopper
-(``qavit_tpu_torch/csrc/flash_attention.cu``), beside its plain PyTorch
-version.
+(``qavit_tpu_torch/csrc/flash_attention.cu``: in bf16 on the tensor cores,
+in float32 on the CUDA cores), beside its plain PyTorch version.
 
 Counterpart of ``qavit_tpu/kernels/flash_attention.py:74`` (the TPU's
 Pallas kernel): ``softmax(q k^T / sqrt(D)) v`` on ``[B, N, H, D]``
@@ -33,7 +33,7 @@ from qavit_tpu_torch.kernels import fused_ref as R
 
 # launches of the kernel since the last reset (plain runs do not count)
 LAUNCHES = {"flash_attention": 0}
-QUERY_TILE = 64           # queries per block (csrc FA_QT)
+QUERY_TILE = 64           # queries per float32 block (csrc FA_QT)
 KV_RANGE = (16, 144)      # keys per (batch, head) slice the kernel takes
 D_RANGE = (32, 64)        # head widths the kernel takes
 
@@ -93,6 +93,8 @@ def bind(lib: ctypes.CDLL) -> None:
     lib.qv_flash_attention.argtypes = [ctypes.POINTER(FlashArgs),
                                        ctypes.c_int, ctypes.c_void_p]
     lib.qv_flash_attention.restype = ctypes.c_int
+    lib.qv_flash_smem.argtypes = [ctypes.POINTER(FlashArgs), ctypes.c_int]
+    lib.qv_flash_smem.restype = ctypes.c_int
 
 
 def input_error(q: torch.Tensor, k: torch.Tensor,
@@ -124,26 +126,35 @@ def input_error(q: torch.Tensor, k: torch.Tensor,
     return None
 
 
-def launch(lib, q, k, v, rate: float = 0.0, salt: int = 0,
-           stream: Optional[int] = None) -> torch.Tensor:
-    """Launch the kernel on ``stream``; returns o [B, Nq, H, D]."""
+def _args(q, k, v, rate: float, salt: int) -> FlashArgs:
+    """The kernel's arguments (all but the output pointer), or raise;
+    built in one call, which costs a third of setting the fields one by
+    one (the wrapper's host time is of the order of a bf16 launch)."""
     err = input_error(q, k, v)
     if err is not None:
         raise ValueError(f"flash_attention: {err}")
     b, nq, h, d = q.shape
-    o = torch.empty(b, nq, h, d, dtype=q.dtype, device=q.device)
-    a = FlashArgs()
-    for name, t in (("q", q), ("k", k), ("v", v), ("o", o)):
-        setattr(a, name, t.data_ptr())
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        for axis, stride in zip("bnh", t.stride()[:3]):
-            setattr(a, f"{name}_s{axis}", stride)
-    a.B, a.H, a.nq, a.nkv, a.d = b, h, nq, k.shape[1], d
-    a.q_tiles = -(-nq // QUERY_TILE)
-    a.scale = scale(d)
-    if rate > 0.0:
-        a.drop_on, a.thr, a.keep = 1, R.threshold(rate), R.keep_f32(rate)
-        a.salt = salt & 0xFFFFFFFF
+    drop = rate > 0.0
+    return FlashArgs(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), None,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        b, h, nq, k.shape[1], d, -(-nq // QUERY_TILE), scale(d), int(drop),
+        R.threshold(rate) if drop else 0, R.keep_f32(rate) if drop else 0.0,
+        salt & 0xFFFFFFFF if drop else 0)
+
+
+def smem_bytes(lib, q, k, v) -> int:
+    """Dynamic shared memory of one launch on these inputs, per block."""
+    return lib.qv_flash_smem(ctypes.byref(_args(q, k, v, 0.0, 0)),
+                             int(q.dtype == torch.bfloat16))
+
+
+def launch(lib, q, k, v, rate: float = 0.0, salt: int = 0,
+           stream: Optional[int] = None) -> torch.Tensor:
+    """Launch the kernel on ``stream``; returns o [B, Nq, H, D]."""
+    a = _args(q, k, v, rate, salt)
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    a.o = o.data_ptr()
     rc = lib.qv_flash_attention(ctypes.byref(a),
                                 int(q.dtype == torch.bfloat16), stream)
     if rc != 0:

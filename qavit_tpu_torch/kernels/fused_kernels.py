@@ -19,7 +19,9 @@ the forward kernel saves only the unit's inputs, and the backward kernel
 ``unit_*_bwd`` recomputes the unit in-kernel with the same masks.  Every
 launch adds one to ``LAUNCHES[name]``.  The kernels take the geometries of
 :data:`EVAL_GEOMETRIES` (training: :data:`TRAIN_GEOMETRIES`); any other
-raises, naming the reason (:func:`kernel_geometry_error`).
+raises, naming the reason (:func:`kernel_geometry_error`).  The MSDA unit
+at n=64 in bf16 runs on the tensor cores (``msda_mma_kernel``), for the
+widths :func:`msda_mma_error` names.
 """
 
 from __future__ import annotations
@@ -363,11 +365,18 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         smem = getattr(lib, f"qv_{name}_smem")
         smem.argtypes = [ctypes.POINTER(Dims)]
         smem.restype = ctypes.c_int
+    lib.qv_unit_msda_mma.argtypes = [ctypes.POINTER(MsdaArgs), _P, _P,
+                                     ctypes.c_int, _P]
+    lib.qv_unit_msda_mma.restype = ctypes.c_int
+    lib.qv_unit_msda_mma_smem.argtypes = [ctypes.POINTER(Dims)]
+    lib.qv_unit_msda_mma_smem.restype = ctypes.c_int
     lib.qv_unit_cross_tail_bwd_scratch.argtypes = [ctypes.POINTER(Dims)]
     lib.qv_unit_cross_tail_bwd_scratch.restype = ctypes.c_int
-    # the flash-attention kernel is built into the same library
-    from qavit_tpu_torch.kernels import flash_attention
+    # the flash-attention kernel and the tensor-core self-test are built
+    # into the same library
+    from qavit_tpu_torch.kernels import flash_attention, mma_selftest
     flash_attention.bind(lib)
+    mma_selftest.bind(lib)
     _BOUND[id(lib)] = True
     return lib
 
@@ -408,6 +417,22 @@ def kernel_geometry_error(g: FusedGeom, train: bool = False
     return None
 
 
+def msda_mma_error(g: FusedGeom) -> Optional[str]:
+    """Why the n=64 bf16 MSDA kernel (``msda_mma_kernel``, written for
+    hqavit_tiny_in's widths) cannot run geometry ``g`` (None if it can)."""
+    checks = (
+        ((g.n, g.c, g.heads, g.lin_k) == (64, 192, 4, 32),
+         "n=64, C=192, 4 heads of 48 and linformer_k=32"),
+        (g.bank_s <= 16, "at most 16 bank rows"),
+        (g.msda_keep <= 48, "at most 48 pooled rows"),
+        (g.pool_stride <= 8, "a landmark pooling stride of at most 8"),
+    )
+    for ok, need in checks:
+        if not ok:
+            return f"the n=64 bf16 MSDA kernel needs {need}; got {g}"
+    return None
+
+
 def _dims(g: FusedGeom, b: int, p: Params, grid: int, rgrid: int,
           rng: Optional[R.BlockRng]) -> Dims:
     dw = p["ccf_ffn"]["dwconv"]
@@ -435,15 +460,19 @@ def _dims(g: FusedGeom, b: int, p: Params, grid: int, rgrid: int,
 _SM_COUNT: Dict[str, int] = {}
 
 
-def train_grid(device: torch.device, b: int) -> "Grid":
-    """The blocks of a train-mode unit or backward kernel and of its
-    reduction pass on ``device``: one block per SM, as the units' shared
-    memory allows."""
+def _sm_count(device: torch.device) -> int:
     key = str(device)
     if key not in _SM_COUNT:
         _SM_COUNT[key] = torch.cuda.get_device_properties(
             device).multi_processor_count
-    sms = _SM_COUNT[key]
+    return _SM_COUNT[key]
+
+
+def train_grid(device: torch.device, b: int) -> "Grid":
+    """The blocks of a train-mode unit or backward kernel and of its
+    reduction pass on ``device``: one block per SM, as the units' shared
+    memory allows."""
+    sms = _sm_count(device)
     return Grid(min(b, sms), 4 * sms)
 
 
@@ -488,19 +517,24 @@ class _Launch:
     def ln(self, p: Params, n: int) -> Tuple[int, int]:
         return self.w(p["scale"], n), self.w(p["bias"], n)
 
-    def run(self, args, d: Dims, stream: Optional[int]) -> torch.Tensor:
-        """Launch with dims ``d``; returns the kernel's guard workspace
-        ([blocks done, NaN seen], the flag the backward reads)."""
+    def run(self, args, d: Dims, stream: Optional[int],
+            entry: Optional[str] = None, extra=()) -> torch.Tensor:
+        """Launch with dims ``d`` through C entry ``qv_{entry}`` (the
+        unit's own by default), ``extra`` pointers after the arguments;
+        returns the kernel's guard workspace ([blocks done, NaN seen],
+        the flag the backward reads)."""
+        entry = entry or self.name
         args.d = d
-        smem = getattr(self.lib, f"qv_{self.name}_smem")(ctypes.byref(d))
+        smem = getattr(self.lib, f"qv_{entry}_smem")(ctypes.byref(d))
         if smem > SMEM_LIMIT:
             raise ValueError(f"{self.name}: needs {smem} B of shared memory "
                              f"> {SMEM_LIMIT}")
         ws = torch.zeros(2, dtype=torch.int32, device=self.device)
         args.ws = ws.data_ptr()
         self.held.append(ws)
-        rc = getattr(self.lib, f"qv_{self.name}")(
-            ctypes.byref(args), int(self.dtype == torch.bfloat16), stream)
+        rc = getattr(self.lib, f"qv_{entry}")(
+            ctypes.byref(args), *extra, int(self.dtype == torch.bfloat16),
+            stream)
         if rc != 0:
             raise RuntimeError(f"{self.name}: kernel launch failed with CUDA "
                                f"error {rc}")
@@ -607,12 +641,33 @@ def launch_msda(lib, p: Params, xn, bank_k, bank_v, g: FusedGeom, dtype,
     a.e_v = lc.w(pm["linformer"]["E_v"], pad, g.lin_k)
     a.bank_k, a.bank_v = _bank(lc, bank_k, bank_v)
     a.proj_w, a.proj_b = lc.dense(pm["proj"], c, c)
+    if train is None and g.n != 16 and dtype == torch.bfloat16:
+        _run_msda_mma(lc, a, p, stream)
+        return out
     if train is None:
         lc.run(a, _fwd_dims(lc, p, None, None), stream)
         return out
     part = _bank_write(lc, a, p, "msda", train, grid)
     ws = lc.run(a, _fwd_dims(lc, p, train, grid), stream)
     return out, part, ws
+
+
+def _run_msda_mma(lc: _Launch, a: MsdaArgs, p: Params, stream) -> None:
+    """The n=64 bf16 eval launch (``msda_mma_kernel``): the qkv and proj
+    kernels cast to bf16 once per call, which is the kernel's own rounding
+    of them (cp.async copies them as they are); one block per SM walks
+    the samples (on the host, one block walks them all)."""
+    err = msda_mma_error(lc.g)
+    if err is not None:
+        raise ValueError(f"unit_msda: {err}")
+    pm = p["msda"]
+    w16 = pm["qkv_kernel"].to(torch.bfloat16).contiguous()
+    p16 = pm["proj"]["kernel"].to(torch.bfloat16).contiguous()
+    lc.held += [w16, p16]
+    blocks = (min(lc.b, _sm_count(lc.device)) if lc.device.type == "cuda"
+              else 1)
+    lc.run(a, _dims(lc.g, lc.b, p, blocks, 1, None), stream,
+           entry="unit_msda_mma", extra=(w16.data_ptr(), p16.data_ptr()))
 
 
 def launch_cga(lib, p: Params, xn, bank_k, bank_v, g: FusedGeom, dtype,

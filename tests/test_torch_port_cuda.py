@@ -12,9 +12,12 @@ matching the plain path's logits, each
 unit's train-mode forward and backward kernel against the plain version
 and autograd (fused_kernels.GRAD_TOLERANCE), and one full-width train
 step that launches every forward and backward kernel 8 times; the
-flash-attention kernel against its plain version at the 224 shapes, and
-a full-depth qavit_224_v1_proc forward that launches it 16 times and
-matches the plain path's logits."""
+flash-attention kernel against its plain version at the 224 shapes and
+where Nkv and D are not multiples of 16, and a full-depth
+qavit_224_v1_proc forward that launches it 16 times and matches the plain
+path's logits; the tensor-core primitives' self-test (ldmatrix ->
+mma.sync against A @ B) and the n=64 bf16 MSDA kernel with a short bank
+and with its NaN guard tripped."""
 
 from unittest import mock
 
@@ -24,6 +27,7 @@ import torch
 from qavit_tpu_torch.configs import get_preset
 from qavit_tpu_torch.kernels import flash_attention as FA
 from qavit_tpu_torch.kernels import fused_kernels as K
+from qavit_tpu_torch.kernels import mma_selftest as MS
 from qavit_tpu_torch.kernels.fused_params import QuadBlockParams
 from qavit_tpu_torch.kernels.fused_ref import make_geom
 from qavit_tpu_torch.nn.layers import init_weights, param_tree
@@ -194,3 +198,62 @@ def test_224_forward_launches_the_flash_kernel(cuda):
     assert logits.shape == (8, cfg.num_classes)
     err = (logits - ref).abs().max().item()
     assert err <= 2.0 ** -4 * ref.abs().max().item(), err
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("nkv,d", [(40, 40), (33, 36)])
+def test_flash_kernel_padding_on_the_card(cuda, nkv, d, rate):
+    """bf16 Nkv and D that are not multiples of 16 (zero padding, masked
+    keys); at D=36 every operand takes the plain loads, not cp.async."""
+    gen = torch.Generator().manual_seed(3)
+    q = torch.randn(32, 196, 4, d, generator=gen).to(cuda, torch.bfloat16)
+    k, v = (torch.randn(32, nkv, 4, d, generator=gen).to(cuda, torch.bfloat16)
+            for _ in range(2))
+    with torch.inference_mode():
+        out = FA.flash_attention(q, k, v, rate, 99)
+        torch.cuda.synchronize()
+        ref = FA.plain(q, k, v, rate, 99)
+    assert K.within_tolerance(out, ref), K.max_abs_err(out, ref)
+
+
+def test_mma_fragments_on_the_card(cuda):
+    """ldmatrix (and .trans) -> mma.sync m16n8k16 against A @ B."""
+    from qavit_tpu_torch.kernels import build
+
+    lib = K.bind(build.load().lib)
+    rows, ok = MS.check(lib, seed=0, device=cuda,
+                        stream=torch.cuda.current_stream().cuda_stream)
+    assert ok, rows
+
+
+def _tin_msda_inputs(cuda, bank_s, seed):
+    cfg = get_preset("hqavit_proc_tin").model
+    g = make_geom(cfg)._replace(bank_s=bank_s)
+    gen = torch.Generator().manual_seed(seed)
+    p = param_tree(init_weights(QuadBlockParams(cfg, g), gen).to(cuda))
+    bk, bv = ((torch.randn(1, bank_s, g.c, generator=gen) * 0.5).to(cuda)
+              for _ in range(2))
+    xn = torch.randn(64, g.n, g.c, generator=gen).to(cuda, torch.bfloat16)
+    return g, p, bk, bv, xn
+
+
+def test_multiwindow_msda_short_bank_on_the_card(cuda):
+    """The n=64 bf16 MSDA kernel with 12 bank rows (44 keys a head, the
+    last key tile's padding masked)."""
+    g, p, bk, bv, xn = _tin_msda_inputs(cuda, 12, 4)
+    with torch.inference_mode():
+        out = K.unit_msda(p, xn, bk, bv, g, torch.bfloat16)
+        torch.cuda.synchronize()
+        ref = K.msda_plain(p, xn, bk, bv, g, torch.bfloat16)
+    assert K.within_tolerance(out, ref), K.max_abs_err(out, ref)
+
+
+def test_multiwindow_msda_nan_guard_bf16_on_the_card(cuda):
+    """A NaN in one sample: every sample's output is proj(0), as plain."""
+    g, p, bk, bv, xn = _tin_msda_inputs(cuda, 16, 5)
+    xn[9, 3, 5] = float("nan")
+    with torch.inference_mode():
+        out = K.unit_msda(p, xn, bk, bv, g, torch.bfloat16)
+        torch.cuda.synchronize()
+        ref = K.msda_plain(p, xn, bk, bv, g, torch.bfloat16)
+    assert torch.equal(out, ref)

@@ -6,9 +6,13 @@ the stated tolerance (fused_kernels.TOLERANCE): the unit kernels at the
 tiny width, the hqavit_c100 width (16 tokens, one SWA window) and the
 hqavit_tiny_in geometry (64 tokens, four SWA windows, full width), the
 flash-attention kernel at the 224 path's shapes, in float32 and bf16.
-This checks the kernels' arithmetic, indexing and the batch-wide NaN
-guard here; that nvcc accepts them and that they agree on the card is
-checked by chip_smoke.py and the tests marked ``cuda``."""
+The bf16 flash kernel and the n=64 bf16 MSDA kernel run on the tensor
+cores: the emulation rebuilds mma.sync's and ldmatrix's fragments from the
+PTX ISA's layouts, so their fragment indexing is checked here too, after
+a self-test of the primitives (ldmatrix -> mma against A @ B).  This
+checks the kernels' arithmetic, indexing and the batch-wide NaN guard
+here; that nvcc accepts them and that they agree on the card is checked
+by chip_smoke.py and the tests marked ``cuda``."""
 
 import ctypes
 import shutil
@@ -21,6 +25,7 @@ import torch
 from qavit_tpu_torch.configs import get_preset
 from qavit_tpu_torch.kernels import flash_attention as FA
 from qavit_tpu_torch.kernels import fused_kernels as K
+from qavit_tpu_torch.kernels import mma_selftest as MS
 from qavit_tpu_torch.kernels.build import CSRC
 from qavit_tpu_torch.kernels.fused_params import QuadBlockParams
 from qavit_tpu_torch.kernels.fused_ref import make_geom
@@ -160,3 +165,57 @@ def test_flash_kernel(emu_lib, which, dtype, rate):
     q, k, v = (t.to(dtype) for t in (q, k, v))
     out = FA.launch(emu_lib, q, k, v, rate, 1234)
     _check(out, FA.plain(q, k, v, rate, 1234))
+
+
+@pytest.mark.parametrize("trans", [False, True])
+def test_mma_fragments(emu_lib, trans):
+    """ldmatrix -> mma_bf16_16816 on a 16 x 16 A and a 16 x 16 B (two n8
+    tiles) from a numpy seed, B stored [n][k] (ldmatrix) or [k][n]
+    (ldmatrix.trans): the fragment helpers of mma.cuh against A @ B."""
+    a, b = MS.inputs(0)
+    d = MS.run(emu_lib, a, b, trans)
+    ref = MS.plain(a, b, trans)
+    assert (d - ref).abs().max().item() <= MS.TOLERANCE * ref.abs().max(
+    ).item()
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("nkv,d", [(40, 40), (33, 36)])
+def test_flash_kernel_padding(emu_lib, nkv, d, rate):
+    """The bf16 tensor-core flash kernel where Nkv and D are not
+    multiples of 16 (zero padding, padded keys masked) and the last query
+    chunk is partial; at D=36 no row starts on 16 bytes, so every operand
+    takes the plain loads instead of cp.async."""
+    gen = torch.Generator().manual_seed(6)
+    q = torch.randn(1, 150, 2, d, generator=gen).to(torch.bfloat16)
+    k, v = (torch.randn(1, nkv, 2, d, generator=gen).to(torch.bfloat16)
+            for _ in range(2))
+    _check(FA.launch(emu_lib, q, k, v, rate, 77),
+           FA.plain(q, k, v, rate, 77))
+
+
+def test_msda_nan_guard_bf16(emu_lib, case):
+    """bf16: a NaN in one sample's xn trips the MSDA unit's batch-wide
+    guard; every sample's output is proj(0), as in the plain version."""
+    g, p, (bk, bv), x = case
+    dtype = torch.bfloat16
+    with torch.no_grad():
+        xn = K.swa_plain(p, x.to(dtype), bk, bv, g, dtype)[1].clone()
+        xn[1, 3, 5] = float("nan")
+        out = K.launch_msda(emu_lib, p, xn, bk, bv, g, dtype)
+        ref = K.msda_plain(p, xn, bk, bv, g, dtype)
+    assert torch.equal(out, ref)
+
+
+def test_msda_kernel_short_bank(emu_lib):
+    """The n=64 bf16 MSDA kernel with 12 bank rows: 44 keys a head, the
+    last tile's 4 padded keys masked."""
+    cfg = _cfg("multiwindow")
+    g = make_geom(cfg)._replace(bank_s=12)
+    gen = torch.Generator().manual_seed(8)
+    p = param_tree(init_weights(QuadBlockParams(cfg, g), gen))
+    bk, bv = (torch.randn(1, 12, g.c, generator=gen) * 0.5 for _ in range(2))
+    xn = torch.randn(B, g.n, g.c, generator=gen).to(torch.bfloat16)
+    with torch.no_grad():
+        _check(K.launch_msda(emu_lib, p, xn, bk, bv, g, torch.bfloat16),
+               K.msda_plain(p, xn, bk, bv, g, torch.bfloat16))

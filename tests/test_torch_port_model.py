@@ -222,10 +222,11 @@ def test_port_imports_nothing_of_jax():
 def test_every_kernel_entry_point_is_bound():
     """Every ``extern "C"`` entry of qavit_tpu_torch/csrc/*.cu (forward and
     backward units, their shared-memory sizes, the scratch size, the flash
-    kernel and the struct-size checks) gets its ctypes types in
-    fused_kernels.bind, and the binding module imports with JAX made
-    unimportable."""
+    kernel, the tensor-core self-test and the struct-size checks) gets its
+    ctypes types in fused_kernels.bind, and the binding module imports
+    with JAX made unimportable."""
     from qavit_tpu_torch.kernels import flash_attention as FA
+    from qavit_tpu_torch.kernels import mma_selftest as MS
 
     import ctypes
     import re
@@ -247,6 +248,8 @@ def test_every_kernel_entry_point_is_bound():
         def __call__(self, *i):     # only the struct-size checks are called
             if self.name == "qv_flash_struct_size":
                 return ctypes.sizeof(FA.FlashArgs)
+            if self.name == "qv_mma_selftest_struct_size":
+                return ctypes.sizeof(MS.MmaTestArgs)
             return ctypes.sizeof(K._STRUCTS[i[0]])
 
     class FakeLib:
