@@ -59,8 +59,9 @@ it stopped:
       plain version at hqavit_proc_tin's geometry (64 tokens on an 8x8
       grid, four SWA windows, 40 pooled MSDA rows), B=256, float32 and
       bf16, seed-made perturbed weights, then with the NaN guard tripped
-      in one sample (float32, and bf16 for the MSDA unit); the bf16
-      tensor-core MSDA kernel's registers, spills and shared memory;
+      in one sample (float32, and bf16 for the SWA, MSDA and cross/tail
+      units), and the three bf16 tensor-core kernels with 12 bank rows;
+      their registers, spills and shared memory;
   (l) the multi-window path: ``qavit_tpu_torch.cli.evaluate --preset
       hqavit_proc_tin`` at full width and depth (12 blocks), B=128, with
       every launch count set to 0 just before and read just after (12
@@ -1046,12 +1047,55 @@ def multiwindow_checks(K, dev):
               flush=True)
         if not ok:
             failed.append(("unit_msda", "guard bf16"))
+        # the bf16 SWA and cross/tail kernels' guards: a NaN in one
+        # sample's x (SWA: every sample's output proj(0), xn keeps the NaN
+        # row) or xn (read by the cross branch's q only: every sample's
+        # cross attention zero, the block output finite)
+        xb = x.to(torch.bfloat16)
+        o, xn = K.swa_plain(p, xb, *bank, g, torch.bfloat16)
+        m = K.msda_plain(p, xn, *bank, g, torch.bfloat16)
+        c = K.cga_plain(p, xn, *bank, g, torch.bfloat16)
+        ct = (xb.nan_to_num(), xn, o, m, c, *bank, g, torch.bfloat16)
+        for name, (kern, plain) in (
+                ("unit_swa", (lambda: K.unit_swa(p, xb, *bank, g,
+                                                 torch.bfloat16),
+                              lambda: (o, xn))),
+                ("unit_cross_tail",
+                 (lambda: K.unit_cross_tail(p, *ct),
+                  lambda: K.cross_tail_plain(p, *ct)))):
+            out = kern()
+            torch.cuda.synchronize()
+            err, ok = guarded_error(K, out, plain())
+            print(f"check {name:16s} n={g.n} NaN guard bf16 (one NaN in "
+                  f"sample 7): NaNs where plain has them, max_abs_err "
+                  f"{err:.3e} elsewhere  {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            if not ok:
+                failed.append((name, "guard bf16"))
+        # the bf16 tensor-core kernels with 12 bank rows (padded keys
+        # masked)
+        g12 = g._replace(bank_s=12)
+        bank12 = tuple(t[:, :12].contiguous() for t in bank)
+        x = (torch.randn(CHECK_BATCH, g.n, g.c, generator=gen) * 2).to(
+            dev, torch.bfloat16)
+        for name, (kern, plain) in unit_calls(K, p, g12, torch.bfloat16, x,
+                                              bank12).items():
+            if name == "unit_cga":
+                continue
+            err, rel, _, ok = worst_error(K, kern(), plain())
+            print(f"check {name:16s} n={g.n} bf16 12 bank rows "
+                  f"B={CHECK_BATCH} max_abs_err {err:.3e} (relative "
+                  f"{rel:.2e})  {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                failed.append((name, "12 bank rows"))
     if failed:
         raise AssertionError(f"n={g.n} unit kernels disagree: {failed}")
-    print_ptxas("msda_mma_kernel")
     lib = K.bind(build.load().lib)
-    print(f"msda_mma_kernel: {lib.qv_unit_msda_mma_smem(None)} B of dynamic "
-          f"shared memory per block", flush=True)
+    for unit in ("swa", "msda", "cross_tail"):
+        print_ptxas(f"{unit}_mma_kernel")
+        smem = getattr(lib, f"qv_unit_{unit}_mma_smem")(None)
+        print(f"{unit}_mma_kernel: {smem} B of dynamic shared memory per "
+              f"block", flush=True)
     return g, p, bank
 
 

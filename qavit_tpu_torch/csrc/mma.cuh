@@ -110,4 +110,13 @@ __device__ __forceinline__ void store_bf16x2(bf16* p, unsigned v) {
   *reinterpret_cast<unsigned*>(p) = v;
 }
 
+// the lower and upper bf16 of a packed pair as floats (exact: a bf16 is
+// the upper half of a float)
+__device__ __forceinline__ float bf16x2_lo(unsigned v) {
+  return __uint_as_float(v << 16);
+}
+__device__ __forceinline__ float bf16x2_hi(unsigned v) {
+  return __uint_as_float(v & 0xffff0000u);
+}
+
 }  // namespace qv

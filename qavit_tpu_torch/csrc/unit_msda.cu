@@ -53,7 +53,7 @@
 // (chip_smoke.py phase l, PERF.md section 6 row 2 @n64): 0.281-0.286 ms
 // per launch, 15x its bound, against 7.60-7.62 ms for the CUDA-core
 // tiled kernel in the same runs and 2.53-2.60 ms for the plain version.
-#include "mma.cuh"
+#include "mma_ops.cuh"
 #include "unit_msda.cuh"
 
 namespace qv {
@@ -198,11 +198,11 @@ struct MsdaMmaArgs {
 
 // the geometry msda_mma_kernel is written for (fused_kernels.msda_mma_error)
 constexpr int MM_N = 64, MM_C = 192, MM_H = 4, MM_D = MM_C / MM_H;
+static_assert(MM_D == ATT_D, "warp_attention's head width");
 constexpr int MM_LK = 32;               // compressed keys
 constexpr int MM_S = 16;                // bank rows, at most
 constexpr int MM_KEEP = 48;             // pooled rows, padded to 3 m16 tiles
 constexpr int MM_POOL = 8;              // terms of a pooled row, at most
-constexpr int MM_KS = 32;               // weight rows per ring slice
 // leading dims: 8 bf16 past the width, so that the 8 rows one ldmatrix
 // reads start in distinct banks
 constexpr int MM_LDX = MM_C + 8, MM_LDKV = 2 * MM_C + 8;
@@ -214,72 +214,11 @@ constexpr int MM_XS = MM_N * MM_LDX;               // xn
 constexpr int MM_REGION = MM_KEEP * (MM_LDX + MM_LDKV);  // pooled + kv;
                                                    // then the attention rows
 constexpr int MM_KCVC = 2 * MM_LK * MM_LDX;        // kc, vc
-constexpr int MM_RING = 2 * MM_KS * MM_LDKV;       // weight slices
+constexpr int MM_RING = 2 * RING_KS * MM_LDKV;     // weight slices
 constexpr int MM_BF16 = MM_BANK + MM_ET + MM_XS + MM_REGION + MM_KCVC +
                         MM_RING;
 constexpr int MM_SMEM_BYTES =
     MM_BF16 * 2 + MM_KEEP * (1 + 2 * MM_POOL) * 4;
-
-// acc[mt][j] = A @ W over the warp's 16-row tiles mt (A's rows from a, in
-// shared memory, leading dim lda, K columns) and 8-column tiles j from
-// column n0: W is bf16 [K, ldw] in device memory, its N columns staged in
-// MM_KS-row slices through the two-buffer ring (leading dim ldr) by
-// cp.async, the next slice in flight while this one is multiplied.
-// Block-wide: every thread calls it; the ring is free again on return.
-template <int MT, int NT8>
-__device__ void ring_gemm(const bf16* a, int lda, const bf16* W, int ldw,
-                          int N, int K, bf16* ring, int ldr, int n0,
-                          float (&acc)[MT][NT8][4]) {
-  const int lane = threadIdx.x & 31, cpr = N / 8, nsl = K / MM_KS;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int j = 0; j < NT8; ++j)
-      acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.f;
-  auto issue = [&](int sl) {
-    bf16* dst = ring + (sl & 1) * MM_KS * ldr;
-    const bf16* src = W + (size_t)sl * MM_KS * ldw;
-    for (int i = threadIdx.x; i < MM_KS * cpr; i += blockDim.x) {
-      const int r = i / cpr, c = (i - r * cpr) * 8;
-      cp_async_16(dst + r * ldr + c, src + (size_t)r * ldw + c);
-    }
-    cp_async_commit();
-  };
-  issue(0);
-  for (int sl = 0; sl < nsl; ++sl) {
-    if (sl + 1 < nsl) {
-      issue(sl + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* buf = ring + (sl & 1) * MM_KS * ldr;
-#pragma unroll
-    for (int kk = 0; kk < MM_KS / 16; ++kk) {
-      unsigned af[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-        load_a(af[mt], a + mt * 16 * lda + sl * MM_KS + kk * 16, lda, lane);
-#pragma unroll
-      for (int np = 0; np < NT8 / 2; ++np) {
-        unsigned wb[4];
-        load_b_kn(wb, buf + kk * 16 * ldr + n0 + np * 16, ldr, lane);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma_bf16_16816(acc[mt][2 * np], af[mt], wb);
-          mma_bf16_16816(acc[mt][2 * np + 1], af[mt], wb + 2);
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// A dense layer's epilogue, as dense_rows: rnd(rnd(acc) + rnd(bias))
-__device__ __forceinline__ float dense_out(float acc, float bias) {
-  return rnd<bf16>(rnd<bf16>(acc) + rnd<bf16>(bias));
-}
 
 __global__ void __launch_bounds__(NTHREADS, 1)
     msda_mma_kernel(MsdaMmaArgs m) {
@@ -354,7 +293,6 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   // the warp's queries and heads in q, attention and proj
   const int mt = warp >> 1, half = warp & 1;
   const int qcol = half * (C / 2);         // first of the warp's 96 columns
-  const float sqrt_d = sqrtf((float)MM_D);
 
   if (blockIdx.x < d.B) stage_xn(blockIdx.x);
   for (int b = blockIdx.x; b < d.B; b += gridDim.x) {
@@ -440,112 +378,20 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       float acc[1][12][4];
       ring_gemm<1, 12>(xs + mt * 16 * MM_LDX, MM_LDX, m.qkv_w16, 3 * C, C, C,
                        ring, MM_LDX, qcol, acc);
-      bool nan_seen = false;
-#pragma unroll
-      for (int j = 0; j < 12; ++j) {
-        const int col = qcol + 8 * j + 2 * t;
-        const float b0 = a.qkv_b[col], b1 = a.qkv_b[col + 1];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          acc[0][j][e] = dense_out(acc[0][j][e], e & 1 ? b1 : b0);
-          nan_seen = nan_seen || isnan(acc[0][j][e]);
-        }
-      }
-      if (d.guard && nan_seen) bad = 1;
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-        for (int ks = 0; ks < 3; ++ks) {
-          const float* c0 = acc[0][6 * hh + 2 * ks];
-          const float* c1 = acc[0][6 * hh + 2 * ks + 1];
-          qa[hh][ks][0] = pack_bf16x2(c0[0], c0[1]);
-          qa[hh][ks][1] = pack_bf16x2(c0[2], c0[3]);
-          qa[hh][ks][2] = pack_bf16x2(c1[0], c1[1]);
-          qa[hh][ks][3] = pack_bf16x2(c1[2], c1[3]);
-        }
+      if (q_fragments(acc, a.qkv_b, qcol, qa) && d.guard) bad = 1;
     }
     // xs is free: bring the next sample's xn while this one finishes
     if (b + (int)gridDim.x < d.B) stage_xn(b + gridDim.x);
     {  // attention of the warp's 16 queries, heads 2 half and 2 half + 1,
        // over 32 compressed keys and MM_S bank keys (past 32 + S: -inf)
+      const bf16* const kt[3] = {kc, kc + 16 * MM_LDX, bk};
+      const bf16* const vt[3] = {vc, vc + 16 * MM_LDX, bv};
       bool nan_seen = false;
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int hc = (2 * half + hh) * MM_D;
-        float s[6][4];
-#pragma unroll
-        for (int j = 0; j < 6; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-        for (int ks = 0; ks < 3; ++ks)
-#pragma unroll
-          for (int np = 0; np < 3; ++np) {
-            unsigned kb[4];
-            load_b_nk(kb, (np < 2 ? kc + np * 16 * MM_LDX : bk) + hc + ks * 16,
-                      MM_LDX, lane);
-            mma_bf16_16816(s[2 * np], qa[hh][ks], kb);
-            mma_bf16_16816(s[2 * np + 1], qa[hh][ks], kb + 2);
-          }
-        float m0 = -INFINITY, m1 = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < 6; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const bool in = 8 * j + 2 * t + e < MM_LK + S;
-            s[j][e] = in ? s[j][e] / sqrt_d : -INFINITY;
-            s[j][2 + e] = in ? s[j][2 + e] / sqrt_d : -INFINITY;
-            m0 = fmaxf(m0, s[j][e]);
-            m1 = fmaxf(m1, s[j][2 + e]);
-          }
-#pragma unroll
-        for (int o = 1; o < 4; o <<= 1) {
-          m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
-          m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
-        }
-        float l0 = 0.f, l1 = 0.f;
-#pragma unroll
-        for (int j = 0; j < 6; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            s[j][e] = expf(s[j][e] - m0);
-            s[j][2 + e] = expf(s[j][2 + e] - m1);
-            l0 += s[j][e];
-            l1 += s[j][2 + e];
-          }
-#pragma unroll
-        for (int o = 1; o < 4; o <<= 1) {
-          l0 += __shfl_xor_sync(0xffffffffu, l0, o);
-          l1 += __shfl_xor_sync(0xffffffffu, l1, o);
-        }
-        float o[6][4];
-#pragma unroll
-        for (int j = 0; j < 6; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < 3; ++kk) {
-          const unsigned pa[4] = {
-              pack_bf16x2(s[2 * kk][0] / l0, s[2 * kk][1] / l0),
-              pack_bf16x2(s[2 * kk][2] / l1, s[2 * kk][3] / l1),
-              pack_bf16x2(s[2 * kk + 1][0] / l0, s[2 * kk + 1][1] / l0),
-              pack_bf16x2(s[2 * kk + 1][2] / l1, s[2 * kk + 1][3] / l1)};
-          const bf16* vr = kk < 2 ? vc + kk * 16 * MM_LDX : bv;
-#pragma unroll
-          for (int dp = 0; dp < 3; ++dp) {
-            unsigned vb[4];
-            load_b_kn(vb, vr + hc + dp * 16, MM_LDX, lane);
-            mma_bf16_16816(o[2 * dp], pa, vb);
-            mma_bf16_16816(o[2 * dp + 1], pa, vb + 2);
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < 6; ++j)
-#pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {
-            const float x0 = o[j][2 * hf], x1 = o[j][2 * hf + 1];
-            nan_seen = nan_seen || isnan(x0) || isnan(x1);
-            store_bf16x2(att + (mt * 16 + g + 8 * hf) * MM_LDX + hc + 8 * j +
-                             2 * t,
-                         pack_bf16x2(x0, x1));
-          }
-      }
+      for (int hh = 0; hh < 2; ++hh)
+        nan_seen |= warp_attention<3>(qa[hh], kt, vt, MM_LDX,
+                                      (2 * half + hh) * MM_D, MM_LK + S,
+                                      att + mt * 16 * MM_LDX, MM_LDX);
       if (d.guard && nan_seen) bad = 1;
     }
     __syncthreads();

@@ -19,9 +19,11 @@ the forward kernel saves only the unit's inputs, and the backward kernel
 ``unit_*_bwd`` recomputes the unit in-kernel with the same masks.  Every
 launch adds one to ``LAUNCHES[name]``.  The kernels take the geometries of
 :data:`EVAL_GEOMETRIES` (training: :data:`TRAIN_GEOMETRIES`); any other
-raises, naming the reason (:func:`kernel_geometry_error`).  The MSDA unit
-at n=64 in bf16 runs on the tensor cores (``msda_mma_kernel``), for the
-widths :func:`msda_mma_error` names.
+raises, naming the reason (:func:`kernel_geometry_error`).  At n=64 in
+bf16 (eval) the SWA, MSDA and cross/tail units run on the tensor cores
+(``swa_mma_kernel``, ``msda_mma_kernel``, ``cross_tail_mma_kernel``), for
+the widths :func:`swa_mma_error`, :func:`msda_mma_error` and
+:func:`cross_tail_mma_error` name; other widths raise.
 """
 
 from __future__ import annotations
@@ -342,6 +344,9 @@ _ENTRY = {"unit_swa": SwaArgs, "unit_msda": MsdaArgs, "unit_cga": CgaArgs,
           "unit_cross_tail": CrossTailArgs, "unit_swa_bwd": SwaBwdArgs,
           "unit_msda_bwd": MsdaBwdArgs, "unit_cga_bwd": CgaBwdArgs,
           "unit_cross_tail_bwd": CrossTailBwdArgs}
+# units with an n=64 bf16 eval kernel on the tensor cores, entry
+# qv_{unit}_mma(args, bf16 weight, bf16 weight, is_bf16, stream)
+_MMA_ENTRY = ("unit_swa", "unit_msda", "unit_cross_tail")
 _BOUND: Dict[int, bool] = {}
 SMEM_LIMIT = 232448          # bytes of shared memory a block may opt in to
 
@@ -365,11 +370,13 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         smem = getattr(lib, f"qv_{name}_smem")
         smem.argtypes = [ctypes.POINTER(Dims)]
         smem.restype = ctypes.c_int
-    lib.qv_unit_msda_mma.argtypes = [ctypes.POINTER(MsdaArgs), _P, _P,
-                                     ctypes.c_int, _P]
-    lib.qv_unit_msda_mma.restype = ctypes.c_int
-    lib.qv_unit_msda_mma_smem.argtypes = [ctypes.POINTER(Dims)]
-    lib.qv_unit_msda_mma_smem.restype = ctypes.c_int
+    for name in _MMA_ENTRY:       # the n=64 bf16 tensor-core kernels
+        fn = getattr(lib, f"qv_{name}_mma")
+        fn.argtypes = [ctypes.POINTER(_ENTRY[name]), _P, _P, ctypes.c_int, _P]
+        fn.restype = ctypes.c_int
+        smem = getattr(lib, f"qv_{name}_mma_smem")
+        smem.argtypes = [ctypes.POINTER(Dims)]
+        smem.restype = ctypes.c_int
     lib.qv_unit_cross_tail_bwd_scratch.argtypes = [ctypes.POINTER(Dims)]
     lib.qv_unit_cross_tail_bwd_scratch.restype = ctypes.c_int
     # the flash-attention kernel and the tensor-core self-test are built
@@ -430,6 +437,41 @@ def msda_mma_error(g: FusedGeom) -> Optional[str]:
     for ok, need in checks:
         if not ok:
             return f"the n=64 bf16 MSDA kernel needs {need}; got {g}"
+    return None
+
+
+def swa_mma_error(g: FusedGeom) -> Optional[str]:
+    """Why the n=64 bf16 SWA kernel (``swa_mma_kernel``, written for
+    hqavit_tiny_in's widths) cannot run geometry ``g`` (None if it can)."""
+    checks = (
+        ((g.n, g.nw, g.ws2) == (64, 4, 16),
+         "n=64 on an 8x8 grid in four 4x4 windows"),
+        ((g.c, g.heads, g.lin_k) == (192, 4, 32),
+         "C=192, 4 heads of 48 and linformer_k=32"),
+        (g.bank_s <= 16, "at most 16 bank rows"),
+    )
+    for ok, need in checks:
+        if not ok:
+            return f"the n=64 bf16 SWA kernel needs {need}; got {g}"
+    return None
+
+
+def cross_tail_mma_error(g: FusedGeom) -> Optional[str]:
+    """Why the n=64 bf16 cross/tail kernel (``cross_tail_mma_kernel``,
+    written for hqavit_tiny_in's widths) cannot run geometry ``g`` (None
+    if it can)."""
+    checks = (
+        (g.n == 64, "n=64 on an 8x8 grid"),
+        ((g.c, g.heads) == (192, 4), "C=192 and 4 heads of 48"),
+        ((g.ccf_hidden, g.bottleneck_hidden, g.d_c) == (96, 96, 48),
+         "CCF-FFN and bottleneck hidden widths of 96 and d_c=48"),
+        (g.bank_s <= 16, "at most 16 bank rows"),
+        (g.stabilized_ccfffn and g.stabilized_dwconv,
+         "stabilized_ccfffn and stabilized_dwconv"),
+    )
+    for ok, need in checks:
+        if not ok:
+            return f"the n=64 bf16 cross/tail kernel needs {need}; got {g}"
     return None
 
 
@@ -616,6 +658,10 @@ def launch_swa(lib, p: Params, x, bank_k, bank_v, g: FusedGeom, dtype,
     a.e_v = lc.w(ps["linformer"]["E_v"], g.ws2, g.lin_k)
     a.bank_k, a.bank_v = _bank(lc, bank_k, bank_v)
     a.proj_w, a.proj_b = lc.dense(ps["proj"], c, c)
+    if train is None and g.n != 16 and dtype == torch.bfloat16:
+        _run_mma(lc, a, p, stream, swa_mma_error, ps["qkv"]["kernel"],
+                 ps["proj"]["kernel"])
+        return out, xn
     if train is None:     # eval: one block per (sample, window)
         lc.run(a, _dims(g, lc.b, p, lc.b * g.nw, 1, None), stream)
         return out, xn
@@ -642,7 +688,8 @@ def launch_msda(lib, p: Params, xn, bank_k, bank_v, g: FusedGeom, dtype,
     a.bank_k, a.bank_v = _bank(lc, bank_k, bank_v)
     a.proj_w, a.proj_b = lc.dense(pm["proj"], c, c)
     if train is None and g.n != 16 and dtype == torch.bfloat16:
-        _run_msda_mma(lc, a, p, stream)
+        _run_mma(lc, a, p, stream, msda_mma_error, pm["qkv_kernel"],
+                 pm["proj"]["kernel"])
         return out
     if train is None:
         lc.run(a, _fwd_dims(lc, p, None, None), stream)
@@ -652,22 +699,23 @@ def launch_msda(lib, p: Params, xn, bank_k, bank_v, g: FusedGeom, dtype,
     return out, part, ws
 
 
-def _run_msda_mma(lc: _Launch, a: MsdaArgs, p: Params, stream) -> None:
-    """The n=64 bf16 eval launch (``msda_mma_kernel``): the qkv and proj
-    kernels cast to bf16 once per call, which is the kernel's own rounding
-    of them (cp.async copies them as they are); one block per SM walks
-    the samples (on the host, one block walks them all)."""
-    err = msda_mma_error(lc.g)
+def _run_mma(lc: _Launch, a, p: Params, stream, error,
+             *weights: torch.Tensor) -> None:
+    """The unit's n=64 bf16 eval launch on the tensor cores (C entry
+    ``qv_{unit}_mma``), or ValueError with the reason ``error(g)`` gives
+    for widths its kernel does not take: ``weights`` cast to bf16 once
+    per call, which is the kernel's own rounding of them (cp.async copies
+    them as they are); one block per SM walks the samples (on the host,
+    one block walks them all)."""
+    err = error(lc.g)
     if err is not None:
-        raise ValueError(f"unit_msda: {err}")
-    pm = p["msda"]
-    w16 = pm["qkv_kernel"].to(torch.bfloat16).contiguous()
-    p16 = pm["proj"]["kernel"].to(torch.bfloat16).contiguous()
-    lc.held += [w16, p16]
+        raise ValueError(f"{lc.name}: {err}")
+    w16 = [w.to(torch.bfloat16).contiguous() for w in weights]
+    lc.held += w16
     blocks = (min(lc.b, _sm_count(lc.device)) if lc.device.type == "cuda"
               else 1)
     lc.run(a, _dims(lc.g, lc.b, p, blocks, 1, None), stream,
-           entry="unit_msda_mma", extra=(w16.data_ptr(), p16.data_ptr()))
+           entry=f"{lc.name}_mma", extra=tuple(w.data_ptr() for w in w16))
 
 
 def launch_cga(lib, p: Params, xn, bank_k, bank_v, g: FusedGeom, dtype,
@@ -735,8 +783,24 @@ def launch_cross_tail(lib, p: Params, x, xn, out_swa, out_msda, out_cga,
     a.swa, a.msda, a.cga = lc.act(out_swa), lc.act(out_msda), lc.act(out_cga)
     a.bank_k, a.bank_v = _bank(lc, bank_k, bank_v)
     _cross_tail_args(lc, p, a)
+    if train is None and g.n != 16 and dtype == torch.bfloat16:
+        _run_mma(lc, a, p, stream, cross_tail_mma_error,
+                 *_cross_tail_packed(p))
+        return y
     ws = lc.run(a, _fwd_dims(lc, p, train, grid), stream)
     return y if train is None else (y, ws)
+
+
+def _cross_tail_packed(p: Params) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cross/tail unit's dense kernels side by side, in the order of
+    ``cross_tail_mma_kernel``'s CT_* column offsets: [C, 4C + 4 d_c + 2
+    hidden] (the ones that read C rows) and [hidden, 2C]."""
+    pc, f, bn = p["cross_attn"], p["ccf_ffn"], p["bottleneck_mlp"]
+    w1 = [pc[k]["kernel"] for k in ("q_proj", "k_proj", "v_proj", "proj")]
+    w1 += [p[f"compress_{name}"]["kernel"] for name in _BRANCHES]
+    w1 += [bn["fc1"]["kernel"], f["fc1"]["kernel"]]
+    return (torch.cat(w1, dim=1),
+            torch.cat([bn["fc2"]["kernel"], f["fc2"]["kernel"]], dim=1))
 
 
 # ---------------------------------------------------------------------------

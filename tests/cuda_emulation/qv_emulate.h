@@ -59,6 +59,8 @@ inline int atomicOr(int* p, int v) { return __atomic_fetch_or(p, v, __ATOMIC_SEQ
 inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
 using std::isnan;
 struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(16) uint4 { unsigned x, y, z, w; };
+inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); return f; }
 struct __nv_bfloat16 { uint16_t bits; };
 inline float __bfloat162float(__nv_bfloat16 v) {
   uint32_t u = uint32_t(v.bits) << 16; float f; std::memcpy(&f, &u, 4); return f; }

@@ -16,8 +16,8 @@ flash-attention kernel against its plain version at the 224 shapes and
 where Nkv and D are not multiples of 16, and a full-depth
 qavit_224_v1_proc forward that launches it 16 times and matches the plain
 path's logits; the tensor-core primitives' self-test (ldmatrix ->
-mma.sync against A @ B) and the n=64 bf16 MSDA kernel with a short bank
-and with its NaN guard tripped."""
+mma.sync against A @ B) and the n=64 bf16 SWA, MSDA and cross/tail
+kernels with a short bank and with their NaN guard tripped."""
 
 from unittest import mock
 
@@ -257,3 +257,49 @@ def test_multiwindow_msda_nan_guard_bf16_on_the_card(cuda):
         torch.cuda.synchronize()
         ref = K.msda_plain(p, xn, bk, bv, g, torch.bfloat16)
     assert torch.equal(out, ref)
+
+
+def _tin_unit(cuda, unit, bank_s, seed, nan_at=None):
+    """(kernel output, plain output) of the n=64 bf16 SWA (x) or
+    cross/tail (xn, the cross branch's q input) unit, a NaN put at
+    ``nan_at`` of that input."""
+    g, p, bk, bv, x = _tin_msda_inputs(cuda, bank_s, seed)
+    dtype = torch.bfloat16
+    with torch.inference_mode():
+        if unit == "swa":
+            if nan_at is not None:
+                x[nan_at] = float("nan")
+            out = K.unit_swa(p, x, bk, bv, g, dtype)
+            torch.cuda.synchronize()
+            return out, K.swa_plain(p, x, bk, bv, g, dtype)
+        o, xn = K.swa_plain(p, x, bk, bv, g, dtype)
+        args = [x, xn.clone(), o, K.msda_plain(p, xn, bk, bv, g, dtype),
+                K.cga_plain(p, xn, bk, bv, g, dtype), bk, bv, g, dtype]
+        if nan_at is not None:
+            args[1][nan_at] = float("nan")
+        out = K.unit_cross_tail(p, *args)
+        torch.cuda.synchronize()
+        return out, K.cross_tail_plain(p, *args)
+
+
+@pytest.mark.parametrize("unit", ["swa", "cross_tail"])
+def test_multiwindow_mma_short_bank_on_the_card(cuda, unit):
+    """The n=64 bf16 SWA and cross/tail kernels with 12 bank rows."""
+    out, ref = _tin_unit(cuda, unit, 12, 6)
+    for o, r in zip(out if unit == "swa" else (out,),
+                    ref if unit == "swa" else (ref,)):
+        assert K.within_tolerance(o, r), K.max_abs_err(o, r)
+
+
+@pytest.mark.parametrize("unit", ["swa", "cross_tail"])
+def test_multiwindow_mma_nan_guard_bf16_on_the_card(cuda, unit):
+    """A NaN in one sample: SWA's output is proj(0) in every sample and xn
+    keeps the NaN row; the cross/tail output is finite, every sample's
+    cross attention zero, as plain."""
+    out, ref = _tin_unit(cuda, unit, 16, 7, (9, 3, 5))
+    if unit == "swa":
+        assert torch.equal(out[0], ref[0])
+        out, ref = out[1], ref[1]
+    nan = torch.isnan(ref)
+    assert torch.equal(torch.isnan(out), nan)
+    assert K.within_tolerance(out[~nan], ref[~nan])

@@ -6,13 +6,13 @@ the stated tolerance (fused_kernels.TOLERANCE): the unit kernels at the
 tiny width, the hqavit_c100 width (16 tokens, one SWA window) and the
 hqavit_tiny_in geometry (64 tokens, four SWA windows, full width), the
 flash-attention kernel at the 224 path's shapes, in float32 and bf16.
-The bf16 flash kernel and the n=64 bf16 MSDA kernel run on the tensor
-cores: the emulation rebuilds mma.sync's and ldmatrix's fragments from the
-PTX ISA's layouts, so their fragment indexing is checked here too, after
-a self-test of the primitives (ldmatrix -> mma against A @ B).  This
-checks the kernels' arithmetic, indexing and the batch-wide NaN guard
-here; that nvcc accepts them and that they agree on the card is checked
-by chip_smoke.py and the tests marked ``cuda``."""
+The bf16 flash kernel and the n=64 bf16 SWA, MSDA and cross/tail kernels
+run on the tensor cores: the emulation rebuilds mma.sync's and ldmatrix's
+fragments from the PTX ISA's layouts, so their fragment indexing is
+checked here too, after a self-test of the primitives (ldmatrix -> mma
+against A @ B).  This checks the kernels' arithmetic, indexing and the
+batch-wide NaN guard here; that nvcc accepts them and that they agree on
+the card is checked by chip_smoke.py and the tests marked ``cuda``."""
 
 import ctypes
 import shutil
@@ -207,15 +207,104 @@ def test_msda_nan_guard_bf16(emu_lib, case):
     assert torch.equal(out, ref)
 
 
-def test_msda_kernel_short_bank(emu_lib):
-    """The n=64 bf16 MSDA kernel with 12 bank rows: 44 keys a head, the
-    last tile's 4 padded keys masked."""
+def _check_guarded(out, ref):
+    """NaNs where the plain version has them, the rest within tolerance."""
+    nan = torch.isnan(ref)
+    assert torch.equal(torch.isnan(out), nan)
+    _check(out[~nan], ref[~nan])
+
+
+@pytest.mark.parametrize("unit", ["swa", "cross_tail"])
+def test_mma_nan_guard_bf16(emu_lib, case, unit):
+    """bf16: a NaN in one sample trips the unit's batch-wide guard.  SWA
+    (x): every sample's output is proj(0) and xn keeps the sample's NaN
+    row; cross/tail (xn, read only by the cross branch's q): every
+    sample's cross attention output is zero, the block output finite."""
+    g, p, (bk, bv), x = case
+    dtype = torch.bfloat16
+    x = x.to(dtype)
+    with torch.no_grad():
+        if unit == "swa":
+            x[1, 3, 5] = float("nan")
+            out, xn = K.launch_swa(emu_lib, p, x, bk, bv, g, dtype)
+            ref, ref_xn = K.swa_plain(p, x, bk, bv, g, dtype)
+            assert torch.equal(out, ref)
+            _check_guarded(xn, ref_xn)
+            return
+        o, xn = K.swa_plain(p, x, bk, bv, g, dtype)
+        m = K.msda_plain(p, xn, bk, bv, g, dtype)
+        c = K.cga_plain(p, xn, bk, bv, g, dtype)
+        xn = xn.clone()
+        xn[1, 3, 5] = float("nan")
+        args = (x, xn, o, m, c, bk, bv, g, dtype)
+        y = K.launch_cross_tail(emu_lib, p, *args)
+        ref = K.cross_tail_plain(p, *args)
+    assert torch.isfinite(ref).all()
+    _check_guarded(y, ref)
+
+
+def _short_bank_case():
     cfg = _cfg("multiwindow")
     g = make_geom(cfg)._replace(bank_s=12)
     gen = torch.Generator().manual_seed(8)
     p = param_tree(init_weights(QuadBlockParams(cfg, g), gen))
     bk, bv = (torch.randn(1, 12, g.c, generator=gen) * 0.5 for _ in range(2))
-    xn = torch.randn(B, g.n, g.c, generator=gen).to(torch.bfloat16)
+    x = torch.randn(B, g.n, g.c, generator=gen).to(torch.bfloat16)
+    return g, p, bk, bv, x
+
+
+def test_msda_kernel_short_bank(emu_lib):
+    """The n=64 bf16 MSDA kernel with 12 bank rows: 44 keys a head, the
+    last tile's 4 padded keys masked."""
+    g, p, bk, bv, xn = _short_bank_case()
     with torch.no_grad():
         _check(K.launch_msda(emu_lib, p, xn, bk, bv, g, torch.bfloat16),
                K.msda_plain(p, xn, bk, bv, g, torch.bfloat16))
+
+
+@pytest.mark.parametrize("unit", ["swa", "cross_tail"])
+def test_mma_kernel_short_bank(emu_lib, unit):
+    """The n=64 bf16 SWA and cross/tail kernels with 12 bank rows: 44
+    keys a head in each SWA window, 12 in the cross attention, the padded
+    keys masked (the projected bank rows past 12 are finite bias rows)."""
+    g, p, bk, bv, x = _short_bank_case()
+    dtype = torch.bfloat16
+    with torch.no_grad():
+        ref_out, ref_xn = K.swa_plain(p, x, bk, bv, g, dtype)
+        if unit == "swa":
+            out, xn = K.launch_swa(emu_lib, p, x, bk, bv, g, dtype)
+            _check(out, ref_out)
+            _check(xn, ref_xn)
+            return
+        m = K.msda_plain(p, ref_xn, bk, bv, g, dtype)
+        c = K.cga_plain(p, ref_xn, bk, bv, g, dtype)
+        args = (x, ref_xn, ref_out, m, c, bk, bv, g, dtype)
+        _check(K.launch_cross_tail(emu_lib, p, *args),
+               K.cross_tail_plain(p, *args))
+
+
+@pytest.mark.parametrize("unit", ["swa", "cross_tail"])
+def test_mma_geometry_errors(unit):
+    """The n=64 bf16 SWA and cross/tail kernels take hqavit_tiny_in's
+    geometry; at C=48 (which the float32 n=64 kernels take) the error
+    names the width, and a bf16 n=64 eval launch raises it before any
+    kernel runs (no fallback)."""
+    error = {"swa": K.swa_mma_error,
+             "cross_tail": K.cross_tail_mma_error}[unit]
+    cfg = _cfg("multiwindow")
+    assert error(make_geom(cfg)) is None
+    narrow = cfg.replace(embed_dim=48)
+    g = make_geom(narrow)
+    assert K.kernel_geometry_error(g) is None
+    reason = error(g)
+    assert reason is not None and "C=192" in reason
+    gen = torch.Generator().manual_seed(2)
+    p = param_tree(init_weights(QuadBlockParams(narrow, g), gen))
+    bk, bv = (torch.zeros(1, g.bank_s, g.c) for _ in range(2))
+    x = torch.zeros(B, g.n, g.c, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="C=192"):
+        if unit == "swa":
+            K.launch_swa(None, p, x, bk, bv, g, torch.bfloat16)
+        else:
+            K.launch_cross_tail(None, p, x, x, x, x, x, bk, bv, g,
+                                torch.bfloat16)
