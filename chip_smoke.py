@@ -25,11 +25,16 @@ it stopped:
       partials) and its backward kernel (gradients) against the plain
       version and autograd through it at B=256, float32 and bf16, with
       dropout 0.1 and drop-path 0.1 masks on, and with the NaN guard
-      tripped (the guarded branch passes zero gradient);
+      tripped (the guarded branch passes zero gradient; float32, and bf16
+      for the MSDA and cross/tail units, whose bf16 backward kernels run
+      on the tensor cores), and those two bf16 backward kernels with 12
+      bank rows; their registers, spills and shared memory;
   (g) the train path: ``qavit_tpu_torch.cli.bench --preset hqavit_c100
       --train --batch-sizes 1024`` with every launch count set to 0 just
       before and read just after (each unit's forward and backward kernel
-      8 times per step, the bank count +24 per step); then the kernel step
+      8 times per step, the MSDA and cross/tail backward launches all
+      through their tensor-core entries, the bank count +24 per step);
+      then the kernel step
       against the plain step on the card at B=1024 from the same weights,
       batch and seeds: the gradients of one step in float32 and in bf16
       (beside the bf16 plain step's own distance from the float32 one),
@@ -390,8 +395,65 @@ def backward_checks(K, cfg, g, p, dev):
               flush=True)
         if not r.ok:
             failed.append((unit, "guard"))
+    failed += mma_backward_checks(K, g, p, dev, lib, stream, grid, train,
+                                  rows, gen)
     if failed:
         raise AssertionError(f"training kernels disagree: {failed}")
+
+
+MMA_BWD = ("unit_msda", "unit_cross_tail")   # bf16 tensor-core backwards
+
+
+def mma_backward_checks(K, g, p, dev, lib, stream, grid, train, rows, gen):
+    """Phase (f), the bf16 tensor-core backward kernels: the NaN guard
+    tripped in one sample, and 12 bank rows (the keys past them masked);
+    each launch must take the tensor-core entry.  Then their ptxas lines
+    and shared memory.  Returns the failed (unit, case) pairs."""
+    import torch
+
+    from qavit_tpu_torch.kernels import unit_checks as UC
+
+    dtype, failed = torch.bfloat16, []
+    x = (torch.randn(CHECK_BATCH, g.n, g.c, generator=gen) * 2).to(dev,
+                                                                   dtype)
+    g12 = g._replace(bank_s=12)
+    rows12 = tuple(t[:, :12].contiguous() for t in rows)
+    bank12 = dict(train.bankp)
+    bank12["write_gate_kernel"] = bank12["write_gate_kernel"][:, :12].clone()
+    bank12["write_gate_bias"] = bank12["write_gate_bias"][:12].clone()
+    train12 = K.UnitTrain(train.rng, bank12)
+    for case in ("NaN guard", "12 bank rows"):
+        twelve = case == "12 bank rows"
+        gc, rc = (g12, rows12) if twelve else (g, rows)
+        inputs = UC.unit_inputs(p, gc, dtype, x, rc)
+        for unit in MMA_BWD:
+            batch = list(inputs[unit])
+            if not twelve:
+                lead = 1 if unit == "unit_cross_tail" else 0
+                batch[lead] = batch[lead].clone()
+                batch[lead][CHECK_BATCH // 2, 3, 5] = float("nan")
+            cots = UC.random_cotangents(unit, batch, dtype, gen)
+            K.reset_launches()
+            r = UC.check_unit(lib, unit, p, train12 if twelve else train,
+                              batch, gc, dtype, grid, cots, stream,
+                              guard_tripped=not twelve)
+            routed = K.ROUTES[f"{unit}_bwd_mma"] == 1
+            ok = r.ok and routed
+            print(f"check {unit}_bwd bf16 {case} (tensor-core entry "
+                  f"{routed}): flag {r.flag}, outputs {r.out_err:.2e}, "
+                  f"gradients max_abs_err {r.grad_abs:.3e}, relative "
+                  f"{r.grad_err:.2e} (tolerance "
+                  f"{K.GRAD_TOLERANCE[dtype]:.2e})  {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            if not ok:
+                failed.append((unit, f"bf16 {case}"))
+    for unit in MMA_BWD:
+        kern = f"{unit[5:]}_bwd_mma_kernel"
+        print_ptxas(kern)
+        smem = getattr(lib, f"qv_{unit}_bwd_mma_smem")(None)
+        print(f"{kern}: {smem} B of dynamic shared memory per block",
+              flush=True)
+    return failed
 
 
 def train_path(K, cfg):
@@ -414,6 +476,15 @@ def train_path(K, cfg):
         if n != want:
             raise AssertionError(f"{name}: {n} launches in the train path, "
                                  f"expected {want}")
+    routes = dict(K.ROUTES)
+    print(f"train path: launches per C entry {routes}", flush=True)
+    for unit in MMA_BWD:   # the bf16 step's backwards on the tensor cores
+        if (routes[f"{unit}_bwd_mma"], routes[f"{unit}_bwd"]) != (
+                cfg.depth * steps, 0):
+            raise AssertionError(
+                f"{unit}_bwd: {routes[f'{unit}_bwd_mma']} launches of the "
+                f"tensor-core entry and {routes[f'{unit}_bwd']} of the "
+                f"CUDA-core one, expected {cfg.depth * steps} and 0")
     if row["bank_count"] != 24 * steps:
         raise AssertionError(f"bank count {row['bank_count']} after {steps} "
                              f"steps, expected 24 per step")
@@ -653,8 +724,10 @@ def train_unit_checks_and_timing(K, cfg, g, p, dev, launches):
             cuda_ms(fwd, iters=10), cuda_ms(plain_fwd, iters=10),
             unit_train_work(unit, g, BATCH, 2, p), dtype))
         name = f"{unit}_bwd"
+        entry = K.bwd_entry(unit, g, dtype)     # the record names the kernel
         bwd_rows.append(kernel_row(
-            name, f"qavit_tpu_torch/csrc/{name}.cu", REPLACES[name],
+            f"{unit[5:]}_bwd_mma_kernel" if entry.endswith("_mma") else name,
+            f"qavit_tpu_torch/csrc/{name}.cu", REPLACES[name],
             launches[name], grad_abs, cuda_ms(bwd, iters=10),
             cuda_ms(plain_bwd, iters=10),
             unit_bwd_work(unit, g, BATCH, 2, p), dtype))

@@ -3,7 +3,14 @@
 // a product whose weight streams through a ring of cp.async buffers, a
 // dense layer's epilogue, the q fragments of a warp's two heads, one
 // warp's softmax attention of 16 queries with its scores in registers,
-// and a warp-per-row LayerNorm of bf16 rows.
+// and a warp-per-row LayerNorm of bf16 rows.  Then the pieces of the
+// backward kernels (msda_bwd_mma_kernel, cross_tail_bwd_mma_kernel),
+// which walk the batch in passes of two samples of 16 tokens: products
+// over a pass's rows with an epilogue per pair of columns, weight
+// gradients in^T @ dy over every row of the block, stored once into its
+// float32 slice from operand rows the passes saved, the LayerNorm
+// backward, and the attention with its dropout and its backward, one
+// warp per 16 queries and head.
 #pragma once
 #include "mma.cuh"
 
@@ -262,6 +269,550 @@ __device__ __forceinline__ void ln_rows(const bf16* in, bf16* out, int ld,
               (v[i][2 * k] - mu[i]) * rstd[i] * sc[2 * k] + bi[2 * k],
               (v[i][2 * k + 1] - mu[i]) * rstd[i] * sc[2 * k + 1] +
                   bi[2 * k + 1]));
+}
+
+// --- the backward kernels' pieces ------------------------------------------
+
+constexpr int PASS_ROWS = 2 * NT;   // rows of a pass: two samples of n = 16
+
+// the operand rows a block saves for wgrad_block: its samples b =
+// blockIdx.x, blockIdx.x + grid, ... in passes of two (at most)
+__host__ __device__ inline int block_rows(const Dims& d) {
+  const int nb = (d.B + d.grid - 1) / d.grid;
+  return PASS_ROWS * ((nb + 1) / 2);
+}
+
+// A fragment of A^T for the 16 x 16 tile whose rows are the 16 columns of
+// `a` from its pointer and whose columns are its 16 rows (row-major,
+// leading dim ld): ldmatrix's transpose.  A weight gradient's in^T and an
+// attention backward's dS^T and P^T take their fragments so.
+__device__ __forceinline__ void load_a_t(unsigned r[4], const bf16* a, int ld,
+                                         int lane) {
+  ldmatrix_x4_trans(r, a + ((lane & 7) + ((lane >> 4) << 3)) * ld +
+                           ((lane >> 3) & 1) * 8);
+}
+
+// acc[j] += the 16 x 16 tile of A^T B over 16 KS rows (j: its columns 8j..):
+// the tile's rows are the 16 columns of a from its pointer, its columns
+// the 16 of b from its pointer (both row-major, leading dims lda, ldb)
+template <int KS>
+__device__ __forceinline__ void mma_tn(float (&acc)[2][4], const bf16* a,
+                                       int lda, const bf16* b, int ldb,
+                                       int lane) {
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    unsigned af[4], bf[4];
+    load_a_t(af, a + ks * 16 * lda, lda, lane);
+    load_b_kn(bf, b + ks * 16 * ldb, ldb, lane);
+    mma_bf16_16816(acc[0], af, bf);
+    mma_bf16_16816(acc[1], af, bf + 2);
+  }
+}
+
+// A product over the PASS_ROWS rows of a pass: A (shared memory, leading
+// dim lda, K columns) @ W (bf16 [K, ldw] in device memory, N = 192 or 96
+// columns) through ring_gemm's ring (STAGES x RING_KS x (N + 8) elements);
+// epi(row, col, v0, v1) gets the float32 sums of columns col, col + 1 of
+// a row, from the one thread that holds them.  N = 192: warp w the rows
+// 16 (w & 1).. and the 48 columns from 48 (w >> 1); N = 96: warps 0-5 all
+// rows and 16 columns each (warps 6 and 7 repeat warp 5's and keep
+// nothing).  Block-wide; the ring is free again on return.
+template <int N, int STAGES, typename F>
+__device__ __forceinline__ void gemm_pass(const bf16* a, int lda,
+                                          const bf16* W, int ldw, int K,
+                                          bf16* ring, F&& epi) {
+  static_assert(N == 192 || N == 96, "the pass products' widths");
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  if constexpr (N == 96) {
+    const int n0 = 16 * (warp < 6 ? warp : 5);
+    float acc[2][2][4];
+    ring_gemm<2, 2, STAGES>(a, lda, W, ldw, N, K, ring, N + 8, n0, acc);
+    if (warp < 6)
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf)
+            epi(16 * mi + g + 8 * hf, n0 + 8 * j + 2 * t,
+                acc[mi][j][2 * hf], acc[mi][j][2 * hf + 1]);
+  } else {
+    const int mt = warp & 1, n0 = 48 * (warp >> 1);
+    float acc[1][6][4];
+    ring_gemm<1, 6, STAGES>(a + mt * 16 * lda, lda, W, ldw, N, K, ring,
+                            N + 8, n0, acc);
+#pragma unroll
+    for (int j = 0; j < 6; ++j)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        epi(16 * mt + g + 8 * hf, n0 + 8 * j + 2 * t, acc[0][j][2 * hf],
+            acc[0][j][2 * hf + 1]);
+  }
+}
+
+// The same with B staged in shared memory (bf16 [K, ldb], K a multiple of
+// 16), N = 192, without a barrier.
+template <typename F>
+__device__ __forceinline__ void gemm_pass_smem(const bf16* a, int lda,
+                                               const bf16* b, int ldb, int K,
+                                               F&& epi) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int mt = warp & 1, n0 = 48 * (warp >> 1);
+  float acc[6][4];
+#pragma unroll
+  for (int j = 0; j < 6; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  for (int ks = 0; ks < K / 16; ++ks) {
+    unsigned af[4];
+    load_a(af, a + mt * 16 * lda + ks * 16, lda, lane);
+#pragma unroll
+    for (int np = 0; np < 3; ++np) {
+      unsigned bf[4];
+      load_b_kn(bf, b + ks * 16 * ldb + n0 + np * 16, ldb, lane);
+      mma_bf16_16816(acc[2 * np], af, bf);
+      mma_bf16_16816(acc[2 * np + 1], af, bf + 2);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 6; ++j)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+      epi(16 * mt + g + 8 * hf, n0 + 8 * j + 2 * t, acc[j][2 * hf],
+          acc[j][2 * hf + 1]);
+}
+
+// The PASS_ROWS rows of a pass, cols (a multiple of 8) from shared memory
+// (src, leading dim lds) to the block's operand rows in device memory
+// (dst, leading dim ldd), 16 bytes a copy, for wgrad_block.  Block-wide,
+// without a barrier.
+__device__ __forceinline__ void save_rows(bf16* dst, int ldd, const bf16* src,
+                                          int lds, int cols) {
+  const int cpr = cols / 8;
+  for (int i = threadIdx.x; i < PASS_ROWS * cpr; i += NTHREADS) {
+    const int r = i / cpr, c = (i - r * cpr) * 8;
+    *reinterpret_cast<uint4*>(dst + (size_t)r * ldd + c) =
+        *reinterpret_cast<const uint4*>(src + r * lds + c);
+  }
+}
+
+// A weight gradient over the `rows` operand rows a block saved
+// (save_rows; a multiple of 16): gW[k, n] = sum_r a[r, k] b[r, n] for
+// k < K, n < N (multiples of 16) into this block's float32 slice gW
+// (leading dim ldg), and gb[n] = sum_r b[r, n] in row order when gb is
+// not null; a and b point at their first column in the operand rows
+// (leading dim ld).  The rows are staged through shared memory (smem,
+// `elems` bf16) in chunks of as many as it holds, and the mma tiles'
+// sums over a chunk are stored into the slice, or added to it after the
+// first chunk: where one chunk holds every row, each slice element is
+// written once and never read.  Block-wide; ends with a barrier.
+__device__ __forceinline__ void wgrad_block(const bf16* a, const bf16* b,
+                                            int ld, int rows, int K, int N,
+                                            float* gW, int ldg, float* gb,
+                                            bf16* smem, int elems) {
+  constexpr int NW = NTHREADS / 32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int lda = K + 8, ldb = N + 8, cpa = K / 8, cpr = (K + N) / 8;
+  const int chunk = elems / (lda + ldb) / 16 * 16;
+  const int tn = N / 16, tiles = (K / 16) * tn;
+  for (int r0 = 0; r0 < rows; r0 += chunk) {
+    const int nr = rows - r0 < chunk ? rows - r0 : chunk;
+    bf16* sb = smem + nr * lda;
+    for (int i = threadIdx.x; i < nr * cpr; i += NTHREADS) {
+      const int r = i / cpr, c = i - r * cpr;
+      if (c < cpa)
+        cp_async_16(smem + r * lda + 8 * c, a + (size_t)(r0 + r) * ld + 8 * c);
+      else
+        cp_async_16(sb + r * ldb + 8 * (c - cpa),
+                    b + (size_t)(r0 + r) * ld + 8 * (c - cpa));
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int tile = warp; tile < tiles; tile += NW) {
+      const int m0 = (tile / tn) * 16, n0 = (tile - (tile / tn) * tn) * 16;
+      float acc[2][4] = {};
+      for (int ks = 0; ks < nr / 16; ++ks) {
+        unsigned af[4], bf[4];
+        load_a_t(af, smem + ks * 16 * lda + m0, lda, lane);
+        load_b_kn(bf, sb + ks * 16 * ldb + n0, ldb, lane);
+        mma_bf16_16816(acc[0], af, bf);
+        mma_bf16_16816(acc[1], af, bf + 2);
+      }
+      float* p = gW + (m0 + g) * ldg + n0 + 2 * t;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float* q = p + (e >> 1) * 8 * ldg + 8 * j + (e & 1);
+          *q = r0 ? *q + acc[j][e] : acc[j][e];
+        }
+    }
+    if (gb != nullptr)
+      for (int n = threadIdx.x; n < N; n += NTHREADS) {
+        float sum = 0.f;
+        for (int r = 0; r < nr; ++r) sum += to_f<bf16>(sb[r * ldb + n]);
+        gb[n] = r0 ? gb[n] + sum : sum;
+      }
+    __syncthreads();
+  }
+}
+
+// The block-wide sums of every thread's v[k] (k < NV), in a fixed order
+// (the lanes by shuffles, then the warps in turn), left in red[8 NV + k]
+// for every thread; red: 9 NV floats.  Block-wide.
+template <int NV>
+__device__ __forceinline__ void block_sums(float (&v)[NV], float* red) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      v[k] += __shfl_xor_sync(0xffffffffu, v[k], o);
+    if (lane == 0) red[warp * NV + k] = v[k];
+  }
+  __syncthreads();
+  if ((int)threadIdx.x < NV) {
+    float s = 0.f;
+    for (int w = 0; w < NTHREADS / 32; ++w) s += red[w * NV + threadIdx.x];
+    red[8 * NV + threadIdx.x] = s;
+  }
+  __syncthreads();
+}
+
+// The LayerNorm backward of ROWS bf16 rows of COLS columns (ln_rows' form;
+// its statistics recomputed from x in float32, as layer_norm_bwd_rows
+// does): dx = rstd (g - mean(g) - xhat mean(g xhat)) with g = dy scale,
+// the last term dropped where the variance clamps at 0, plus add[r, c]
+// when add is not null, rounded to bf16 (dx may be dy; every leading dim
+// ld).  The scale and bias gradients, sums over the rows in row order,
+// are added to gs, gb (this block's slice).  Eight lanes share a row, as
+// in ln_rows.  stats: 4 ROWS floats.  Block-wide; ends with a barrier.
+template <int ROWS, int COLS>
+__device__ __forceinline__ void ln_bwd_rows(const bf16* x, const bf16* dy,
+                                            bf16* dx, const bf16* add, int ld,
+                                            const float* scale, float* gs,
+                                            float* gb, float* stats) {
+  constexpr int P = COLS / 16;
+  constexpr int R = ROWS / (NTHREADS / 8);
+  static_assert(P * 16 == COLS && R * (NTHREADS / 8) == ROWS,
+                "whole column pairs and rows per thread");
+  const int sub = threadIdx.x >> 3, c0 = 2 * (threadIdx.x & 7);
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int row = sub + i * (NTHREADS / 8);
+    float xv[2 * P], gv[2 * P], s = 0.f, sq = 0.f;
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      const int c = row * ld + c0 + 16 * k;
+      const unsigned ux = *reinterpret_cast<const unsigned*>(x + c);
+      const unsigned ud = *reinterpret_cast<const unsigned*>(dy + c);
+      xv[2 * k] = bf16x2_lo(ux);
+      xv[2 * k + 1] = bf16x2_hi(ux);
+      gv[2 * k] = bf16x2_lo(ud) * scale[c0 + 16 * k];
+      gv[2 * k + 1] = bf16x2_hi(ud) * scale[c0 + 16 * k + 1];
+      s += xv[2 * k] + xv[2 * k + 1];
+      sq += xv[2 * k] * xv[2 * k] + xv[2 * k + 1] * xv[2 * k + 1];
+    }
+#pragma unroll
+    for (int o = 4; o > 0; o >>= 1) {
+      s += __shfl_xor_sync(0xffffffffu, s, o);
+      sq += __shfl_xor_sync(0xffffffffu, sq, o);
+    }
+    const float mu = s / COLS, vraw = sq / COLS - mu * mu;
+    const float rs = rsqrtf(fmaxf(vraw, 0.f) + LN_EPS);
+    float ga = 0.f, gb2 = 0.f;
+#pragma unroll
+    for (int k = 0; k < 2 * P; ++k) {
+      ga += gv[k];
+      gb2 += gv[k] * (xv[k] - mu) * rs;
+    }
+#pragma unroll
+    for (int o = 4; o > 0; o >>= 1) {
+      ga += __shfl_xor_sync(0xffffffffu, ga, o);
+      gb2 += __shfl_xor_sync(0xffffffffu, gb2, o);
+    }
+    if ((threadIdx.x & 7) == 0) {
+      stats[4 * row] = mu;
+      stats[4 * row + 1] = rs;
+      stats[4 * row + 2] = ga / COLS;
+      stats[4 * row + 3] = vraw >= 0.f ? gb2 / COLS : 0.f;
+    }
+  }
+  __syncthreads();
+  if (gs != nullptr)
+    for (int c = threadIdx.x; c < COLS; c += NTHREADS) {
+      float ss = 0.f, sb = 0.f;
+      for (int r = 0; r < ROWS; ++r) {
+        const float d = to_f<bf16>(dy[r * ld + c]);
+        ss += d * ((to_f<bf16>(x[r * ld + c]) - stats[4 * r]) *
+                   stats[4 * r + 1]);
+        sb += d;
+      }
+      gs[c] += ss;
+      gb[c] += sb;
+    }
+  __syncthreads();        // dx may overwrite dy
+  for (int i = threadIdx.x; i < ROWS * COLS / 2; i += NTHREADS) {
+    const int r = i / (COLS / 2), c = 2 * (i - r * (COLS / 2));
+    const float* st = stats + 4 * r;
+    float v[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float xh = (to_f<bf16>(x[r * ld + c + e]) - st[0]) * st[1];
+      const float gg = to_f<bf16>(dy[r * ld + c + e]) * scale[c + e];
+      v[e] = st[1] * (gg - st[2] - xh * st[3]);
+      if (add != nullptr) v[e] += to_f<bf16>(add[r * ld + c + e]);
+    }
+    store_bf16x2(dx + r * ld + c, pack_bf16x2(v[0], v[1]));
+  }
+  __syncthreads();
+}
+
+// The attention dropout of one warp's probabilities in head vh of one
+// sample (identity unless dr.on): element (query row, key) has the flat
+// index base + (vh * NT + row) * kv + key, as common.cuh's attention
+// numbers it, and keeps rnd(p / keep) or 0.
+struct AttnMask {
+  Drop dr;
+  unsigned base;
+  int vh, kv;
+};
+
+__device__ __forceinline__ float attn_mask(const AttnMask& m, int row,
+                                           int key, float p) {
+  if (!m.dr.on) return p;
+  return kept(m.dr.salt, m.dr.thr,
+              m.base + (unsigned)((m.vh * NT + row) * m.kv + key))
+             ? p / m.dr.keep
+             : 0.f;
+}
+
+// One warp's softmax probabilities of 16 queries in one head over NKT
+// tiles of 16 keys, as warp_attention computes them (scores divided by
+// sqrt(D), keys from nkeys on -inf, float32 softmax by quad shuffles),
+// left in s in the C-fragment layout: s[j] holds keys 8j.. of query rows
+// g and g + 8.
+template <int NKT>
+__device__ __forceinline__ void attn_probs(const unsigned (&qa)[3][4],
+                                           const bf16* const (&kt)[NKT],
+                                           int ld, int hc, int nkeys,
+                                           float (&s)[2 * NKT][4]) {
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  const float sqrt_d = sqrtf((float)ATT_D);
+#pragma unroll
+  for (int j = 0; j < 2 * NKT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < ATT_D / 16; ++ks)
+#pragma unroll
+    for (int np = 0; np < NKT; ++np) {
+      unsigned kb[4];
+      load_b_nk(kb, kt[np] + hc + ks * 16, ld, lane);
+      mma_bf16_16816(s[2 * np], qa[ks], kb);
+      mma_bf16_16816(s[2 * np + 1], qa[ks], kb + 2);
+    }
+  float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < 2 * NKT; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const bool in = 8 * j + 2 * t + e < nkeys;
+      s[j][e] = in ? s[j][e] / sqrt_d : -INFINITY;
+      s[j][2 + e] = in ? s[j][2 + e] / sqrt_d : -INFINITY;
+      m0 = fmaxf(m0, s[j][e]);
+      m1 = fmaxf(m1, s[j][2 + e]);
+    }
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
+  }
+  float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 2 * NKT; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      s[j][e] = expf(s[j][e] - m0);
+      s[j][2 + e] = expf(s[j][2 + e] - m1);
+      l0 += s[j][e];
+      l1 += s[j][2 + e];
+    }
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, o);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, o);
+  }
+#pragma unroll
+  for (int j = 0; j < 2 * NKT; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      s[j][e] = s[j][e] / l0;
+      s[j][2 + e] = s[j][2 + e] / l1;
+    }
+}
+
+// The A fragments of a 16-key step kk of probabilities (or dS) held in
+// C fragments s, each value through f(row, key, value) and rounded to
+// bf16: two neighbouring C tiles are one A fragment (mma.cuh)
+template <int NKT, typename F>
+__device__ __forceinline__ void c_to_a(const float (&s)[2 * NKT][4], int kk,
+                                       F&& f, unsigned (&pa)[4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int j = 2 * kk + (r >> 1), hf = r & 1;
+    const int key = 8 * j + 2 * t, row = g + 8 * hf;
+    pa[r] = pack_bf16x2(f(row, key, s[j][2 * hf]),
+                        f(row, key + 1, s[j][2 * hf + 1]));
+  }
+}
+
+// warp_attention in training: the probabilities through the attention
+// dropout m before PV (rnd(P / keep) or 0, as common.cuh's attention),
+// the 16 output rows to out (leading dim ldo, columns hc..) as bf16.
+template <int NKT>
+__device__ __forceinline__ void warp_attention_train(
+    const unsigned (&qa)[3][4], const bf16* const (&kt)[NKT],
+    const bf16* const (&vt)[NKT], int ld, int hc, int nkeys,
+    const AttnMask& m, bf16* out, int ldo) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float s[2 * NKT][4];
+  attn_probs<NKT>(qa, kt, ld, hc, nkeys, s);
+  float o[6][4];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < NKT; ++kk) {
+    unsigned pa[4];
+    c_to_a<NKT>(s, kk, [&](int row, int key, float p) {
+      return attn_mask(m, row, key, p);
+    }, pa);
+#pragma unroll
+    for (int dp = 0; dp < ATT_D / 16; ++dp) {
+      unsigned vb[4];
+      load_b_kn(vb, vt[kk] + hc + dp * 16, ld, lane);
+      mma_bf16_16816(o[2 * dp], pa, vb);
+      mma_bf16_16816(o[2 * dp + 1], pa, vb + 2);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 6; ++j)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+      store_bf16x2(out + (g + 8 * hf) * ldo + hc + 8 * j + 2 * t,
+                   pack_bf16x2(o[j][2 * hf], o[j][2 * hf + 1]));
+}
+
+// The backward of warp_attention_train for one warp's 16 queries in one
+// head, given the output's cotangent dO (16 rows, leading dim ldo,
+// columns hc..): P recomputed from q (qa), the keys and the mask; dP = dO
+// V^T through the mask; dS = P (dP - rowsum(dP P)) / sqrt(D), the
+// division placed as common.cuh's attention_bwd places it; dq = dS K
+// (dS rounded to bf16 straight into A fragments) to dq (leading dim
+// lddq, columns hc..).  dS and the probabilities PV used go to ds and pu
+// (16 rows, keys 0 .. 16 NKT, leading dim lds), all as bf16, for the key
+// gradients dK = dS^T q and dV = P^T dO, which the caller forms (mma_tn)
+// after a __syncwarp (one sample's keys) or a barrier (keys shared by
+// the samples).  Keys past nkeys must be finite rows (zeros).
+template <int NKT>
+__device__ __forceinline__ void warp_attention_bwd(
+    const unsigned (&qa)[3][4], const bf16* const (&kt)[NKT],
+    const bf16* const (&vt)[NKT], int ld, int hc, int nkeys,
+    const AttnMask& m, const bf16* dO, int ldo, bf16* dq, int lddq,
+    bf16* ds, bf16* pu, int lds) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float sqrt_d = sqrtf((float)ATT_D);
+  float s[2 * NKT][4], dp[2 * NKT][4];
+  attn_probs<NKT>(qa, kt, ld, hc, nkeys, s);
+  unsigned oa[3][4];
+#pragma unroll
+  for (int ks = 0; ks < 3; ++ks) load_a(oa[ks], dO + hc + ks * 16, ldo, lane);
+#pragma unroll
+  for (int j = 0; j < 2 * NKT; ++j)
+    dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < 3; ++ks)
+#pragma unroll
+    for (int np = 0; np < NKT; ++np) {
+      unsigned vb[4];
+      load_b_nk(vb, vt[np] + hc + ks * 16, ld, lane);
+      mma_bf16_16816(dp[2 * np], oa[ks], vb);
+      mma_bf16_16816(dp[2 * np + 1], oa[ks], vb + 2);
+    }
+  float dot0 = 0.f, dot1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 2 * NKT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = 8 * j + 2 * t + (e & 1), row = g + 8 * (e >> 1);
+      dp[j][e] = attn_mask(m, row, key, dp[j][e]);
+      // the probabilities PV used, for dV
+      if (e & 1)
+        store_bf16x2(pu + row * lds + key - 1,
+                     pack_bf16x2(attn_mask(m, row, key - 1, s[j][e - 1]),
+                                 attn_mask(m, row, key, s[j][e])));
+      if (e >> 1)
+        dot1 = fmaf(dp[j][e], s[j][e], dot1);
+      else
+        dot0 = fmaf(dp[j][e], s[j][e], dot0);
+    }
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    dot0 += __shfl_xor_sync(0xffffffffu, dot0, o);
+    dot1 += __shfl_xor_sync(0xffffffffu, dot1, o);
+  }
+#pragma unroll
+  for (int j = 0; j < 2 * NKT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s[j][e] = s[j][e] * (dp[j][e] - (e >> 1 ? dot1 : dot0)) / sqrt_d;
+#pragma unroll
+  for (int j = 0; j < 2 * NKT; ++j)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+      store_bf16x2(ds + (g + 8 * hf) * lds + 8 * j + 2 * t,
+                   pack_bf16x2(s[j][2 * hf], s[j][2 * hf + 1]));
+  float o[6][4];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < NKT; ++kk) {
+    unsigned da[4];
+    c_to_a<NKT>(s, kk, [](int, int, float v) { return v; }, da);
+#pragma unroll
+    for (int dp16 = 0; dp16 < ATT_D / 16; ++dp16) {
+      unsigned kb[4];
+      load_b_kn(kb, kt[kk] + hc + dp16 * 16, ld, lane);
+      mma_bf16_16816(o[2 * dp16], da, kb);
+      mma_bf16_16816(o[2 * dp16 + 1], da, kb + 2);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 6; ++j)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+      store_bf16x2(dq + (g + 8 * hf) * lddq + hc + 8 * j + 2 * t,
+                   pack_bf16x2(o[j][2 * hf], o[j][2 * hf + 1]));
+}
+
+// The key gradients of warp_attention_bwd for 16 keys and one head of
+// ATT_D columns: acc[c][.] += the 16 x 16 tile c of A^T B over 16 KS rows,
+// A = dS or P (keys from a's column pointer), B = q or dO (head columns
+// from b's pointer)
+template <int KS>
+__device__ __forceinline__ void key_grads(const bf16* a, int lda,
+                                          const bf16* b, int ldb,
+                                          float (&acc)[ATT_D / 16][2][4]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int c = 0; c < ATT_D / 16; ++c) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      acc[c][j][0] = acc[c][j][1] = acc[c][j][2] = acc[c][j][3] = 0.f;
+    mma_tn<KS>(acc[c], a, lda, b + 16 * c, ldb, lane);
+  }
 }
 
 }  // namespace qv

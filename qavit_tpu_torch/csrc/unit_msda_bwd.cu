@@ -2,21 +2,50 @@
 //
 // Replaces the TPU kernel qavit_tpu/kernels/fused_pallas.py:244 bwd_call
 // (pallas_call at :245, bwd_kernel :219-242) for the core `msda`
-// (fused_kernels.py:82).
+// (fused_kernels.py:82); PERF.md section 6 row 6.
 //
-// Per sample: recompute through msda_body (unit_msda.cuh, the forward's
-// code, masks and NaN-guard flag replayed), then differentiate proj,
-// attention, the Linformer mix of the pooled rows, the kv and q
-// projections (the two column blocks of the one qkv kernel) and the
-// constant pooling matrix back to d(xn), written per sample in the working
-// type.  Weight and bank gradients go to this block's float32 slice; the
-// reduction pass sums the slices in block order.
+// Per sample: recompute the branch (masks and NaN-guard flag replayed),
+// then differentiate proj, attention, the Linformer mix of the pooled
+// rows, the kv and q projections (the two column blocks of the one qkv
+// kernel) and the constant pooling matrix back to d(xn), written per
+// sample in the working type.  Weight and bank gradients go to this
+// block's float32 slice; the reduction pass sums the slices in block
+// order.
 //
-// Bound on the H100 at B=1024 (bf16): 3 x 6.3 MB moved (~5.6 us) against
-// ~4 x 3.5 GFLOP (~14 us): the operations bound it.  Latency-bound in
-// this first design (one 256-thread block per SM with ~221 KB of shared
-// memory, float32 FMAs, the gradient slice read and written per sample
-// through L2), as the forward.
+// Bound on the H100 at B=1024 (bf16), as chip_smoke.unit_bwd_work counts
+// it: 20.1 MB moved (~6 us at 3.35 TB/s) against 14.4 GFLOP (~14.5 us at
+// 989 TFLOP/s): the operations bound it.
+//
+// float32, msda_bwd_kernel: the first design, on the CUDA cores (TF32
+// keeps too few digits for the 1e-4 gradient tolerance).  One 256-thread
+// block per SM walks the samples with ~221 KB of float32 shared memory;
+// per sample it recomputes through msda_body (unit_msda.cuh, the
+// forward's code), and each dense_wgrad reads and writes the block's
+// gradient slice through L2.  Latency-bound.
+//
+// bf16 at hqavit_c100's widths, msda_bwd_mma_kernel: every product on the
+// tensor cores (mma.sync m16n8k16, bf16 operands, float32 sums) over a
+// pass of two samples (32 rows), every activation and cotangent as bf16
+// in shared memory (219 KB), the pieces in mma_ops.cuh.  Per pass: the
+// pooling as sel_t's sums (token_mix's order), kv and q through the
+// weight ring, kc | vc = rnd(E^T @ k | v) per sample, the attention of
+// 16 queries x one head a warp with the dropout replayed
+// (warp_attention_train); then proj's weight gradient and d(att) = dO @
+// W_p^T; warp_attention_bwd (dq, dS, P) and each warp's own d(kc), d(vc)
+// = dS^T q, P^T dO; the bank keys' gradients summed over the pass's two
+// samples; the Linformer backward (d(E) = k @ d(kc)^T, d(k) = E @
+// d(kc)); the qkv weight gradients; d(pooled) = d(kv) @ W_kv^T and d(xn)
+// = dq @ W_q^T + sel_t d(pooled), stored once.  The dgrads read
+// transposed bf16 weights, which the wrapper makes once per call beside
+// the forward's.  The dense weight gradients in^T @ dy are not summed
+// per pass: each pass saves its operand rows (bf16) to a per-block
+// scratch, and at the end the block forms each gradient over all its
+// rows (wgrad_block) and stores it once into its slice.  Summed into the
+// slice per pass instead, the slices (132 x 0.62 MB, more than L2 holds)
+// were read and written through HBM four times a launch, half the
+// kernel's time (1.06 ms a launch, against 0.51 ms with the saved rows).
+// Time: PERF.md section 6 row 6.
+#include "mma_ops.cuh"
 #include "unit_msda.cuh"
 
 namespace qv {
@@ -126,4 +155,407 @@ extern "C" int qv_unit_msda_bwd(const qv::MsdaBwdArgs* a, int is_bf16,
 
 extern "C" int qv_unit_msda_bwd_smem(const qv::Dims* d) {
   return qv::msda_bwd_smem_floats(*d) * (int)sizeof(float);
+}
+
+// --- bf16 at hqavit_c100's widths: the tensor-core kernel --------------------
+
+namespace qv {
+
+struct MsdaBwdMmaArgs {
+  MsdaBwdArgs a;          // the float32 kernel's arguments
+  // bf16 [C, 3C] qkv | [C, C] proj | [3C, C] qkv^T | [C, C] proj^T
+  const bf16* w;
+};
+
+// the geometry msda_bwd_mma_kernel is written for
+// (fused_kernels.msda_bwd_mma_error)
+constexpr int MB_C = 192, MB_H = 4, MB_LK = 32, MB_S = 16, MB_KEEP = 16;
+static_assert(MB_C / MB_H == ATT_D, "warp_attention's head width");
+constexpr int MB_QKV = 0, MB_PROJ = 3 * MB_C * MB_C;
+constexpr int MB_QKVT = 4 * MB_C * MB_C, MB_PROJT = 7 * MB_C * MB_C;
+// leading dims: 8 bf16 past the width (ldmatrix rows in distinct banks)
+constexpr int MB_LDX = MB_C + 8, MB_LDKV = 2 * MB_C + 8;
+constexpr int MB_LDE = MB_KEEP + 8, MB_LDEN = MB_LK + 8;
+constexpr int MB_X = PASS_ROWS * MB_LDX;       // one [32, C] buffer
+// columns of a block's saved operand rows (save_rows; wgrad_block's
+// inputs): proj's input and d(out); the pooled rows and d(kv); xn and dq
+constexpr int MB_OP_ATT = 0, MB_OP_DO = MB_C, MB_OP_POOL = 2 * MB_C;
+constexpr int MB_OP_DKV = 3 * MB_C, MB_OP_XS = 5 * MB_C, MB_OP_DQ = 6 * MB_C;
+constexpr int MB_OPW = 7 * MB_C;
+constexpr int MB_RING = 3 * RING_KS * MB_LDX;  // three weight slices
+constexpr int MB_BF16 = 2 * MB_S * MB_LDX      // bank k, v
+                        + 2 * MB_LK * MB_LDE   // E_k^T, E_v^T
+                        + 2 * MB_KEEP * MB_LDEN  // E_k, E_v
+                        + PASS_ROWS * MB_LDKV  // kv, then d(kv)
+                        + 11 * MB_X + MB_RING;
+constexpr int MB_SMEM_BYTES = 2 * MB_BF16 + MB_KEEP * MB_KEEP * 4;
+
+// per block: the operand rows (bf16)
+__host__ __device__ inline int msda_bwd_mma_scratch_floats(const Dims& d) {
+  return block_rows(d) * MB_OPW / 2;
+}
+
+// One block per SM walks its samples in passes of two (an odd last pass
+// runs a sample of zeros with a zero cotangent, which adds nothing).  The
+// [32, C] buffers of a pass:
+//   xs    xn
+//   kc    [sample][k, v] the compressed keys [32, C]; then d(kc), d(vc)
+//   q     q
+//   att   the attention rows; then d(att)
+//   dO    d(out) through the proj dropout
+//   dq    the pooled rows; then d(q)
+//   ds    dS
+//   pu    the probabilities PV used; then d(pooled)
+// and kv [32, 2C]: k | v of each sample's pooled rows (padded to 16),
+// then d(kv).  The operand rows of the weight gradients go to the
+// block's scratch (MB_OP_*).
+__global__ void __launch_bounds__(NTHREADS, 1)
+    msda_bwd_mma_kernel(MsdaBwdMmaArgs m) {
+  QV_SMEM_DECL
+  const MsdaBwdArgs& a = m.a;
+  const MsdaArgs& f = a.f;
+  const Dims& d = f.d;
+  const MsdaGrads& gr = a.g;
+  const int S = d.bank_s, keep = d.msda_keep, C = MB_C, kvn = MB_LK + S;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  bf16* bk = reinterpret_cast<bf16*>(qv_smem);
+  bf16* bv = bk + MB_S * MB_LDX;
+  bf16* et = bv + MB_S * MB_LDX;         // [2][MB_LK][MB_LDE]
+  bf16* en = et + 2 * MB_LK * MB_LDE;    // [2][MB_KEEP][MB_LDEN]
+  bf16* kv = en + 2 * MB_KEEP * MB_LDEN;
+  bf16* xs = kv + PASS_ROWS * MB_LDKV;
+  bf16* kc = xs + MB_X;                  // [2][2][32][MB_LDX]
+  bf16* q = kc + 4 * MB_X;
+  bf16* att = q + MB_X;
+  bf16* dO = att + MB_X;
+  bf16* dq = dO + MB_X;
+  bf16* ds = dq + MB_X;
+  bf16* pu = ds + MB_X;
+  bf16* ring = pu + MB_X;
+  float* sel = reinterpret_cast<float*>(ring + MB_RING);  // [16][16]
+  const bf16 zero = from_f<bf16>(0.f);
+  const bool zero_attn = d.guard && a.c.flag[1] != 0;
+  float* gqkv_w = slice(gr.qkv_w, a.c);
+  float* gqkv_b = slice(gr.qkv_b, a.c);
+  auto kcv = [&](int s, int w) { return kc + (2 * s + w) * MB_X; };
+  bf16* ops = reinterpret_cast<bf16*>(
+      a.c.scratch + (size_t)blockIdx.x * msda_bwd_mma_scratch_floats(d));
+
+  // per block: the bank rows rounded (rows past S zero), E^T and E
+  // rounded (past msda_keep zero), the pooling matrix rounded
+  for (int i = threadIdx.x; i < MB_S * C; i += blockDim.x) {
+    const int r = i / C, c = i - r * C;
+    bk[r * MB_LDX + c] = from_f<bf16>(r < S ? rnd<bf16>(f.bank_k[i]) : 0.f);
+    bv[r * MB_LDX + c] = from_f<bf16>(r < S ? rnd<bf16>(f.bank_v[i]) : 0.f);
+  }
+  for (int i = threadIdx.x; i < 2 * MB_LK * MB_KEEP; i += blockDim.x) {
+    const int w = i / (MB_LK * MB_KEEP), r = i - w * MB_LK * MB_KEEP;
+    const int mr = r / MB_KEEP, k = r - mr * MB_KEEP;
+    const float* e = w ? f.e_v : f.e_k;
+    const bf16 v = k < keep ? from_f<bf16>(rnd<bf16>(e[k * MB_LK + mr]))
+                            : zero;
+    et[(w * MB_LK + mr) * MB_LDE + k] = v;
+    en[(w * MB_KEEP + k) * MB_LDEN + mr] = v;
+  }
+  for (int i = threadIdx.x; i < NT * MB_KEEP; i += blockDim.x) {
+    const int n = i / MB_KEEP, p = i - n * MB_KEEP;
+    sel[i] = p < keep ? rnd<bf16>(f.sel_t[n * keep + p]) : 0.f;
+  }
+
+  // rows of sample slot s (< ns) from src, zeros past ns
+  auto stage = [&](bf16* dst, const void* src, const int (&bs)[2], int ns) {
+    for (int i = threadIdx.x; i < PASS_ROWS * (C / 8); i += blockDim.x) {
+      const int r = i / (C / 8), c = (i - r * (C / 8)) * 8, s = r >> 4;
+      bf16* to = dst + r * MB_LDX + c;
+      if (s < ns)
+        cp_async_16(to, static_cast<const bf16*>(src) +
+                            ((size_t)bs[s] * NT + (r & 15)) * C + c);
+      else
+        *reinterpret_cast<uint4*>(to) = uint4{0u, 0u, 0u, 0u};
+    }
+  };
+  const int nb = (d.B - (int)blockIdx.x + (int)gridDim.x - 1) / gridDim.x;
+  for (int k0 = 0; k0 < nb; k0 += 2) {
+    const int ns = nb - k0 < 2 ? nb - k0 : 2;
+    const int bs[2] = {(int)blockIdx.x + k0 * (int)gridDim.x,
+                       (int)blockIdx.x + (k0 + 1) * (int)gridDim.x};
+    bf16* op = ops + (size_t)(k0 / 2) * PASS_ROWS * MB_OPW;  // pass's rows
+    // the flat token index of the pass's row r (the samples by a select:
+    // an index into bs would go to memory)
+    auto tok = [&](int r) { return (r >> 4 ? bs[1] : bs[0]) * NT + (r & 15); };
+    stage(xs, f.xn, bs, ns);
+    stage(dO, a.d_out, bs, ns);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    // d(out) through the proj dropout
+    if (d.train && d.drop_on)
+      for (int i = threadIdx.x; i < PASS_ROWS * C; i += blockDim.x) {
+        const int r = i / C, c = i - r * C;
+        bf16* p = dO + r * MB_LDX + c;
+        *p = from_f<bf16>(drop(d, MSDA_PROJ, (unsigned)(tok(r) * C + c),
+                               to_f<bf16>(*p)));
+      }
+    if (zero_attn) {
+      // a guarded branch: no gradient passes through its attention, so
+      // only proj's bias learns (its input is zero) and d(xn) is zero
+      for (int i = threadIdx.x; i < PASS_ROWS * MB_LDX; i += blockDim.x)
+        att[i] = zero;
+      __syncthreads();
+      save_rows(op + MB_OP_ATT, MB_OPW, att, MB_LDX, C);
+      save_rows(op + MB_OP_DO, MB_OPW, dO, MB_LDX, C);
+      for (int i = threadIdx.x; i < ns * NT * (C / 8); i += blockDim.x) {
+        const int r = i / (C / 8), c = (i - r * (C / 8)) * 8;
+        *reinterpret_cast<uint4*>(static_cast<bf16*>(a.d_xn) +
+                                  (size_t)tok(r) * C + c) =
+            uint4{0u, 0u, 0u, 0u};
+      }
+      __syncthreads();
+      continue;
+    }
+    // ---- recompute ---------------------------------------------------
+    // the pooled rows (each sample's keep rows padded to 16) into dq
+    for (int i = threadIdx.x; i < PASS_ROWS * C; i += blockDim.x) {
+      const int r = i / C, c = i - r * C, s = r >> 4, p = r & 15;
+      float acc = 0.f;
+      if (p < keep)
+        for (int n = 0; n < NT; ++n)
+          acc = fmaf(sel[n * MB_KEEP + p],
+                     to_f<bf16>(xs[(16 * s + n) * MB_LDX + c]), acc);
+      dq[r * MB_LDX + c] = from_f<bf16>(acc);
+    }
+    __syncthreads();
+    save_rows(op + MB_OP_POOL, MB_OPW, dq, MB_LDX, C);
+    for (int w = 0; w < 2; ++w)   // kv = pooled @ W_kv + b, k then v
+      gemm_pass<192, 3>(dq, MB_LDX, m.w + MB_QKV + (1 + w) * C, 3 * C, C,
+                        ring, [&](int r, int c, float v0, float v1) {
+                          const float* b = f.qkv_b + (1 + w) * C;
+                          store_bf16x2(kv + r * MB_LDKV + w * C + c,
+                                       pack_bf16x2(dense_out(v0, b[c]),
+                                                   dense_out(v1, b[c + 1])));
+                        });
+    gemm_pass<192, 3>(xs, MB_LDX, m.w + MB_QKV, 3 * C, C, ring,
+                      [&](int r, int c, float v0, float v1) {
+                        store_bf16x2(q + r * MB_LDX + c,
+                                     pack_bf16x2(dense_out(v0, f.qkv_b[c]),
+                                                 dense_out(v1,
+                                                           f.qkv_b[c + 1])));
+                      });
+    __syncthreads();
+    // kc | vc = rnd(E^T @ k | v): unit u = (sample, k or v, 16-key tile,
+    // 96-column half), two a warp
+    for (int u = warp; u < 16; u += NTHREADS / 32) {
+      const int s = u >> 3, w = (u >> 2) & 1, mt = (u >> 1) & 1, ch = u & 1;
+      float acc[12][4];
+#pragma unroll
+      for (int j = 0; j < 12; ++j)
+        acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+      unsigned af[4];
+      load_a(af, et + (w * MB_LK + mt * 16) * MB_LDE, MB_LDE, lane);
+#pragma unroll
+      for (int np = 0; np < 6; ++np) {
+        unsigned bf[4];
+        load_b_kn(bf, kv + 16 * s * MB_LDKV + w * C + ch * 96 + 16 * np,
+                  MB_LDKV, lane);
+        mma_bf16_16816(acc[2 * np], af, bf);
+        mma_bf16_16816(acc[2 * np + 1], af, bf + 2);
+      }
+#pragma unroll
+      for (int j = 0; j < 12; ++j)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          store_bf16x2(kcv(s, w) + (mt * 16 + g + 8 * hf) * MB_LDX +
+                           ch * 96 + 8 * j + 2 * t,
+                       pack_bf16x2(acc[j][2 * hf], acc[j][2 * hf + 1]));
+    }
+    __syncthreads();
+    // the attention: warp (sample s, head h), 32 compressed + S bank keys
+    const int s = warp >> 2, h = warp & 3, hc = h * ATT_D;
+    const AttnMask am{attn_drop(d, MSDA_ATTN),
+                      (unsigned)bs[s] * MB_H * NT * kvn, h, kvn};
+    const bf16* const kt[3] = {kcv(s, 0), kcv(s, 0) + 16 * MB_LDX, bk};
+    const bf16* const vt[3] = {kcv(s, 1), kcv(s, 1) + 16 * MB_LDX, bv};
+    unsigned qa[3][4];
+#pragma unroll
+    for (int ks = 0; ks < 3; ++ks)
+      load_a(qa[ks], q + 16 * s * MB_LDX + hc + 16 * ks, MB_LDX, lane);
+    warp_attention_train<3>(qa, kt, vt, MB_LDX, hc, kvn, am,
+                            att + 16 * s * MB_LDX, MB_LDX);
+    __syncthreads();
+    // ---- proj --------------------------------------------------------
+    save_rows(op + MB_OP_ATT, MB_OPW, att, MB_LDX, C);
+    save_rows(op + MB_OP_DO, MB_OPW, dO, MB_LDX, C);
+    gemm_pass<192, 3>(dO, MB_LDX, m.w + MB_PROJT, C, C, ring,
+                      [&](int r, int c, float v0, float v1) {
+                        store_bf16x2(att + r * MB_LDX + c,
+                                     pack_bf16x2(v0, v1));
+                      });
+    __syncthreads();
+    // ---- attention: dq, dS, P; this warp's d(kc), d(vc) in place -------
+#pragma unroll
+    for (int ks = 0; ks < 3; ++ks)
+      load_a(qa[ks], q + 16 * s * MB_LDX + hc + 16 * ks, MB_LDX, lane);
+    warp_attention_bwd<3>(qa, kt, vt, MB_LDX, hc, kvn, am,
+                          att + 16 * s * MB_LDX, MB_LDX,
+                          dq + 16 * s * MB_LDX, MB_LDX,
+                          ds + 16 * s * MB_LDX + hc, pu + 16 * s * MB_LDX + hc,
+                          MB_LDX);
+    __syncwarp();
+    for (int w = 0; w < 2; ++w)
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        float acc[3][2][4];
+        key_grads<1>((w ? pu : ds) + 16 * s * MB_LDX + hc + 16 * mt, MB_LDX,
+                     (w ? att : q) + 16 * s * MB_LDX + hc, MB_LDX, acc);
+#pragma unroll
+        for (int c3 = 0; c3 < 3; ++c3)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf)
+              store_bf16x2(kcv(s, w) + (16 * mt + g + 8 * hf) * MB_LDX + hc +
+                               16 * c3 + 8 * j + 2 * t,
+                           pack_bf16x2(acc[c3][j][2 * hf],
+                                       acc[c3][j][2 * hf + 1]));
+      }
+    __syncthreads();
+    {  // the bank keys: warp (k or v, head), summed over the pass's rows
+      const int w = warp >> 2, hb = (warp & 3) * ATT_D;
+      float acc[3][2][4];
+      key_grads<2>((w ? pu : ds) + hb + MB_LK, MB_LDX, (w ? att : q) + hb,
+                   MB_LDX, acc);
+      float* gb = slice(w ? gr.bank_v : gr.bank_k, a.c);
+#pragma unroll
+      for (int c3 = 0; c3 < 3; ++c3)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = g + 8 * (e >> 1);
+            if (key < S)
+              gb[key * C + hb + 16 * c3 + 8 * j + 2 * t + (e & 1)] +=
+                  acc[c3][j][e];
+          }
+    }
+    // ---- the Linformer mix -------------------------------------------
+    if (warp < 4) {  // d(E)[n, m] = sum_c k[n, c] d(kc)[m, c]: (k or v,
+                     // 16 of the 32 m), summed over the pass's samples
+      const int w = warp >> 1, m0 = 16 * (warp & 1);
+      float acc[2][4] = {};
+      for (int s2 = 0; s2 < ns; ++s2)
+#pragma unroll
+        for (int ks = 0; ks < C / 16; ++ks) {
+          unsigned af[4], bf[4];
+          load_a(af, kv + 16 * s2 * MB_LDKV + w * C + 16 * ks, MB_LDKV,
+                 lane);
+          load_b_nk(bf, kcv(s2, w) + m0 * MB_LDX + 16 * ks, MB_LDX, lane);
+          mma_bf16_16816(acc[0], af, bf);
+          mma_bf16_16816(acc[1], af, bf + 2);
+        }
+      float* ge = slice(w ? gr.e_v : gr.e_k, a.c);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int n = g + 8 * (e >> 1);
+          if (n < keep)
+            ge[n * MB_LK + m0 + 8 * j + 2 * t + (e & 1)] += acc[j][e];
+        }
+    }
+    __syncthreads();
+    {  // d(k | v)[n, c] = sum_m E[n, m] d(kc | vc)[m, c] into kv: warp
+       // (sample, k or v, 96-column half); rows past keep are zero
+      const int s2 = warp >> 2, w = (warp >> 1) & 1, ch = warp & 1;
+      float acc[12][4];
+#pragma unroll
+      for (int j = 0; j < 12; ++j)
+        acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        unsigned af[4];
+        load_a(af, en + w * MB_KEEP * MB_LDEN + 16 * ks, MB_LDEN, lane);
+#pragma unroll
+        for (int np = 0; np < 6; ++np) {
+          unsigned bf[4];
+          load_b_kn(bf, kcv(s2, w) + 16 * ks * MB_LDX + ch * 96 + 16 * np,
+                    MB_LDX, lane);
+          mma_bf16_16816(acc[2 * np], af, bf);
+          mma_bf16_16816(acc[2 * np + 1], af, bf + 2);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 12; ++j)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          store_bf16x2(kv + (16 * s2 + g + 8 * hf) * MB_LDKV + w * C +
+                           ch * 96 + 8 * j + 2 * t,
+                       pack_bf16x2(acc[j][2 * hf], acc[j][2 * hf + 1]));
+    }
+    __syncthreads();
+    // ---- the qkv kernel: d(pooled), d(xn) ------------------------------
+    save_rows(op + MB_OP_DKV, MB_OPW, kv, MB_LDKV, 2 * C);
+    save_rows(op + MB_OP_XS, MB_OPW, xs, MB_LDX, C);
+    save_rows(op + MB_OP_DQ, MB_OPW, dq, MB_LDX, C);
+    gemm_pass<192, 3>(kv, MB_LDKV, m.w + MB_QKVT + C * C, C, 2 * C, ring,
+                      [&](int r, int c, float v0, float v1) {
+                        store_bf16x2(pu + r * MB_LDX + c,
+                                     pack_bf16x2(v0, v1));
+                      });
+    gemm_pass<192, 3>(dq, MB_LDX, m.w + MB_QKVT, C, C, ring,
+                      [&](int r, int c, float v0, float v1) {
+                        const int s2 = r >> 4, n = r & 15;
+                        if (s2 >= ns) return;
+                        for (int p = 0; p < keep; ++p) {
+                          const float w = sel[n * MB_KEEP + p];
+                          const bf16* dp = pu + (16 * s2 + p) * MB_LDX + c;
+                          v0 = fmaf(w, to_f<bf16>(dp[0]), v0);
+                          v1 = fmaf(w, to_f<bf16>(dp[1]), v1);
+                        }
+                        store_bf16x2(static_cast<bf16*>(a.d_xn) +
+                                         (size_t)tok(r) * C + c,
+                                     pack_bf16x2(v0, v1));
+                      });
+    __syncthreads();
+  }
+  // the weight gradients over every row of the block, each stored once
+  // into the slice (the guarded branch's qkv ones stay zero)
+  auto wgrad = [&](int ao, int K, int bo, int N, float* w, float* bias,
+                   int ldg) {
+    wgrad_block(ops + ao, ops + bo, MB_OPW, PASS_ROWS * ((nb + 1) / 2), K, N,
+                w, ldg, bias, reinterpret_cast<bf16*>(qv_smem), MB_BF16);
+  };
+  wgrad(MB_OP_ATT, C, MB_OP_DO, C, slice(gr.proj_w, a.c),
+        slice(gr.proj_b, a.c), C);
+  if (zero_attn) return;
+  wgrad(MB_OP_POOL, C, MB_OP_DKV, 2 * C, gqkv_w + C, gqkv_b + C, 3 * C);
+  wgrad(MB_OP_XS, C, MB_OP_DQ, C, gqkv_w, gqkv_b, 3 * C);
+}
+
+}  // namespace qv
+
+// bf16 at hqavit_c100's widths: `a` as for qv_unit_msda_bwd with a
+// per-block scratch of msda_bwd_mma_scratch_floats(d), the bf16 weights
+// beside it (MsdaBwdMmaArgs).  ERR_ARGS for any other geometry
+// or type (the wrapper checks them first, msda_bwd_mma_error).
+extern "C" int qv_unit_msda_bwd_mma(const qv::MsdaBwdArgs* a, const void* w,
+                                    int is_bf16, void* stream) {
+  const qv::Dims& d = a->f.d;
+  if (!is_bf16 || !d.train || d.n != qv::NT || d.nw != 1 ||
+      d.c != qv::MB_C || d.heads != qv::MB_H || d.lin_k != qv::MB_LK ||
+      d.bank_s > qv::MB_S || d.msda_keep > qv::MB_KEEP || d.grid > d.B)
+    return qv::ERR_ARGS;
+  const qv::MsdaBwdMmaArgs m{*a, static_cast<const qv::bf16*>(w)};
+  const int rc = qv_launch(qv::msda_bwd_mma_kernel, m, qv::MB_SMEM_BYTES,
+                           stream, d.grid);
+  if (rc != 0) return rc;
+  return qv_reduce(a->c.gws, a->c.grad, d.grid, a->c.wstride, d.rgrid, stream);
+}
+
+extern "C" int qv_unit_msda_bwd_mma_smem(const qv::Dims*) {
+  return qv::MB_SMEM_BYTES;
+}
+
+extern "C" int qv_unit_msda_bwd_mma_scratch(const qv::Dims* d) {
+  return qv::msda_bwd_mma_scratch_floats(*d);
 }

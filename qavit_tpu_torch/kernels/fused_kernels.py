@@ -23,7 +23,13 @@ raises, naming the reason (:func:`kernel_geometry_error`).  At n=64 in
 bf16 (eval) the SWA, MSDA and cross/tail units run on the tensor cores
 (``swa_mma_kernel``, ``msda_mma_kernel``, ``cross_tail_mma_kernel``), for
 the widths :func:`swa_mma_error`, :func:`msda_mma_error` and
-:func:`cross_tail_mma_error` name; other widths raise.
+:func:`cross_tail_mma_error` name; other widths raise.  In training in
+bf16 at hqavit_c100's widths the MSDA and cross/tail backward kernels run
+on the tensor cores too (``msda_bwd_mma_kernel``,
+``cross_tail_bwd_mma_kernel``, :func:`msda_bwd_mma_error`,
+:func:`cross_tail_bwd_mma_error`); float32, and bf16 at other widths,
+take the CUDA-core backward kernels (:func:`bwd_entry` picks the C entry
+before the launch).  ``ROUTES`` counts the launches of each C entry.
 """
 
 from __future__ import annotations
@@ -44,6 +50,13 @@ Params = Dict[str, Any]
 UNITS = ("unit_swa", "unit_msda", "unit_cga", "unit_cross_tail")
 # launches of each kernel since the last reset (plain runs do not count)
 LAUNCHES = {n: 0 for n in UNITS + tuple(f"{u}_bwd" for u in UNITS)}
+# launches of each C entry qv_{name} since the last reset, which shows the
+# route a launch took (the units' CUDA-core entries, the n=64 eval
+# tensor-core ones, and the n=16 train backward tensor-core ones)
+ROUTES = {n: 0 for n in
+          UNITS + tuple(f"{u}_bwd" for u in UNITS)
+          + ("unit_swa_mma", "unit_msda_mma", "unit_cross_tail_mma",
+             "unit_msda_bwd_mma", "unit_cross_tail_bwd_mma")}
 
 
 # stated tolerance of a kernel against its plain version, as a fraction of
@@ -117,6 +130,8 @@ class UnitTrain(NamedTuple):
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for k in ROUTES:
+        ROUTES[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -347,6 +362,9 @@ _ENTRY = {"unit_swa": SwaArgs, "unit_msda": MsdaArgs, "unit_cga": CgaArgs,
 # units with an n=64 bf16 eval kernel on the tensor cores, entry
 # qv_{unit}_mma(args, bf16 weight, bf16 weight, is_bf16, stream)
 _MMA_ENTRY = ("unit_swa", "unit_msda", "unit_cross_tail")
+# backward kernels with an n=16 bf16 tensor-core kernel, entry
+# qv_{unit}_bwd_mma(args, bf16 weights, is_bf16, stream)
+_BWD_MMA_ENTRY = ("unit_msda", "unit_cross_tail")
 _BOUND: Dict[int, bool] = {}
 SMEM_LIMIT = 232448          # bytes of shared memory a block may opt in to
 
@@ -377,8 +395,19 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         smem = getattr(lib, f"qv_{name}_mma_smem")
         smem.argtypes = [ctypes.POINTER(Dims)]
         smem.restype = ctypes.c_int
-    lib.qv_unit_cross_tail_bwd_scratch.argtypes = [ctypes.POINTER(Dims)]
-    lib.qv_unit_cross_tail_bwd_scratch.restype = ctypes.c_int
+    for name in _BWD_MMA_ENTRY:   # the n=16 bf16 tensor-core backwards
+        fn = getattr(lib, f"qv_{name}_bwd_mma")
+        fn.argtypes = [ctypes.POINTER(_ENTRY[f"{name}_bwd"]), _P,
+                       ctypes.c_int, _P]
+        fn.restype = ctypes.c_int
+        smem = getattr(lib, f"qv_{name}_bwd_mma_smem")
+        smem.argtypes = [ctypes.POINTER(Dims)]
+        smem.restype = ctypes.c_int
+    for name in ("unit_cross_tail_bwd",) + tuple(
+            f"{u}_bwd_mma" for u in _BWD_MMA_ENTRY):   # per-block scratch
+        fn = getattr(lib, f"qv_{name}_scratch")
+        fn.argtypes = [ctypes.POINTER(Dims)]
+        fn.restype = ctypes.c_int
     # the flash-attention kernel and the tensor-core self-test are built
     # into the same library
     from qavit_tpu_torch.kernels import flash_attention, mma_selftest
@@ -473,6 +502,58 @@ def cross_tail_mma_error(g: FusedGeom) -> Optional[str]:
         if not ok:
             return f"the n=64 bf16 cross/tail kernel needs {need}; got {g}"
     return None
+
+
+def msda_bwd_mma_error(g: FusedGeom) -> Optional[str]:
+    """Why the n=16 bf16 MSDA backward kernel (``msda_bwd_mma_kernel``,
+    written for hqavit_c100's widths) cannot run geometry ``g`` (None if
+    it can)."""
+    checks = (
+        ((g.n, g.nw) == (16, 1), "n=16 in one SWA window"),
+        ((g.c, g.heads, g.lin_k) == (192, 4, 32),
+         "C=192, 4 heads of 48 and linformer_k=32"),
+        (g.msda_keep <= 16, "at most 16 pooled rows"),
+        (g.bank_s <= 16, "at most 16 bank rows"),
+    )
+    for ok, need in checks:
+        if not ok:
+            return f"the n=16 bf16 MSDA backward kernel needs {need}; got {g}"
+    return None
+
+
+def cross_tail_bwd_mma_error(g: FusedGeom) -> Optional[str]:
+    """Why the n=16 bf16 cross/tail backward kernel
+    (``cross_tail_bwd_mma_kernel``, written for hqavit_c100's widths)
+    cannot run geometry ``g`` (None if it can)."""
+    checks = (
+        ((g.n, g.nw) == (16, 1), "n=16 on a 4x4 grid in one SWA window"),
+        ((g.c, g.heads) == (192, 4), "C=192 and 4 heads of 48"),
+        ((g.ccf_hidden, g.bottleneck_hidden, g.d_c) == (96, 96, 48),
+         "CCF-FFN and bottleneck hidden widths of 96 and d_c=48"),
+        (g.bank_s <= 16, "at most 16 bank rows"),
+        (g.stabilized_ccfffn and g.stabilized_dwconv,
+         "stabilized_ccfffn and stabilized_dwconv"),
+    )
+    for ok, need in checks:
+        if not ok:
+            return (f"the n=16 bf16 cross/tail backward kernel needs {need}; "
+                    f"got {g}")
+    return None
+
+
+_BWD_MMA_ERROR = {"unit_msda": msda_bwd_mma_error,
+                  "unit_cross_tail": cross_tail_bwd_mma_error}
+
+
+def bwd_entry(unit: str, g: FusedGeom, dtype) -> str:
+    """The C entry (``qv_{entry}``) a backward launch of ``unit`` takes:
+    the tensor-core kernel in bf16 at the widths it is written for, else
+    the unit's CUDA-core kernel.  A route chosen by dtype and widths
+    before the launch, never a retry."""
+    err = _BWD_MMA_ERROR.get(unit)
+    if dtype == torch.bfloat16 and err is not None and err(g) is None:
+        return f"{unit}_bwd_mma"
+    return f"{unit}_bwd"
 
 
 def _dims(g: FusedGeom, b: int, p: Params, grid: int, rgrid: int,
@@ -580,6 +661,7 @@ class _Launch:
         if rc != 0:
             raise RuntimeError(f"{self.name}: kernel launch failed with CUDA "
                                f"error {rc}")
+        ROUTES[entry] += 1
         return ws
 
 
@@ -870,17 +952,32 @@ def _bwd_common(lc: _Launch, bc: BwdCommon, bank_k, bank_v, ws, grads: _Grads,
     lc.held += [kr, vr]
 
 
-def _run_bwd(lc: _Launch, args, d: Dims, stream) -> None:
-    name = lc.name + "_bwd"
-    smem = getattr(lc.lib, f"qv_{name}_smem")(ctypes.byref(d))
+def _run_bwd(lc: _Launch, args, d: Dims, stream, entry: str,
+             w16: Optional[torch.Tensor] = None) -> None:
+    """Launch backward C entry ``qv_{entry}`` (:func:`bwd_entry`); the
+    tensor-core entries also take the packed bf16 weights ``w16``."""
+    smem = getattr(lc.lib, f"qv_{entry}_smem")(ctypes.byref(d))
     if smem > SMEM_LIMIT:
-        raise ValueError(f"{name}: needs {smem} B of shared memory > "
+        raise ValueError(f"{entry}: needs {smem} B of shared memory > "
                          f"{SMEM_LIMIT}")
-    rc = getattr(lc.lib, f"qv_{name}")(
-        ctypes.byref(args), int(lc.dtype == torch.bfloat16), stream)
+    extra = () if w16 is None else (w16.data_ptr(),)
+    rc = getattr(lc.lib, f"qv_{entry}")(
+        ctypes.byref(args), *extra, int(lc.dtype == torch.bfloat16), stream)
     if rc != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+        raise RuntimeError(f"{entry}: kernel launch failed with CUDA error "
                            f"{rc}")
+    ROUTES[entry] += 1
+
+
+def _bwd_weights(lc: _Launch, *weights: torch.Tensor) -> torch.Tensor:
+    """The tensor-core backward's bf16 weights in one buffer: each
+    weight, then each transposed (for the dgrads dy @ W^T), flattened in
+    the order of the kernel's offsets; cast once per call."""
+    w16 = [w.to(torch.bfloat16) for w in weights]
+    out = torch.cat([w.reshape(-1) for w in w16]
+                    + [w.t().reshape(-1) for w in w16])
+    lc.held.append(out)
+    return out
 
 
 def launch_swa_bwd(lib, p: Params, x, bank_k, bank_v, g: FusedGeom, dtype,
@@ -903,7 +1000,7 @@ def launch_swa_bwd(lib, p: Params, x, bank_k, bank_v, g: FusedGeom, dtype,
     _bwd_common(lc, a.c, bank_k, bank_v, ws, grads)
     d_x = torch.empty_like(x)
     a.d_out, a.d_xn, a.d_x = lc.act(d_out), lc.act(d_xn), lc.act(d_x)
-    _run_bwd(lc, a, f.d, stream)
+    _run_bwd(lc, a, f.d, stream, "unit_swa_bwd")
     r = grads.result()
     return (d_x, r.pop(("bank_k",)), r.pop(("bank_v",))), r
 
@@ -927,10 +1024,16 @@ def launch_msda_bwd(lib, p: Params, xn, bank_k, bank_v, g: FusedGeom, dtype,
     f.d = _dims(g, lc.b, p, grid.blocks, grid.reduce, train.rng)
     grads = _Grads(lc, "unit_msda", p, grid)
     grads.fill(a.g)
-    _bwd_common(lc, a.c, bank_k, bank_v, ws, grads)
+    entry = bwd_entry("unit_msda", g, dtype)
+    w16 = scratch = None
+    if entry == "unit_msda_bwd_mma":     # qkv, proj, then both transposed
+        w16 = _bwd_weights(lc, pm["qkv_kernel"], pm["proj"]["kernel"])
+        per = lib.qv_unit_msda_bwd_mma_scratch(ctypes.byref(f.d))
+        scratch = torch.empty(grid.blocks * per, device=lc.device)
+    _bwd_common(lc, a.c, bank_k, bank_v, ws, grads, scratch)
     d_xn = torch.empty_like(xn)
     a.d_out, a.d_xn = lc.act(d_out), lc.act(d_xn)
-    _run_bwd(lc, a, f.d, stream)
+    _run_bwd(lc, a, f.d, stream, entry, w16)
     r = grads.result()
     return (d_xn, r.pop(("bank_k",)), r.pop(("bank_v",))), r
 
@@ -957,7 +1060,7 @@ def launch_cga_bwd(lib, p: Params, xn, bank_k, bank_v, g: FusedGeom, dtype,
     _bwd_common(lc, a.c, bank_k, bank_v, ws, grads)
     d_xn = torch.empty_like(xn)
     a.d_out, a.d_xn = lc.act(d_out), lc.act(d_xn)
-    _run_bwd(lc, a, f.d, stream)
+    _run_bwd(lc, a, f.d, stream, "unit_cga_bwd")
     r = grads.result()
     return (d_xn, r.pop(("bank_k",)), r.pop(("bank_v",))), r
 
@@ -977,13 +1080,17 @@ def launch_cross_tail_bwd(lib, p: Params, x, xn, out_swa, out_msda, out_cga,
     f.d = _dims(g, lc.b, p, grid.blocks, grid.reduce, train.rng)
     grads = _Grads(lc, "unit_cross_tail", p, grid)
     grads.fill(a.g)
-    per = lib.qv_unit_cross_tail_bwd_scratch(ctypes.byref(f.d))
+    entry = bwd_entry("unit_cross_tail", g, dtype)
+    per = getattr(lib, f"qv_{entry}_scratch")(ctypes.byref(f.d))
     scratch = torch.empty(grid.blocks * per, device=lc.device)
     _bwd_common(lc, a.c, bank_k, bank_v, ws, grads, scratch)
     outs = [torch.empty_like(x) for _ in range(5)]
     a.d_y = lc.act(d_y)
     a.d_x, a.d_xn, a.d_swa, a.d_msda, a.d_cga = (lc.act(t) for t in outs)
-    _run_bwd(lc, a, f.d, stream)
+    w16 = None
+    if entry == "unit_cross_tail_bwd_mma":   # w1, w2, then both transposed
+        w16 = _bwd_weights(lc, *_cross_tail_packed(p))
+    _run_bwd(lc, a, f.d, stream, entry, w16)
     r = grads.result()
     return tuple(outs) + (r.pop(("bank_k",)), r.pop(("bank_v",))), r
 

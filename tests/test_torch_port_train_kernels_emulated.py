@@ -7,7 +7,12 @@ version, and its backward kernel's gradients against autograd through
 the plain version, with the same hash masks (dropout 0.1, drop-path 0.1)
 and cotangents, at the tiny width and the hqavit_c100 width, in float32
 and bf16, with 3 samples over 2 blocks (so the per-block partial sums and
-their reduction are exercised).  Tolerances: fused_kernels.TOLERANCE
+their reduction are exercised, and the bf16 tensor-core backward kernels
+of the MSDA and cross/tail units, which take two samples a pass at the
+hqavit_c100 width, run a pass with one sample).  Those two also run in
+bf16 at that width with the NaN guard tripped and with 12 bank rows, and
+their route (fused_kernels.bwd_entry) is checked without a kernel.
+Tolerances: fused_kernels.TOLERANCE
 (outputs), unit_checks.PARTIAL_TOLERANCE (partials) and
 fused_kernels.GRAD_TOLERANCE (gradients), each stated with its reason
 where it is defined."""
@@ -91,9 +96,17 @@ def tiny_case():
     return _case("tiny")
 
 
-def _check(emu_lib, case, unit, dtype, rate=0.1, dpr=0.1, nan_at=None):
+def _check(emu_lib, case, unit, dtype, rate=0.1, dpr=0.1, nan_at=None,
+           bank_s=None):
     g, p, bankp, rows, x = case
     g = g._replace(dropout=rate)
+    if bank_s is not None:         # the first bank_s rows (and gate columns)
+        g = g._replace(bank_s=bank_s)
+        rows = [r[:, :bank_s].contiguous() for r in rows]
+        bankp = dict(bankp)
+        for k, sl in (("write_gate_kernel", (slice(None), slice(bank_s))),
+                      ("write_gate_bias", (slice(bank_s),))):
+            bankp[k] = bankp[k][sl].contiguous()
     train = K.UnitTrain(R.block_rng(1234, rate, dpr), bankp)
     batch = C.unit_inputs(p, g, dtype, x.to(dtype), rows)[unit]
     if nan_at is not None:
@@ -139,3 +152,57 @@ def test_kernel_masks_are_the_plain_masks(emu_lib, tiny_case):
     eval_out = K.swa_plain(p, x, *rows, g, torch.float32)[0]
     assert K.within_tolerance(out, plain)
     assert (out - eval_out).abs().max() > 0.1 * eval_out.abs().max()
+
+
+MMA_BWD = ["unit_msda", "unit_cross_tail"]
+
+
+@pytest.fixture(scope="module")
+def flagship_case():
+    return _case("flagship_width")
+
+
+def _check_mma(emu_lib, case, unit, **kw):
+    """_check in bf16 at hqavit_c100's width, which must take the unit's
+    tensor-core backward entry."""
+    K.reset_launches()
+    r = _check(emu_lib, case, unit, torch.bfloat16, **kw)
+    assert K.ROUTES[f"{unit}_bwd_mma"] == 1 and K.ROUTES[f"{unit}_bwd"] == 0
+    return r
+
+
+@pytest.mark.parametrize("unit", MMA_BWD)
+def test_mma_backward_nan_guard_bf16(emu_lib, flagship_case, unit):
+    """The tensor-core backward replays a tripped guard: no gradient
+    through the attention, exactly zero for the bank."""
+    r = _check_mma(emu_lib, flagship_case, unit, nan_at=(1, 3, 5))
+    assert r.flag == 1 and r.ok, r
+
+
+@pytest.mark.parametrize("unit", MMA_BWD)
+def test_mma_backward_short_bank(emu_lib, flagship_case, unit):
+    """12 bank rows: the keys past them are masked in the recompute and
+    get no gradient."""
+    r = _check_mma(emu_lib, flagship_case, unit, bank_s=12)
+    assert r.ok, r
+
+
+@pytest.mark.parametrize("unit", MMA_BWD)
+def test_mma_backward_route(unit):
+    """bwd_entry takes the tensor-core entry exactly where the error
+    function admits the geometry: bf16 at hqavit_c100's widths; float32
+    and the tiny width (whose reason names C) take the CUDA-core entry."""
+    error = {"unit_msda": K.msda_bwd_mma_error,
+             "unit_cross_tail": K.cross_tail_bwd_mma_error}[unit]
+    flagship, tiny = make_geom(_cfg("flagship_width")), make_geom(_cfg("tiny"))
+    assert error(flagship) is None
+    reason = error(tiny)
+    assert reason is not None and "C=192" in reason, reason
+    assert error(flagship._replace(bank_s=17)) is not None
+    for g, dtype in ((flagship, torch.bfloat16), (flagship, torch.float32),
+                     (tiny, torch.bfloat16), (tiny, torch.float32)):
+        mma = dtype == torch.bfloat16 and error(g) is None
+        assert K.bwd_entry(unit, g, dtype) == unit + ("_bwd_mma" if mma
+                                                      else "_bwd")
+    for other in ("unit_swa", "unit_cga"):
+        assert K.bwd_entry(other, flagship, torch.bfloat16) == other + "_bwd"
