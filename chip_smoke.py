@@ -12,28 +12,37 @@ it stopped:
       mma.sync against A @ B, B read with and without .trans);
   (c) kernel checks: each fused-block unit kernel against its plain
       PyTorch version at B=256, hqavit_c100 shapes, float32 and bf16,
-      seed-made weights and inputs, plus the batch-wide NaN guard;
+      seed-made weights and inputs, plus the batch-wide NaN guard; the
+      bf16 cross/tail unit, which runs on the tensor cores
+      (cross_tail_mma_kernel, four samples to a tile), also with the
+      guard tripped in one sample and with 12 bank rows, each launch
+      through the tensor-core entry; its registers, spills and shared
+      memory;
   (d) the main path: ``qavit_tpu_torch.cli.evaluate`` on hqavit_c100 at
       full width and depth, B=1024, synthetic data from the seed, with
       every launch count set to 0 just before and read just after (each
-      kernel must launch 8 times per forward); then the model's logits
-      through the kernels against the same model run with the plain
-      versions on the card, in bf16 and float32;
+      kernel must launch 8 times per forward, every cross/tail launch
+      through the tensor-core entry); then the model's logits through
+      the kernels against the same model run with the plain versions on
+      the card, in bf16 and float32;
   (e) timing with CUDA events: each kernel and its plain version at the
-      main path's shapes (B=1024, bf16), against the card's bound;
+      main path's shapes (B=1024, bf16), against the card's bound, after
+      the cross/tail checks of (c) at B=1024;
   (f) training kernels: each unit's train-mode forward (outputs and bank
       partials) and its backward kernel (gradients) against the plain
       version and autograd through it at B=256, float32 and bf16, with
       dropout 0.1 and drop-path 0.1 masks on, and with the NaN guard
       tripped (the guarded branch passes zero gradient; float32, and bf16
-      for the MSDA and cross/tail units, whose bf16 backward kernels run
-      on the tensor cores), and those two bf16 backward kernels with 12
-      bank rows; their registers, spills and shared memory;
+      for the SWA, MSDA and cross/tail units, whose bf16 backward kernels
+      run on the tensor cores, as does the bf16 cross/tail forward), and
+      those three bf16 backward kernels with 12 bank rows; their
+      registers, spills and shared memory;
   (g) the train path: ``qavit_tpu_torch.cli.bench --preset hqavit_c100
       --train --batch-sizes 1024`` with every launch count set to 0 just
       before and read just after (each unit's forward and backward kernel
-      8 times per step, the MSDA and cross/tail backward launches all
-      through their tensor-core entries, the bank count +24 per step);
+      8 times per step, the SWA, MSDA and cross/tail backward launches and
+      the cross/tail forward launches all through their tensor-core
+      entries, the bank count +24 per step);
       then the kernel step
       against the plain step on the card at B=1024 from the same weights,
       batch and seeds: the gradients of one step in float32 and in bf16
@@ -43,7 +52,9 @@ it stopped:
       the train path calls, its outputs, bank partials and gradients
       against the plain version and autograd through it; then timing with
       CUDA events: the train step, and each unit's train-mode forward and
-      backward kernel against its plain version and its bound;
+      backward kernel against its plain version and its bound (a row
+      named by its kernel where it runs on the tensor cores:
+      cross_tail_mma_kernel, swa_bwd_mma_kernel, ...);
   (i) the flash-attention kernel against its plain version at the 224
       path's MSDA and cross shapes (B=256, the cross keys both contiguous
       and broadcast over the batch with stride 0), at qavit_v2_extreme_tin's
@@ -401,14 +412,16 @@ def backward_checks(K, cfg, g, p, dev):
         raise AssertionError(f"training kernels disagree: {failed}")
 
 
-MMA_BWD = ("unit_msda", "unit_cross_tail")   # bf16 tensor-core backwards
+# bf16 tensor-core backwards
+MMA_BWD = ("unit_swa", "unit_msda", "unit_cross_tail")
 
 
 def mma_backward_checks(K, g, p, dev, lib, stream, grid, train, rows, gen):
     """Phase (f), the bf16 tensor-core backward kernels: the NaN guard
     tripped in one sample, and 12 bank rows (the keys past them masked);
-    each launch must take the tensor-core entry.  Then their ptxas lines
-    and shared memory.  Returns the failed (unit, case) pairs."""
+    each launch must take the tensor-core entry (and the cross/tail
+    forward its tensor-core entry too).  Then their ptxas lines and shared
+    memory.  Returns the failed (unit, case) pairs."""
     import torch
 
     from qavit_tpu_torch.kernels import unit_checks as UC
@@ -438,6 +451,8 @@ def mma_backward_checks(K, g, p, dev, lib, stream, grid, train, rows, gen):
                               batch, gc, dtype, grid, cots, stream,
                               guard_tripped=not twelve)
             routed = K.ROUTES[f"{unit}_bwd_mma"] == 1
+            if unit == "unit_cross_tail":
+                routed = routed and K.ROUTES["unit_cross_tail_mma"] == 1
             ok = r.ok and routed
             print(f"check {unit}_bwd bf16 {case} (tensor-core entry "
                   f"{routed}): flag {r.flag}, outputs {r.out_err:.2e}, "
@@ -478,13 +493,13 @@ def train_path(K, cfg):
                                  f"expected {want}")
     routes = dict(K.ROUTES)
     print(f"train path: launches per C entry {routes}", flush=True)
-    for unit in MMA_BWD:   # the bf16 step's backwards on the tensor cores
-        if (routes[f"{unit}_bwd_mma"], routes[f"{unit}_bwd"]) != (
-                cfg.depth * steps, 0):
+    # the bf16 step's backwards and cross/tail forwards on the tensor cores
+    for entry in [f"{u}_bwd" for u in MMA_BWD] + ["unit_cross_tail"]:
+        if (routes[f"{entry}_mma"], routes[entry]) != (cfg.depth * steps, 0):
             raise AssertionError(
-                f"{unit}_bwd: {routes[f'{unit}_bwd_mma']} launches of the "
-                f"tensor-core entry and {routes[f'{unit}_bwd']} of the "
-                f"CUDA-core one, expected {cfg.depth * steps} and 0")
+                f"{entry}: {routes[f'{entry}_mma']} launches of the "
+                f"tensor-core entry and {routes[entry]} of the CUDA-core "
+                f"one, expected {cfg.depth * steps} and 0")
     if row["bank_count"] != 24 * steps:
         raise AssertionError(f"bank count {row['bank_count']} after {steps} "
                              f"steps, expected 24 per step")
@@ -630,20 +645,27 @@ def unit_train_work(name, g, b, dtype_bytes, p):
 
 
 def kernel_row(name, source, replaces, launches, err, ms, plain_ms, work,
-               dtype):
+               dtype, kernel_ms=None):
     """One entry of the kernels record; the bound is the larger of the
-    bytes over the memory rate and the FLOPs over the type's peak."""
+    bytes over the memory rate and the FLOPs over the type's peak.
+    ``kernel_ms``: the kernel's own device time (device_ms), where taken;
+    ``ms`` is the wrapper's call, by CUDA events."""
     nbytes, flops = work
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
     t_ops = 1e3 * flops / PEAK_FLOPS[str(dtype)]
-    print(f"time {name:20s} {ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
+    dev = ("" if kernel_ms is None
+           else f" (kernel on the device {kernel_ms:.4f})")
+    print(f"time {name:20s} {ms:.4f} ms{dev}  plain {plain_ms:.4f} ms  bound "
           f"{max(t_bytes, t_ops) * 1e3:.2f} us ({nbytes / 1e6:.1f} MB, "
           f"{flops / 1e9:.2f} GFLOP)  max_abs_err {err:.3e}", flush=True)
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None}
+    row = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": launches, "max_abs_err": err,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": None}
+    if kernel_ms is not None:
+        row["device_ms"] = kernel_ms
+    return row
 
 
 def train_unit_checks_and_timing(K, cfg, g, p, dev, launches):
@@ -720,17 +742,19 @@ def train_unit_checks_and_timing(K, cfg, g, p, dev, launches):
 
         src = f"qavit_tpu_torch/csrc/{unit}.cu"
         fwd_rows.append(kernel_row(
-            f"{unit}_train", src, REPLACES[unit], launches[unit], out_abs,
+            f"{record_name(K, unit, g, dtype)}_train", src,
+            REPLACES[unit], launches[unit], out_abs,
             cuda_ms(fwd, iters=10), cuda_ms(plain_fwd, iters=10),
-            unit_train_work(unit, g, BATCH, 2, p), dtype))
+            unit_train_work(unit, g, BATCH, 2, p), dtype,
+            device_ms(fwd, 10, csrc_kernel(K, unit, g, dtype))))
         name = f"{unit}_bwd"
-        entry = K.bwd_entry(unit, g, dtype)     # the record names the kernel
         bwd_rows.append(kernel_row(
-            f"{unit[5:]}_bwd_mma_kernel" if entry.endswith("_mma") else name,
+            record_name(K, unit, g, dtype, True),
             f"qavit_tpu_torch/csrc/{name}.cu", REPLACES[name],
             launches[name], grad_abs, cuda_ms(bwd, iters=10),
             cuda_ms(plain_bwd, iters=10),
-            unit_bwd_work(unit, g, BATCH, 2, p), dtype))
+            unit_bwd_work(unit, g, BATCH, 2, p), dtype,
+            device_ms(bwd, 10, csrc_kernel(K, unit, g, dtype, True))))
         del ref, leaves
     fwd_ms = sum(r["ms"] for r in fwd_rows)
     bwd_ms = sum(r["ms"] for r in bwd_rows)
@@ -741,6 +765,66 @@ def train_unit_checks_and_timing(K, cfg, g, p, dev, launches):
           f"{cfg.depth * sum(r['plain_ms'] for r in bwd_rows):.2f} ms",
           flush=True)
     return fwd_rows + bwd_rows
+
+
+def csrc_kernel(K, unit, g, dtype, backward=False):
+    """The csrc kernel a launch of ``unit`` (its backward) runs at
+    geometry ``g``: the tensor-core one where the route takes it."""
+    if backward:
+        mma = K.bwd_entry(unit, g, dtype).endswith("_mma")
+        return f"{unit[5:]}_bwd{'_mma' if mma else ''}_kernel"
+    if unit == "unit_cross_tail":
+        return ("cross_tail_mma_kernel" if K.cross_tail_route(
+            g, dtype).endswith("_mma") else "cross_tail_kernel")
+    return f"{unit[5:]}_kernel"
+
+
+def record_name(K, unit, g, dtype, backward=False):
+    """A row's name in the kernels record: the tensor-core kernel's where
+    the launch takes it at n=16, else the unit's (``unit_*_bwd``)."""
+    kern = csrc_kernel(K, unit, g, dtype, backward)
+    return kern if "_mma" in kern else unit + ("_bwd" if backward else "")
+
+
+def cross_tail_mma_checks(K, g, p, bank, dev, gen, batch):
+    """Phases (c), (e): the bf16 cross/tail unit at n=16 against its plain
+    version at ``batch`` (2^-6 of max|plain|), as it is, with a NaN in one
+    sample's xn (the guard: the cross attention zero in every sample, the
+    block output finite), and with 12 bank rows; each launch must take
+    the tensor-core entry.  Raises on a failure."""
+    import torch
+
+    dtype = torch.bfloat16
+    x = (torch.randn(batch, g.n, g.c, generator=gen) * 2).to(dev, dtype)
+    g12 = g._replace(bank_s=12)
+    bank12 = tuple(t[:, :12].contiguous() for t in bank)
+    failed = []
+    for case in ("as it is", "NaN guard", "12 bank rows"):
+        gc, bc = (g12, bank12) if case == "12 bank rows" else (g, bank)
+        o, xn = K.swa_plain(p, x, *bc, gc, dtype)
+        m = K.msda_plain(p, xn, *bc, gc, dtype)
+        c = K.cga_plain(p, xn, *bc, gc, dtype)
+        if case == "NaN guard":
+            xn = xn.clone()
+            xn[batch // 2, 3, 5] = float("nan")
+        args = (x, xn, o, m, c, *bc, gc, dtype)
+        K.reset_launches()
+        out = K.unit_cross_tail(p, *args)
+        torch.cuda.synchronize()
+        routed = (K.ROUTES["unit_cross_tail_mma"],
+                  K.ROUTES["unit_cross_tail"]) == (1, 0)
+        ref = K.cross_tail_plain(p, *args)
+        err, ok = guarded_error(K, out, ref)
+        ok = ok and routed and bool(torch.isfinite(ref).all())
+        print(f"check unit_cross_tail  bf16 n={g.n} B={batch} {case} "
+              f"(tensor-core entry {routed}): max_abs_err {err:.3e}, "
+              f"tolerance {K.TOLERANCE[dtype] * ref.float().abs().max():.3e}"
+              f"  {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failed.append(case)
+    if failed:
+        raise AssertionError(f"the n={g.n} bf16 cross/tail kernel disagrees: "
+                             f"{failed}")
 
 
 def reset_launches() -> None:
@@ -898,12 +982,16 @@ def device_kernels(prof):
     return sorted(rows, key=lambda r: -r[1])
 
 
-def device_ms(fn, iters: int = 20):
+def device_ms(fn, iters: int = 20, kernel=None):
     """Device time per call of the kernels ``fn`` launches, from
     ``torch.profiler`` after a warm-up (None where the profiler saw no
-    device time).  CUDA events around back-to-back calls measure the
-    host instead when a call's host work outlasts its kernel, as the
-    flash wrapper's does at some 0.05 ms."""
+    device time); with ``kernel``, of the csrc kernel of that name alone
+    (not the wrapper's casts, memsets or reduction pass).  CUDA events
+    around back-to-back calls measure the host instead when a call's host
+    work outlasts its kernel, as the flash wrapper's does at some 0.05
+    ms."""
+    import re
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -914,7 +1002,9 @@ def device_ms(fn, iters: int = 20):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = sum(ms for _, ms, _ in device_kernels(prof))
+    pick = re.compile(rf"qv::{kernel}[<(]") if kernel else None
+    total = sum(ms for name, ms, _ in device_kernels(prof)
+                if pick is None or pick.search(name))
     return total / iters if total > 0 else None
 
 
@@ -1357,6 +1447,11 @@ def main() -> int:
         if not torch.equal(out, p["swa"]["proj"]["bias"].expand_as(out)):
             raise AssertionError("unit_swa: the NaN guard is not batch-wide")
         print("check NaN guard: batch-wide in unit_swa ok", flush=True)
+        cross_tail_mma_checks(K, g, p, bank, dev, gen, CHECK_BATCH)
+    print_ptxas("cross_tail_mma_kernel")
+    print(f"cross_tail_mma_kernel: "
+          f"{kl.lib.qv_unit_cross_tail_mma_smem(None)} B of dynamic shared "
+          f"memory per block", flush=True)
     say("phase (c) kernel checks: done")
 
     say("phase (d) main path: start")
@@ -1365,6 +1460,7 @@ def main() -> int:
                        "0", "--batch-size", str(BATCH), "--batches",
                        str(MAIN_BATCHES)])
     launches = launch_counts()
+    routes = dict(K.ROUTES)
     forwards = MAIN_BATCHES + 2       # + the smoke and the untimed batch
     print(f"main path: {r['count']} images, top-1 {r['top1']:.2f}%, top-5 "
           f"{r['top5']:.2f}%, loss {r['loss']:.4f}, {r['img_per_s']:.1f} "
@@ -1376,6 +1472,13 @@ def main() -> int:
             raise AssertionError(f"{name}: {n} launches, expected {want} "
                                  f"({cfg.depth} per forward x {forwards} "
                                  f"for each forward unit)")
+    print(f"launches per C entry: {routes}", flush=True)
+    if (routes["unit_cross_tail_mma"], routes["unit_cross_tail"]) != (
+            cfg.depth * forwards, 0):
+        raise AssertionError(
+            f"unit_cross_tail: {routes['unit_cross_tail_mma']} launches of "
+            f"the tensor-core entry and {routes['unit_cross_tail']} of the "
+            f"CUDA-core one, expected {cfg.depth * forwards} and 0")
     if not (r["count"] == BATCH * MAIN_BATCHES and r["loss"] == r["loss"]
             and 0.0 <= r["top1"] <= r["top5"] <= 100.0):
         raise AssertionError(f"main path result out of range: {r}")
@@ -1417,6 +1520,7 @@ def main() -> int:
     dtype = torch.bfloat16
     record = []
     with torch.inference_mode():
+        cross_tail_mma_checks(K, g, p, bank, dev, gen, BATCH)
         x = torch.randn(BATCH, g.n, g.c, generator=gen).to(dev, dtype)
         for name, (kern, plain_fn) in unit_calls(K, p, g, dtype, x,
                                                  bank).items():
@@ -1424,9 +1528,11 @@ def main() -> int:
             if not ok:
                 raise AssertionError(f"{name} disagrees at B={BATCH}")
             record.append(kernel_row(
-                name, f"qavit_tpu_torch/csrc/{name}.cu", REPLACES[name],
+                record_name(K, name, g, dtype),
+                f"qavit_tpu_torch/csrc/{name}.cu", REPLACES[name],
                 launches[name], err, cuda_ms(kern), cuda_ms(plain_fn),
-                unit_work(name, g, BATCH, 2, p), dtype))
+                unit_work(name, g, BATCH, 2, p), dtype,
+                device_ms(kern, 10, csrc_kernel(K, name, g, dtype))))
     say("phase (e) timing: done")
 
     say("phase (f) training kernels: start")

@@ -4,13 +4,13 @@
 // dense layer's epilogue, the q fragments of a warp's two heads, one
 // warp's softmax attention of 16 queries with its scores in registers,
 // and a warp-per-row LayerNorm of bf16 rows.  Then the pieces of the
-// backward kernels (msda_bwd_mma_kernel, cross_tail_bwd_mma_kernel),
-// which walk the batch in passes of two samples of 16 tokens: products
-// over a pass's rows with an epilogue per pair of columns, weight
-// gradients in^T @ dy over every row of the block, stored once into its
-// float32 slice from operand rows the passes saved, the LayerNorm
-// backward, and the attention with its dropout and its backward, one
-// warp per 16 queries and head.
+// backward kernels (swa_bwd_mma_kernel, msda_bwd_mma_kernel,
+// cross_tail_bwd_mma_kernel), which walk the batch in passes of two
+// samples of 16 tokens: products over a pass's rows with an epilogue per
+// pair of columns, weight gradients in^T @ dy over every row of the
+// block, stored once into its float32 slice from operand rows the passes
+// saved, the LayerNorm backward, and the attention with its dropout and
+// its backward, one warp per 16 queries and head.
 #pragma once
 #include "mma.cuh"
 
@@ -672,8 +672,9 @@ __device__ __forceinline__ void c_to_a(const float (&s)[2 * NKT][4], int kk,
 // warp_attention in training: the probabilities through the attention
 // dropout m before PV (rnd(P / keep) or 0, as common.cuh's attention),
 // the 16 output rows to out (leading dim ldo, columns hc..) as bf16.
+// True if an output is NaN.
 template <int NKT>
-__device__ __forceinline__ void warp_attention_train(
+__device__ __forceinline__ bool warp_attention_train(
     const unsigned (&qa)[3][4], const bf16* const (&kt)[NKT],
     const bf16* const (&vt)[NKT], int ld, int hc, int nkeys,
     const AttnMask& m, bf16* out, int ldo) {
@@ -697,12 +698,17 @@ __device__ __forceinline__ void warp_attention_train(
       mma_bf16_16816(o[2 * dp + 1], pa, vb + 2);
     }
   }
+  bool nan_seen = false;
 #pragma unroll
   for (int j = 0; j < 6; ++j)
 #pragma unroll
-    for (int hf = 0; hf < 2; ++hf)
+    for (int hf = 0; hf < 2; ++hf) {
+      const float x0 = o[j][2 * hf], x1 = o[j][2 * hf + 1];
+      nan_seen = nan_seen || isnan(x0) || isnan(x1);
       store_bf16x2(out + (g + 8 * hf) * ldo + hc + 8 * j + 2 * t,
-                   pack_bf16x2(o[j][2 * hf], o[j][2 * hf + 1]));
+                   pack_bf16x2(x0, x1));
+    }
+  return nan_seen;
 }
 
 // The backward of warp_attention_train for one warp's 16 queries in one

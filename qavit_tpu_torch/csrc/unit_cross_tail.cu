@@ -21,7 +21,9 @@
 // reads each input once into shared memory (~139 KB, float32, above the
 // 48 KB static limit, so the launch opts in to dynamic shared memory) and
 // writes only y; no intermediate of the tail touches device memory.  It
-// runs on the CUDA cores in float32 and is latency-bound for now.
+// runs on the CUDA cores (cross_tail_kernel) and is latency-bound: the
+// float32 kernel at n = 16, and bf16 at widths cross_tail_mma_kernel
+// does not take.
 //
 // n = 64 (hqavit_tiny_in, eval): everything but the dwconv works row by
 // row, so cross_tail_tiled_kernel runs a sample as two passes over
@@ -33,29 +35,36 @@
 // of shared memory at C=192; the bank rows share the residual's space
 // during the per-block prologue.  That is the float32 kernel at n = 64.
 //
-// bf16 at n = 64, cross_tail_mma_kernel.  Bound on the H100 at B=1024:
+// bf16 at hqavit_tiny_in's and hqavit_c100's widths,
+// cross_tail_mma_kernel, over tiles of 64 token rows: one sample at
+// n = 64 (eval), four at n = 16 (eval and training).  Bound at n = 64 on
+// the H100 at B=1024:
 // five [1024, 64, 192] bf16 inputs, the output and the float32 weights,
 // 152 MB (~45 us at 3.35 TB/s), against 25.1 GFLOP (~25 us): the bytes
 // bound it, but the tiled kernel ran 160x the bound on the CUDA cores,
 // re-reading its ~737 KB of float32 weights for each 16-row tile.  So
 // every dense layer runs on the tensor cores (mma.sync m16n8k16, bf16
-// operands, float32 sums) over all 64 rows of a sample, its weight
-// streamed once per sample through a three-buffer cp.async ring: cq, cp,
+// operands, float32 sums) over all 64 rows of a tile, its weight
+// streamed once per tile through a three-buffer cp.async ring: cq, cp,
 // the four compress layers in one product (each warp's A rows from its
 // own branch), bottleneck fc1, fc2, CCF-FFN fc1, fc2; the wrapper packs
 // and casts the weights once per call into two bf16 matrices.  One block
-// per SM walks the samples with every intermediate as bf16 in shared
+// per SM walks the tiles with every intermediate as bf16 in shared
 // memory (226 KB): the bank's K/V projections once per block; cross
 // attention of 16 queries x 2 heads a warp over the S bank keys, scores
 // in registers (warp_attention); LayerNorms by eight lanes a row; the
-// 3x3 dwconv on the CUDA cores over the sample's whole 8x8 grid, so no
-// second pass; the output staged in place of x1 and stored as 16-byte
-// copies.  While the dwconv runs, cp.async brings the next sample's five
-// inputs.  Every bf16 rounding point of the plain version is kept.  The
-// batch-wide NaN guard is kept (q, the projected bank, the attention
-// output); the redo runs every sample with a zero cross attention
-// output.  Time at B=1024 on an NVIDIA H100 80GB HBM3, 700.00 W:
-// PERF.md section 6 row 4 @n64.
+// 3x3 dwconv on the CUDA cores over each sample's whole grid (8x8, or
+// four 4x4 grids padded apart), so no second pass; the output staged in
+// place of x1 and stored as 16-byte copies.  While the dwconv runs,
+// cp.async brings the next tile's five inputs.  In training (n = 16) the
+// dropout masks of the attention (warp_attention_train), the cross
+// proj, the bottleneck and the CCF-FFN output, and both drop-paths, come
+// from the same counter hash at the same flat indices as in
+// cross_tail_kernel.  Every bf16 rounding point of the plain version is
+// kept.  The batch-wide NaN guard is kept (q, the projected bank, the
+// attention output); the redo runs every tile with a zero cross
+// attention output.  Time at B=1024 on an NVIDIA H100 80GB HBM3, 700.00
+// W: PERF.md section 6 rows 4 (n = 16) and 4 @n64.
 #include "mma_ops.cuh"
 #include "unit_cross_tail.cuh"
 
@@ -191,7 +200,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     });
 }
 
-// --- n = 64, bf16: the tensor-core kernel -----------------------------------
+// --- bf16: the tensor-core kernel (n = 64 eval; n = 16 eval and train) ----
 
 struct CrossTailMmaArgs {
   CrossTailArgs f;        // the unit's arguments (its dense kernels unread)
@@ -204,7 +213,8 @@ struct CrossTailMmaArgs {
 
 // the geometry cross_tail_mma_kernel is written for
 // (fused_kernels.cross_tail_mma_error)
-constexpr int CT_N = 64, CT_C = 192, CT_H = 4, CT_SIDE = 8;
+constexpr int CT_N = 64;                // rows of a tile
+constexpr int CT_C = 192, CT_H = 4;
 constexpr int CT_S = 16;                // bank rows, at most
 constexpr int CT_HID = 96;              // bottleneck and CCF-FFN hidden
 constexpr int CT_DC = 48;               // compressed width of a branch
@@ -227,24 +237,46 @@ constexpr int CT_SMEM_BYTES =
          + CT_STAGES * RING_KS * CT_LDX);  // weight slices
 static_assert(2 * RING_KS * CT_LDKV <= 2 * CT_ROWS, "the bank's kv ring");
 
-// One block per SM walks the samples; every product runs over all 64 rows
-// of a sample (four m16 tiles) with its weight streamed once through the
-// cp.async ring.  The buffers of one sample:
+// One block per SM walks the tiles of 64 rows of the batch's [B n, C]
+// token rows: a sample of n = 64 on its 8 x 8 grid (SIDE 8), or four
+// samples of n = 16 on their 4 x 4 grids (SIDE 4).  Every product runs
+// over all 64 rows of a tile (four m16 tiles) with its weight streamed
+// once through the cp.async ring; every step but the dwconv and the
+// drop-path acts on each row alone, so the samples of a tile only meet
+// in the dwconv, which pads each sample's grid with zeros at its own
+// edge.  A short last tile (B n not a multiple of 64) computes rows of
+// zeros and stores only its samples' rows.  In training (n = 16) every
+// dropout mask is indexed by the element's flat index in its sample's
+// [B, n, width] layout, which a tile's row r gives as (64 tile + r)
+// width + column, and the drop-path factors by the row's sample.  The
+// buffers of one tile:
 //   xa   xn; then the cross attention rows; then the weighted concat
 //   x1   x; then x1 = x + bottleneck; then the block output
 //   br   the branch outputs swa, msda, cga, cross, each normed in place
-//        for its compress; br[3] then norm2(x1); then the next sample's x
-//        (x1 and br[3] swap roles at the end of a sample)
+//        for its compress; br[3] then norm2(x1); then the next tile's x
+//        (x1 and br[3] swap roles at the end of a tile)
 //   h    bottleneck hidden; then CCF-FFN hidden, normed in place
 //   h2   the dwconv's output, normed in place
-// While the dwconv runs, cp.async brings the next sample's five inputs.
+// While the dwconv runs, cp.async brings the next tile's five inputs.
+template <int SIDE>
 __global__ void __launch_bounds__(NTHREADS, 1)
     cross_tail_mma_kernel(CrossTailMmaArgs m) {
   QV_SMEM_DECL
   __shared__ int bad;
+  constexpr int SN = SIDE * SIDE;          // tokens of a sample
+  static_assert(CT_N % SN == 0, "whole samples in a tile");
+  // only n = 16 trains (the entry refuses n = 64 in training), so the
+  // n = 64 instance compiles no mask
+  constexpr bool TRAINS = SN == NT;
   const CrossTailArgs& a = m.f;
   const Dims& d = a.d;
-  const int S = d.bank_s, C = CT_C;
+  const bool train = TRAINS && d.train;
+  // the dropout of element idx of mask key, as drop()
+  auto dropout = [&](int key, unsigned idx, float v) {
+    return TRAINS ? drop(d, key, idx, v) : v;
+  };
+  const int S = d.bank_s, C = CT_C, HID = CT_HID;
+  const int rows = d.B * SN, tiles = (rows + CT_N - 1) / CT_N;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
   bf16* kb = reinterpret_cast<bf16*>(qv_smem);
@@ -297,21 +329,27 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   float fw[4];
   fusion_weights(a.fusion, fw);
 
-  // the five inputs of sample b: xn, x (into xbuf), swa, msda, cga
-  auto stage = [&](int b, bf16* xbuf) {
-    const size_t off = (size_t)b * CT_N * C;
-    auto rows = [&](bf16* dst, const void* src) {
+  // the five inputs of tile tl: xn, x (into xbuf), swa, msda, cga; rows
+  // past the batch's are zeros
+  auto stage = [&](int tl, bf16* xbuf) {
+    const size_t off = (size_t)tl * CT_N * C;
+    const int valid = rows - tl * CT_N;
+    auto load = [&](bf16* dst, const void* src) {
       for (int i = threadIdx.x; i < CT_N * (C / 8); i += blockDim.x) {
         const int r = i / (C / 8), c = (i - r * (C / 8)) * 8;
-        cp_async_16(dst + r * CT_LDX + c,
-                    static_cast<const bf16*>(src) + off + r * C + c);
+        if (r < valid)
+          cp_async_16(dst + r * CT_LDX + c,
+                      static_cast<const bf16*>(src) + off + r * C + c);
+        else
+          *reinterpret_cast<uint4*>(dst + r * CT_LDX + c) =
+              uint4{0u, 0u, 0u, 0u};
       }
     };
-    rows(xa, a.xn);
-    rows(xbuf, a.x);
-    rows(br[0], a.swa);
-    rows(br[1], a.msda);
-    rows(br[2], a.cga);
+    load(xa, a.xn);
+    load(xbuf, a.x);
+    load(br[0], a.swa);
+    load(br[1], a.msda);
+    load(br[2], a.cga);
     cp_async_commit();
   };
   // the warp's rows (16 mt..) and columns (qcol..) in the products of
@@ -319,8 +357,17 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   const int mt = warp >> 1, half = warp & 1;
   const int qcol = half * (C / 2), hcol = half * (CT_HID / 2);
 
-  // sample b; `next` (if >= 0) is staged during the dwconv
-  auto sample = [&](int b, int next, bool zero_attn) {
+  // tile tl; `next` (if >= 0) is staged during the dwconv
+  auto tile = [&](int tl, int next, bool zero_attn) {
+    // the mask index of the tile's row r and column c in a [B, n, width]
+    // layout; the drop-path factors of the sample that holds the warp's
+    // rows (1 outside training)
+    const int t0 = tl * CT_N, wsample = (t0 + mt * 16) / SN;
+    auto idx = [&](int r, int c, int width) {
+      return (unsigned)((t0 + r) * width + c);
+    };
+    const float dp1 = train ? drop_path_mul(d, DP1, wsample) : 1.f;
+    const float dp2 = train ? drop_path_mul(d, DP2, wsample) : 1.f;
     cp_async_wait<0>();
     __syncthreads();
     // ---- cross branch ------------------------------------------------
@@ -334,7 +381,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         bad = 1;
     }
     {  // xn is read: the attention rows of heads 2 half, 2 half + 1 go
-       // to xa, over the S projected bank keys (past S: -inf)
+       // to xa, over the S projected bank keys (past S: -inf); in
+       // training the warp's 16 rows are one sample's (n = 16), whose
+       // attention dropout the mask replays
       const bf16* const kt[1] = {kb};
       const bf16* const vt[1] = {vb};
       bf16* out = xa + mt * 16 * CT_LDX;
@@ -347,6 +396,12 @@ __global__ void __launch_bounds__(NTHREADS, 1)
             const int r = e / (ATT_D / 2), c = 2 * (e - r * (ATT_D / 2));
             store_bf16x2(out + r * CT_LDX + hc + c, pack_bf16x2(0.f, 0.f));
           }
+        } else if (train) {
+          const AttnMask am{attn_drop(d, CROSS_ATTN),
+                            (unsigned)wsample * CT_H * NT * S,
+                            2 * half + hh, S};
+          nan_seen |= warp_attention_train<1>(qa[hh], kt, vt, CT_LDX, hc, S,
+                                              am, out, CT_LDX);
         } else {
           nan_seen |= warp_attention<1>(qa[hh], kt, vt, CT_LDX, hc, S, out,
                                         CT_LDX);
@@ -355,7 +410,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       if (d.guard && nan_seen) bad = 1;
     }
     __syncthreads();
-    {  // the cross branch output: att @ W_cp + b -> br[3]
+    {  // the cross branch output: att @ W_cp + b, its dropout -> br[3]
       float acc[1][12][4];
       ring_gemm<1, 12, CT_STAGES>(xa + mt * 16 * CT_LDX, CT_LDX,
                                   m.w1 + CT_CP, CT_W1, C, C, ring, CT_LDX,
@@ -365,10 +420,15 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         const int col = qcol + 8 * j + 2 * t;
         const float b0 = a.cp_b[col], b1 = a.cp_b[col + 1];
 #pragma unroll
-        for (int hf = 0; hf < 2; ++hf)
-          store_bf16x2(br[3] + (mt * 16 + g + 8 * hf) * CT_LDX + col,
-                       pack_bf16x2(dense_out(acc[0][j][2 * hf], b0),
-                                   dense_out(acc[0][j][2 * hf + 1], b1)));
+        for (int hf = 0; hf < 2; ++hf) {
+          const int r = mt * 16 + g + 8 * hf;
+          store_bf16x2(
+              br[3] + r * CT_LDX + col,
+              pack_bf16x2(dropout(CROSS_PROJ, idx(r, col, C),
+                                  dense_out(acc[0][j][2 * hf], b0)),
+                          dropout(CROSS_PROJ, idx(r, col + 1, C),
+                                  dense_out(acc[0][j][2 * hf + 1], b1))));
+        }
       }
     }
     __syncthreads();
@@ -403,7 +463,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     }
     __syncthreads();
     // ---- bottleneck MLP and the first residual ------------------------
-    {  // h = rnd(gelu(fused @ W_bn1 + b))
+    {  // h = dropout(rnd(gelu(fused @ W_bn1 + b)))
       float acc[1][6][4];
       ring_gemm<1, 6, CT_STAGES>(xa + mt * 16 * CT_LDX, CT_LDX,
                                  m.w1 + CT_BN1, CT_W1, CT_HID, C, ring,
@@ -413,15 +473,22 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         const int col = hcol + 8 * j + 2 * t;
         const float b0 = a.bn1_b[col], b1 = a.bn1_b[col + 1];
 #pragma unroll
-        for (int hf = 0; hf < 2; ++hf)
+        for (int hf = 0; hf < 2; ++hf) {
+          const int r = mt * 16 + g + 8 * hf;
           store_bf16x2(
-              h + (mt * 16 + g + 8 * hf) * CT_LDH + col,
-              pack_bf16x2(gelu_f(dense_out(acc[0][j][2 * hf], b0)),
-                          gelu_f(dense_out(acc[0][j][2 * hf + 1], b1))));
+              h + r * CT_LDH + col,
+              pack_bf16x2(
+                  dropout(BN1, idx(r, col, HID),
+                          rnd<bf16>(gelu_f(dense_out(acc[0][j][2 * hf], b0)))),
+                  dropout(BN1, idx(r, col + 1, HID),
+                          rnd<bf16>(gelu_f(
+                              dense_out(acc[0][j][2 * hf + 1], b1))))));
+        }
       }
     }
     __syncthreads();
-    {  // x1 = rnd(x + (h @ W_bn2 + b)), in place
+    {  // x1 = rnd(x + y2), y2 = the dropout and drop-path of h @ W_bn2 +
+       // b, in place
       float acc[1][12][4];
       ring_gemm<1, 12, CT_STAGES>(h + mt * 16 * CT_LDH, CT_LDH,
                                   m.w2 + CT_BN2, CT_W2, C, CT_HID, ring,
@@ -429,15 +496,21 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 #pragma unroll
       for (int j = 0; j < 12; ++j) {
         const int col = qcol + 8 * j + 2 * t;
-        const float b0 = a.bn2_b[col], b1 = a.bn2_b[col + 1];
+        const float bias[2] = {a.bn2_b[col], a.bn2_b[col + 1]};
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) {
-          bf16* p = x1 + (mt * 16 + g + 8 * hf) * CT_LDX + col;
-          store_bf16x2(p, pack_bf16x2(
-                              to_f<bf16>(p[0]) +
-                                  dense_out(acc[0][j][2 * hf], b0),
-                              to_f<bf16>(p[1]) +
-                                  dense_out(acc[0][j][2 * hf + 1], b1)));
+          const int r = mt * 16 + g + 8 * hf;
+          bf16* p = x1 + r * CT_LDX + col;
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float y = rnd<bf16>(dropout(BN2, idx(r, col + e, C),
+                                        dense_out(acc[0][j][2 * hf + e],
+                                                  bias[e])));
+            if (train) y = rnd<bf16>(y * dp1);
+            v[e] = to_f<bf16>(p[e]) + y;
+          }
+          store_bf16x2(p, pack_bf16x2(v[0], v[1]));
         }
       }
     }
@@ -463,23 +536,25 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       }
     }
     __syncthreads();
-    // xa and br are read: bring the next sample's inputs, x into br[3]
+    // xa and br are read: bring the next tile's inputs, x into br[3]
     if (next >= 0) stage(next, br[3]);
     ln_rows<CT_N, CT_HID>(h, h, CT_LDH, a.dwn_s, a.dwn_b);
     __syncthreads();
-    // the 3x3 depthwise correlation on the 8x8 grid (zero halo, bias
-    // before the scale), as ccf_dwconv: a thread walks down one column
-    // of the grid in one channel, its 3x3 window of inputs in registers
-    for (int u = threadIdx.x; u < CT_SIDE * CT_HID; u += blockDim.x) {
-      const int gj = u / CT_HID, ch = u - gj * CT_HID;
+    // the 3x3 depthwise correlation on each sample's SIDE x SIDE grid
+    // (zero halo at the sample's edge, bias before the scale), as
+    // ccf_dwconv: a thread walks down one column of a sample's grid in
+    // one channel, its 3x3 window of inputs in registers
+    for (int u = threadIdx.x; u < CT_N / SIDE * CT_HID; u += blockDim.x) {
+      const int col = u / CT_HID, ch = u - col * CT_HID;
+      const int base = (col / SIDE) * SN, gj = col % SIDE;  // sample rows
       float k[9];
 #pragma unroll
       for (int i = 0; i < 9; ++i) k[i] = a.dw_w[ch * 9 + i];
       const float bias = d.dw_bias ? rnd<bf16>(a.dw_b[ch]) : 0.f;
       const float scale = rnd<bf16>(a.dw_scale[ch]);
       auto in = [&](int si, int sj) {
-        return si >= 0 && si < CT_SIDE && sj >= 0 && sj < CT_SIDE
-                   ? to_f<bf16>(h[(si * CT_SIDE + sj) * CT_LDH + ch])
+        return si >= 0 && si < SIDE && sj >= 0 && sj < SIDE
+                   ? to_f<bf16>(h[(base + si * SIDE + sj) * CT_LDH + ch])
                    : 0.f;
       };
       float win[3][3];
@@ -489,7 +564,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         win[1][kj] = in(0, gj + kj - 1);
       }
 #pragma unroll
-      for (int gi = 0; gi < CT_SIDE; ++gi) {
+      for (int gi = 0; gi < SIDE; ++gi) {
 #pragma unroll
         for (int kj = 0; kj < 3; ++kj) win[2][kj] = in(gi + 1, gj + kj - 1);
         float acc = 0.f;
@@ -501,7 +576,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         float yv = rnd<bf16>(acc);
         if (d.dw_bias) yv = rnd<bf16>(yv + bias);
         yv = rnd<bf16>(yv * scale);
-        h2[(gi * CT_SIDE + gj) * CT_LDH + ch] = from_f<bf16>(yv);
+        h2[(base + gi * SIDE + gj) * CT_LDH + ch] = from_f<bf16>(yv);
 #pragma unroll
         for (int kj = 0; kj < 3; ++kj) {
           win[0][kj] = win[1][kj];
@@ -512,8 +587,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     __syncthreads();
     ln_rows<CT_N, CT_HID>(h2, h2, CT_LDH, a.pdn_s, a.pdn_b);
     __syncthreads();
-    {  // y = x1 + rnd((h2 @ W_fc2 + b) * gamma), summed in float32 and
-       // rounded once, in place of x1
+    {  // y = x1 + f, f = the dropout, gamma and drop-path of h2 @ W_fc2 +
+       // b, summed in float32 and rounded once, in place of x1
       float acc[1][12][4];
       ring_gemm<1, 12, CT_STAGES>(h2 + mt * 16 * CT_LDH, CT_LDH,
                                   m.w2 + CT_FC2, CT_W2, C, CT_HID, ring,
@@ -522,42 +597,49 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 #pragma unroll
       for (int j = 0; j < 12; ++j) {
         const int col = qcol + 8 * j + 2 * t;
-        const float b0 = a.fc2_b[col], b1 = a.fc2_b[col + 1];
+        const float bias[2] = {a.fc2_b[col], a.fc2_b[col + 1]};
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) {
-          bf16* p = x1 + (mt * 16 + g + 8 * hf) * CT_LDX + col;
-          store_bf16x2(
-              p, pack_bf16x2(
-                     to_f<bf16>(p[0]) +
-                         rnd<bf16>(dense_out(acc[0][j][2 * hf], b0) * gamma),
-                     to_f<bf16>(p[1]) +
-                         rnd<bf16>(dense_out(acc[0][j][2 * hf + 1], b1) *
-                                   gamma)));
+          const int r = mt * 16 + g + 8 * hf;
+          bf16* p = x1 + r * CT_LDX + col;
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float f = rnd<bf16>(dropout(FFN, idx(r, col + e, C),
+                                        dense_out(acc[0][j][2 * hf + e],
+                                                  bias[e])));
+            f = rnd<bf16>(f * gamma);
+            if (train) f = rnd<bf16>(f * dp2);
+            v[e] = to_f<bf16>(p[e]) + f;
+          }
+          store_bf16x2(p, pack_bf16x2(v[0], v[1]));
         }
       }
     }
     __syncthreads();
-    {  // the block output, 16 bytes a copy
-      bf16* y = static_cast<bf16*>(a.y) + (size_t)b * CT_N * C;
-      for (int i = threadIdx.x; i < CT_N * (C / 8); i += blockDim.x) {
+    {  // the tile's rows of the block output, 16 bytes a copy
+      bf16* y = static_cast<bf16*>(a.y) + (size_t)t0 * C;
+      const int valid = rows - t0 < CT_N ? rows - t0 : CT_N;
+      for (int i = threadIdx.x; i < valid * (C / 8); i += blockDim.x) {
         const int r = i / (C / 8), c = (i - r * (C / 8)) * 8;
         *reinterpret_cast<uint4*>(y + r * C + c) =
             *reinterpret_cast<const uint4*>(x1 + r * CT_LDX + c);
       }
     }
-    bf16* tmp = x1;        // the next sample's x is in br[3]
+    bf16* tmp = x1;        // the next tile's x is in br[3]
     x1 = br[3];
     br[3] = tmp;
   };
-  if (blockIdx.x < d.B) stage(blockIdx.x, x1);
-  for (int b = blockIdx.x; b < d.B; b += gridDim.x)
-    sample(b, b + (int)gridDim.x < d.B ? b + (int)gridDim.x : -1, false);
+  if ((int)blockIdx.x < tiles) stage(blockIdx.x, x1);
+  for (int tl = blockIdx.x; tl < tiles; tl += gridDim.x)
+    tile(tl, tl + (int)gridDim.x < tiles ? tl + (int)gridDim.x : -1, false);
   if (d.guard)
     finish_guard(a.ws, bad, [&] {
-      // the redo: every sample with a zero cross attention output
+      // the redo: every tile with a zero cross attention output
       __syncthreads();
       stage(0, x1);
-      for (int b = 0; b < d.B; ++b) sample(b, b + 1 < d.B ? b + 1 : -1, true);
+      for (int tl = 0; tl < tiles; ++tl)
+        tile(tl, tl + 1 < tiles ? tl + 1 : -1, true);
     });
 }
 
@@ -585,23 +667,29 @@ extern "C" int qv_unit_cross_tail_smem(const qv::Dims* d) {
          (int)sizeof(float);
 }
 
-// The n = 64 bf16 eval kernel: `a` as for qv_unit_cross_tail, the dense
-// kernels rounded to bf16 and packed beside it (CrossTailMmaArgs).
-// ERR_ARGS for any other geometry or type (the wrapper checks them
-// first, cross_tail_mma_error).
+// The bf16 tensor-core kernel: `a` as for qv_unit_cross_tail, the dense
+// kernels rounded to bf16 and packed beside it (CrossTailMmaArgs), one
+// block per tile of 64 rows at most.  n = 64 on an 8x8 grid in eval, or
+// n = 16 on a 4x4 grid in eval and training; ERR_ARGS for any other
+// geometry or type (the wrapper checks them first, cross_tail_mma_error).
 extern "C" int qv_unit_cross_tail_mma(const qv::CrossTailArgs* a,
                                       const void* w1, const void* w2,
                                       int is_bf16, void* stream) {
   const qv::Dims& d = a->d;
-  if (!is_bf16 || d.train || d.n != qv::CT_N || d.side != qv::CT_SIDE ||
-      d.c != qv::CT_C || d.heads != qv::CT_H || d.bank_s > qv::CT_S ||
-      d.ccf_hidden != qv::CT_HID || d.bottleneck_hidden != qv::CT_HID ||
-      d.d_c != qv::CT_DC || !d.stab_ccf || !d.stab_dw || d.grid > d.B)
+  const bool n64 = d.n == qv::CT_N && d.side == 8 && !d.train;
+  const bool n16 = d.n == qv::NT && d.side == qv::WS && d.nw == 1;
+  const int tiles = (d.B * d.n + qv::CT_N - 1) / qv::CT_N;
+  if (!is_bf16 || !(n64 || n16) || d.c != qv::CT_C || d.heads != qv::CT_H ||
+      d.bank_s > qv::CT_S || d.ccf_hidden != qv::CT_HID ||
+      d.bottleneck_hidden != qv::CT_HID || d.d_c != qv::CT_DC ||
+      !d.stab_ccf || !d.stab_dw || d.grid > tiles)
     return qv::ERR_ARGS;
   const qv::CrossTailMmaArgs m{*a, static_cast<const qv::bf16*>(w1),
                                static_cast<const qv::bf16*>(w2)};
-  return qv_launch(qv::cross_tail_mma_kernel, m, qv::CT_SMEM_BYTES, stream,
-                   d.grid);
+  return n64 ? qv_launch(qv::cross_tail_mma_kernel<8>, m, qv::CT_SMEM_BYTES,
+                         stream, d.grid)
+             : qv_launch(qv::cross_tail_mma_kernel<qv::WS>, m,
+                         qv::CT_SMEM_BYTES, stream, d.grid);
 }
 
 extern "C" int qv_unit_cross_tail_mma_smem(const qv::Dims*) {

@@ -5,25 +5,47 @@
 // (fused_kernels.py:75): recompute the unit in-kernel, take its VJP,
 // accumulate the weight gradients over the batch in float32.
 //
-// Per sample: the forward is recomputed through swa_body (unit_swa.cuh),
-// the same code as the forward kernel, with the forward's masks replayed
-// from the hash and the forward's NaN-guard flag (a guarded branch passes
-// zero gradient to q, k and v).  Then proj, attention (dropout, softmax),
-// the Linformer token mix, the qkv Dense and norm1 are differentiated in
-// shared memory.  d(x) is written per sample in the working type; the
-// weight and bank gradients are added to this block's float32 slice of
-// the workspace, and the reduction pass sums the slices in block order.
-//
 // Bound on the H100 at B=1024 (bf16): it reads x and the two cotangents
 // and writes d(x) (4 x 6.3 MB, ~7.5 us) against ~2 x 5.9 GFLOP of
 // recompute plus ~2 x 5.9 GFLOP of gradient products (~24 us at 989
-// TFLOP/s): the operations bound it.  This first design is latency-bound
-// far above that: one 256-thread block per SM walks its share of the
-// samples with ~221 KB of shared memory, float32 FMAs on the CUDA cores,
-// and it reads and writes its gradient slice (~0.6 MB) once per sample
-// through L2.  The bank rows arrive pre-rounded in device memory to make
-// room.  Tensor cores and keeping the gradients in registers are later
-// work.
+// TFLOP/s): the operations bound it.
+//
+// float32, swa_bwd_kernel: the first design, on the CUDA cores (TF32
+// keeps too few digits for the 1e-4 gradient tolerance).  Per sample the
+// forward is recomputed through swa_body (unit_swa.cuh), the same code
+// as the forward kernel, with the forward's masks replayed from the hash
+// and the forward's NaN-guard flag (a guarded branch passes zero
+// gradient to q, k and v).  Then proj, attention (dropout, softmax), the
+// Linformer token mix, the qkv Dense and norm1 are differentiated in
+// shared memory.  d(x) is written per sample in the working type; the
+// weight and bank gradients are added to this block's float32 slice of
+// the workspace, and the reduction pass sums the slices in block order.
+// One 256-thread block per SM walks its share of the samples with ~221
+// KB of shared memory; latency-bound.
+//
+// bf16 at hqavit_c100's widths, swa_bwd_mma_kernel: msda_bwd_mma_kernel's
+// design (unit_msda_bwd.cu) with the window's own 16 tokens where MSDA
+// has its pooled rows, and norm1 in front.  Every product on the tensor
+// cores (mma.sync m16n8k16, bf16 operands, float32 sums) over a pass of
+// two samples (32 rows), every activation and cotangent as bf16 in shared
+// memory (224 KB), the pieces in mma_ops.cuh.  Per pass: xn = norm1(x) by
+// eight lanes a row; q, k, v through the weight ring; kc | vc = rnd(E^T
+// @ k | v) per sample; the attention of 16 queries x one head a warp
+// with the dropout replayed (warp_attention_train); then proj's d(att) =
+// dO @ W_p^T; warp_attention_bwd (dq, dS, P) and each warp's own d(kc),
+// d(vc) = dS^T q, P^T dO; the bank keys' gradients summed over the pass;
+// the Linformer backward (d(E) = k @ d(kc)^T, d(k) = E @ d(kc)); d(xn) =
+// d(qkv) @ W_qkv^T + the cotangent of xn in one product over K = 3C;
+// norm1's backward (ln_bwd_rows).  The dgrads read transposed bf16
+// weights, which the wrapper makes once per call beside the forward's.
+// Each pass saves the dense layers' operand rows to a per-block scratch,
+// and at the end the block forms the qkv and proj weight gradients over
+// all its rows (wgrad_block).  The block keeps the other sums across its
+// passes (E's and the bank rows' in registers, norm1's scale and bias in
+// shared memory) and stores every field of its slice once, without
+// reading it, so the caller's workspace needs no zeroing.  Time: PERF.md
+// section 6 row 5.
+#include "mma_ops.cuh"
 #include "unit_swa.cuh"
 
 namespace qv {
@@ -130,4 +152,420 @@ extern "C" int qv_unit_swa_bwd(const qv::SwaBwdArgs* a, int is_bf16,
 
 extern "C" int qv_unit_swa_bwd_smem(const qv::Dims* d) {
   return qv::swa_bwd_smem_floats(*d) * (int)sizeof(float);
+}
+
+// --- bf16 at hqavit_c100's widths: the tensor-core kernel --------------------
+
+namespace qv {
+
+struct SwaBwdMmaArgs {
+  SwaBwdArgs a;           // the float32 kernel's arguments
+  // bf16 [C, 3C] qkv | [C, C] proj | [3C, C] qkv^T | [C, C] proj^T
+  const bf16* w;
+};
+
+// the geometry swa_bwd_mma_kernel is written for
+// (fused_kernels.swa_bwd_mma_error)
+constexpr int SB_C = 192, SB_H = 4, SB_LK = 32, SB_S = 16;
+static_assert(SB_C / SB_H == ATT_D, "warp_attention's head width");
+static_assert(SB_LK + SB_S == ATT_D, "a head's keys fill its dS columns");
+constexpr int SB_QKV = 0, SB_PROJ = 3 * SB_C * SB_C;
+constexpr int SB_QKVT = 4 * SB_C * SB_C, SB_PROJT = 7 * SB_C * SB_C;
+// leading dims: 8 bf16 past the width (ldmatrix rows in distinct banks)
+constexpr int SB_LDX = SB_C + 8, SB_LDQ = 3 * SB_C + 8;
+constexpr int SB_LDE = NT + 8, SB_LDEN = SB_LK + 8;
+constexpr int SB_X = PASS_ROWS * SB_LDX;       // one [32, C] buffer
+// columns of a block's saved operand rows (save_rows; wgrad_block's
+// inputs): proj's input and d(out); xn and d(qkv)
+constexpr int SB_OP_ATT = 0, SB_OP_DO = SB_C, SB_OP_XN = 2 * SB_C;
+constexpr int SB_OP_DQKV = 3 * SB_C, SB_OPW = 6 * SB_C;
+constexpr int SB_RING = 3 * RING_KS * SB_LDX;  // three weight slices
+constexpr int SB_BF16 = 2 * SB_S * SB_LDX      // bank k, v
+                        + 2 * SB_LK * SB_LDE   // E_k^T, E_v^T
+                        + 2 * NT * SB_LDEN     // E_k, E_v
+                        + PASS_ROWS * SB_LDQ   // q | k | v, then d(qkv)
+                        + 10 * SB_X + SB_RING;
+// norm1's scale and bias gradients, then ln_bwd_rows' statistics
+constexpr int SB_SMEM_BYTES = 2 * SB_BF16 + (2 * SB_C + 4 * PASS_ROWS) * 4;
+
+// per block: the operand rows (bf16)
+__host__ __device__ inline int swa_bwd_mma_scratch_floats(const Dims& d) {
+  return block_rows(d) * SB_OPW / 2;
+}
+
+// One block per SM walks its samples in passes of two (an odd last pass
+// runs a sample of zeros with a zero cotangent, which adds nothing).  The
+// [32, C] buffers of a pass:
+//   xs    x
+//   kc    [sample][k, v] the compressed keys [32, C]; then d(kc), d(vc)
+//   att   the attention rows; then d(att)
+//   dO    d(out) through the proj dropout
+//   dq    xn; then d(q); then d(xn)
+//   ds    dS
+//   pu    the probabilities PV used
+// and qkv [32, 3C]: q | k | v, then d(q) | d(k) | d(v).  The operand rows
+// of the weight gradients go to the block's scratch (SB_OP_*).
+__global__ void __launch_bounds__(NTHREADS, 1)
+    swa_bwd_mma_kernel(SwaBwdMmaArgs m) {
+  QV_SMEM_DECL
+  const SwaBwdArgs& a = m.a;
+  const SwaArgs& f = a.f;
+  const Dims& d = f.d;
+  const SwaGrads& gr = a.g;
+  const int S = d.bank_s, C = SB_C, kvn = SB_LK + S;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  bf16* bk = reinterpret_cast<bf16*>(qv_smem);
+  bf16* bv = bk + SB_S * SB_LDX;
+  bf16* et = bv + SB_S * SB_LDX;         // [2][SB_LK][SB_LDE]
+  bf16* en = et + 2 * SB_LK * SB_LDE;    // [2][NT][SB_LDEN]
+  bf16* qkv = en + 2 * NT * SB_LDEN;
+  bf16* xs = qkv + PASS_ROWS * SB_LDQ;
+  bf16* kc = xs + SB_X;                  // [2][2][32][SB_LDX]
+  bf16* att = kc + 4 * SB_X;
+  bf16* dO = att + SB_X;
+  bf16* dq = dO + SB_X;
+  bf16* ds = dq + SB_X;
+  bf16* pu = ds + SB_X;
+  bf16* ring = pu + SB_X;
+  float* gln = reinterpret_cast<float*>(ring + SB_RING);  // [2][C]
+  float* stats = gln + 2 * C;                             // [32][4]
+  const bf16 zero = from_f<bf16>(0.f);
+  const bool zero_attn = d.guard && a.c.flag[1] != 0;
+  auto kcv = [&](int s, int w) { return kc + (2 * s + w) * SB_X; };
+  bf16* ops = reinterpret_cast<bf16*>(
+      a.c.scratch + (size_t)blockIdx.x * swa_bwd_mma_scratch_floats(d));
+
+  // per block: the bank rows rounded (rows past S zero), E^T and E
+  // rounded, norm1's gradient sums zeroed
+  for (int i = threadIdx.x; i < SB_S * C; i += blockDim.x) {
+    const int r = i / C, c = i - r * C;
+    bk[r * SB_LDX + c] = from_f<bf16>(r < S ? rnd<bf16>(f.bank_k[i]) : 0.f);
+    bv[r * SB_LDX + c] = from_f<bf16>(r < S ? rnd<bf16>(f.bank_v[i]) : 0.f);
+  }
+  for (int i = threadIdx.x; i < 2 * SB_LK * NT; i += blockDim.x) {
+    const int w = i / (SB_LK * NT), r = i - w * SB_LK * NT;
+    const int n = r / SB_LK, mr = r - n * SB_LK;
+    const bf16 v = from_f<bf16>(rnd<bf16>((w ? f.e_v : f.e_k)[r]));
+    et[(w * SB_LK + mr) * SB_LDE + n] = v;
+    en[(w * NT + n) * SB_LDEN + mr] = v;
+  }
+  for (int i = threadIdx.x; i < 2 * C; i += blockDim.x) gln[i] = 0.f;
+  // the sums this block keeps in registers over its passes: its bank
+  // keys' gradients (warp: k or v, head), and d(E) (warps 0-3: k or v,
+  // 16 of the 32 compressed rows)
+  float gbank[3][2][4] = {};
+  float ge[2][4] = {};
+
+  // rows of sample slot s (< ns) from src, zeros past ns
+  auto stage = [&](bf16* dst, const void* src, const int (&bs)[2], int ns) {
+    for (int i = threadIdx.x; i < PASS_ROWS * (C / 8); i += blockDim.x) {
+      const int r = i / (C / 8), c = (i - r * (C / 8)) * 8, s = r >> 4;
+      bf16* to = dst + r * SB_LDX + c;
+      if (s < ns)
+        cp_async_16(to, static_cast<const bf16*>(src) +
+                            ((size_t)bs[s] * NT + (r & 15)) * C + c);
+      else
+        *reinterpret_cast<uint4*>(to) = uint4{0u, 0u, 0u, 0u};
+    }
+  };
+  const int nb = (d.B - (int)blockIdx.x + (int)gridDim.x - 1) / gridDim.x;
+  for (int k0 = 0; k0 < nb; k0 += 2) {
+    const int ns = nb - k0 < 2 ? nb - k0 : 2;
+    const int bs[2] = {(int)blockIdx.x + k0 * (int)gridDim.x,
+                       (int)blockIdx.x + (k0 + 1) * (int)gridDim.x};
+    bf16* op = ops + (size_t)(k0 / 2) * PASS_ROWS * SB_OPW;  // pass's rows
+    // the flat token index of the pass's row r (the samples by a select:
+    // an index into bs would go to memory)
+    auto tok = [&](int r) { return (r >> 4 ? bs[1] : bs[0]) * NT + (r & 15); };
+    // norm1's backward from d(xn) in dq, then d(x) to device memory
+    auto norm1_bwd = [&] {
+      ln_bwd_rows<PASS_ROWS, SB_C>(xs, dq, dq, nullptr, SB_LDX, f.norm1_s,
+                                   gln, gln + C, stats);
+      for (int i = threadIdx.x; i < ns * NT * (C / 8); i += blockDim.x) {
+        const int r = i / (C / 8), c = (i - r * (C / 8)) * 8;
+        *reinterpret_cast<uint4*>(static_cast<bf16*>(a.d_x) +
+                                  (size_t)tok(r) * C + c) =
+            *reinterpret_cast<const uint4*>(dq + r * SB_LDX + c);
+      }
+      __syncthreads();
+    };
+    stage(xs, f.x, bs, ns);
+    stage(dO, a.d_out, bs, ns);
+    if (zero_attn) stage(dq, a.d_xn, bs, ns);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    // d(out) through the proj dropout
+    if (d.train && d.drop_on)
+      for (int i = threadIdx.x; i < PASS_ROWS * C; i += blockDim.x) {
+        const int r = i / C, c = i - r * C;
+        bf16* p = dO + r * SB_LDX + c;
+        *p = from_f<bf16>(drop(d, SWA_PROJ, (unsigned)(tok(r) * C + c),
+                               to_f<bf16>(*p)));
+      }
+    if (zero_attn) {
+      // a guarded branch: no gradient passes through its attention, so
+      // only proj's bias learns (its input is zero), and d(xn) is the
+      // cotangent of xn alone
+      for (int i = threadIdx.x; i < PASS_ROWS * SB_LDX; i += blockDim.x)
+        att[i] = zero;
+      __syncthreads();
+      save_rows(op + SB_OP_ATT, SB_OPW, att, SB_LDX, C);
+      save_rows(op + SB_OP_DO, SB_OPW, dO, SB_LDX, C);
+      norm1_bwd();
+      continue;
+    }
+    // ---- recompute ---------------------------------------------------
+    ln_rows<PASS_ROWS, SB_C>(xs, dq, SB_LDX, f.norm1_s, f.norm1_b);
+    __syncthreads();
+    save_rows(op + SB_OP_XN, SB_OPW, dq, SB_LDX, C);
+    for (int w = 0; w < 3; ++w)   // q, k, v = xn @ W + b
+      gemm_pass<192, 3>(dq, SB_LDX, m.w + SB_QKV + w * C, 3 * C, C, ring,
+                        [&](int r, int c, float v0, float v1) {
+                          const float* b = f.qkv_b + w * C;
+                          store_bf16x2(qkv + r * SB_LDQ + w * C + c,
+                                       pack_bf16x2(dense_out(v0, b[c]),
+                                                   dense_out(v1, b[c + 1])));
+                        });
+    __syncthreads();
+    // kc | vc = rnd(E^T @ k | v): unit u = (sample, k or v, 16-key tile,
+    // 96-column half), two a warp
+    for (int u = warp; u < 16; u += NTHREADS / 32) {
+      const int s = u >> 3, w = (u >> 2) & 1, mt = (u >> 1) & 1, ch = u & 1;
+      float acc[12][4];
+#pragma unroll
+      for (int j = 0; j < 12; ++j)
+        acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+      unsigned af[4];
+      load_a(af, et + (w * SB_LK + mt * 16) * SB_LDE, SB_LDE, lane);
+#pragma unroll
+      for (int np = 0; np < 6; ++np) {
+        unsigned bf[4];
+        load_b_kn(bf, qkv + 16 * s * SB_LDQ + (1 + w) * C + ch * 96 + 16 * np,
+                  SB_LDQ, lane);
+        mma_bf16_16816(acc[2 * np], af, bf);
+        mma_bf16_16816(acc[2 * np + 1], af, bf + 2);
+      }
+#pragma unroll
+      for (int j = 0; j < 12; ++j)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          store_bf16x2(kcv(s, w) + (mt * 16 + g + 8 * hf) * SB_LDX +
+                           ch * 96 + 8 * j + 2 * t,
+                       pack_bf16x2(acc[j][2 * hf], acc[j][2 * hf + 1]));
+    }
+    __syncthreads();
+    // the attention: warp (sample s, head h), 32 compressed + S bank keys
+    const int s = warp >> 2, h = warp & 3, hc = h * ATT_D;
+    const AttnMask am{attn_drop(d, SWA_ATTN),
+                      (unsigned)bs[s] * SB_H * NT * kvn, h, kvn};
+    const bf16* const kt[3] = {kcv(s, 0), kcv(s, 0) + 16 * SB_LDX, bk};
+    const bf16* const vt[3] = {kcv(s, 1), kcv(s, 1) + 16 * SB_LDX, bv};
+    const bf16* qs = qkv + 16 * s * SB_LDQ + hc;   // the warp's q
+    unsigned qa[3][4];
+#pragma unroll
+    for (int ks = 0; ks < 3; ++ks) load_a(qa[ks], qs + 16 * ks, SB_LDQ, lane);
+    warp_attention_train<3>(qa, kt, vt, SB_LDX, hc, kvn, am,
+                            att + 16 * s * SB_LDX, SB_LDX);
+    __syncthreads();
+    // ---- proj --------------------------------------------------------
+    save_rows(op + SB_OP_ATT, SB_OPW, att, SB_LDX, C);
+    save_rows(op + SB_OP_DO, SB_OPW, dO, SB_LDX, C);
+    gemm_pass<192, 3>(dO, SB_LDX, m.w + SB_PROJT, C, C, ring,
+                      [&](int r, int c, float v0, float v1) {
+                        store_bf16x2(att + r * SB_LDX + c,
+                                     pack_bf16x2(v0, v1));
+                      });
+    __syncthreads();
+    // ---- attention: dq, dS, P; this warp's d(kc), d(vc) in place -------
+#pragma unroll
+    for (int ks = 0; ks < 3; ++ks) load_a(qa[ks], qs + 16 * ks, SB_LDQ, lane);
+    warp_attention_bwd<3>(qa, kt, vt, SB_LDX, hc, kvn, am,
+                          att + 16 * s * SB_LDX, SB_LDX,
+                          dq + 16 * s * SB_LDX, SB_LDX,
+                          ds + 16 * s * SB_LDX + hc, pu + 16 * s * SB_LDX + hc,
+                          SB_LDX);
+    __syncwarp();
+    for (int w = 0; w < 2; ++w)
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        float acc[3][2][4];
+        if (w)
+          key_grads<1>(pu + 16 * s * SB_LDX + hc + 16 * mt, SB_LDX,
+                       att + 16 * s * SB_LDX + hc, SB_LDX, acc);
+        else
+          key_grads<1>(ds + 16 * s * SB_LDX + hc + 16 * mt, SB_LDX, qs,
+                       SB_LDQ, acc);
+#pragma unroll
+        for (int c3 = 0; c3 < 3; ++c3)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf)
+              store_bf16x2(kcv(s, w) + (16 * mt + g + 8 * hf) * SB_LDX + hc +
+                               16 * c3 + 8 * j + 2 * t,
+                           pack_bf16x2(acc[c3][j][2 * hf],
+                                       acc[c3][j][2 * hf + 1]));
+      }
+    __syncthreads();
+    {  // the bank keys: warp (k or v, head), summed over the pass's rows
+      const int w = warp >> 2, hb = (warp & 3) * ATT_D;
+      float acc[3][2][4];
+      if (w)
+        key_grads<2>(pu + hb + SB_LK, SB_LDX, att + hb, SB_LDX, acc);
+      else
+        key_grads<2>(ds + hb + SB_LK, SB_LDX, qkv + hb, SB_LDQ, acc);
+#pragma unroll
+      for (int c3 = 0; c3 < 3; ++c3)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) gbank[c3][j][e] += acc[c3][j][e];
+    }
+    // ---- the Linformer mix -------------------------------------------
+    if (warp < 4) {  // d(E)[n, m] = sum_c k[n, c] d(kc)[m, c]: (k or v,
+                     // 16 of the 32 m), summed over the samples
+      const int w = warp >> 1, m0 = 16 * (warp & 1);
+      for (int s2 = 0; s2 < ns; ++s2)
+#pragma unroll
+        for (int ks = 0; ks < C / 16; ++ks) {
+          unsigned af[4], bf[4];
+          load_a(af, qkv + 16 * s2 * SB_LDQ + (1 + w) * C + 16 * ks, SB_LDQ,
+                 lane);
+          load_b_nk(bf, kcv(s2, w) + m0 * SB_LDX + 16 * ks, SB_LDX, lane);
+          mma_bf16_16816(ge[0], af, bf);
+          mma_bf16_16816(ge[1], af, bf + 2);
+        }
+    }
+    __syncthreads();
+    // d(q) beside d(k), d(v) (q is read no more)
+    for (int i = threadIdx.x; i < PASS_ROWS * (C / 8); i += blockDim.x) {
+      const int r = i / (C / 8), c = (i - r * (C / 8)) * 8;
+      *reinterpret_cast<uint4*>(qkv + r * SB_LDQ + c) =
+          *reinterpret_cast<const uint4*>(dq + r * SB_LDX + c);
+    }
+    {  // d(k | v)[n, c] = sum_m E[n, m] d(kc | vc)[m, c] over k | v: warp
+       // (sample, k or v, 96-column half)
+      const int s2 = warp >> 2, w = (warp >> 1) & 1, ch = warp & 1;
+      float acc[12][4];
+#pragma unroll
+      for (int j = 0; j < 12; ++j)
+        acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        unsigned af[4];
+        load_a(af, en + w * NT * SB_LDEN + 16 * ks, SB_LDEN, lane);
+#pragma unroll
+        for (int np = 0; np < 6; ++np) {
+          unsigned bf[4];
+          load_b_kn(bf, kcv(s2, w) + 16 * ks * SB_LDX + ch * 96 + 16 * np,
+                    SB_LDX, lane);
+          mma_bf16_16816(acc[2 * np], af, bf);
+          mma_bf16_16816(acc[2 * np + 1], af, bf + 2);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 12; ++j)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          store_bf16x2(qkv + (16 * s2 + g + 8 * hf) * SB_LDQ + (1 + w) * C +
+                           ch * 96 + 8 * j + 2 * t,
+                       pack_bf16x2(acc[j][2 * hf], acc[j][2 * hf + 1]));
+    }
+    __syncthreads();
+    // ---- the qkv kernel and norm1: d(xn) = d(qkv) @ W^T + d_xn ----------
+    save_rows(op + SB_OP_DQKV, SB_OPW, qkv, SB_LDQ, 3 * C);
+    gemm_pass<192, 3>(qkv, SB_LDQ, m.w + SB_QKVT, C, 3 * C, ring,
+                      [&](int r, int c, float v0, float v1) {
+                        if ((r >> 4) < ns) {
+                          const unsigned u = *reinterpret_cast<const unsigned*>(
+                              static_cast<const bf16*>(a.d_xn) +
+                              (size_t)tok(r) * C + c);
+                          v0 += bf16x2_lo(u);
+                          v1 += bf16x2_hi(u);
+                        }
+                        store_bf16x2(dq + r * SB_LDX + c,
+                                     pack_bf16x2(v0, v1));
+                      });
+    __syncthreads();
+    norm1_bwd();
+  }
+  // the weight gradients over every row of the block, each stored once
+  // into the slice (zeros for the guarded branch's qkv)
+  auto wgrad = [&](int ao, int K, int bo, int N, float* w, float* bias,
+                   int ldg) {
+    wgrad_block(ops + ao, ops + bo, SB_OPW, PASS_ROWS * ((nb + 1) / 2), K, N,
+                w, ldg, bias, reinterpret_cast<bf16*>(qv_smem), SB_BF16);
+  };
+  wgrad(SB_OP_ATT, C, SB_OP_DO, C, slice(gr.proj_w, a.c),
+        slice(gr.proj_b, a.c), C);
+  if (zero_attn) {
+    float* gw = slice(gr.qkv_w, a.c);
+    float* gb = slice(gr.qkv_b, a.c);
+    for (int i = threadIdx.x; i < C * 3 * C; i += blockDim.x) gw[i] = 0.f;
+    for (int i = threadIdx.x; i < 3 * C; i += blockDim.x) gb[i] = 0.f;
+  } else {
+    wgrad(SB_OP_XN, C, SB_OP_DQKV, 3 * C, slice(gr.qkv_w, a.c),
+          slice(gr.qkv_b, a.c), 3 * C);
+  }
+  // the sums kept over the passes: norm1's, d(E), the bank rows'
+  for (int i = threadIdx.x; i < C; i += blockDim.x) {
+    slice(gr.norm1_s, a.c)[i] = gln[i];
+    slice(gr.norm1_b, a.c)[i] = gln[C + i];
+  }
+  if (warp < 4) {
+    const int w = warp >> 1, m0 = 16 * (warp & 1);
+    float* gE = slice(w ? gr.e_v : gr.e_k, a.c);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        gE[(g + 8 * (e >> 1)) * SB_LK + m0 + 8 * j + 2 * t + (e & 1)] =
+            ge[j][e];
+  }
+  {
+    const int w = warp >> 2, hb = (warp & 3) * ATT_D;
+    float* gb = slice(w ? gr.bank_v : gr.bank_k, a.c);
+#pragma unroll
+    for (int c3 = 0; c3 < 3; ++c3)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = g + 8 * (e >> 1);
+          if (key < S)
+            gb[key * C + hb + 16 * c3 + 8 * j + 2 * t + (e & 1)] =
+                gbank[c3][j][e];
+        }
+  }
+}
+
+}  // namespace qv
+
+// bf16 at hqavit_c100's widths: `a` as for qv_unit_swa_bwd with a
+// per-block scratch of swa_bwd_mma_scratch_floats(d), the bf16 weights
+// beside it (SwaBwdMmaArgs); the workspace `gws` may hold anything (the
+// kernel stores every field).  ERR_ARGS for any other geometry or type
+// (the wrapper checks them first, swa_bwd_mma_error).
+extern "C" int qv_unit_swa_bwd_mma(const qv::SwaBwdArgs* a, const void* w,
+                                   int is_bf16, void* stream) {
+  const qv::Dims& d = a->f.d;
+  if (!is_bf16 || !d.train || d.n != qv::NT || d.nw != 1 ||
+      d.c != qv::SB_C || d.heads != qv::SB_H || d.lin_k != qv::SB_LK ||
+      d.bank_s > qv::SB_S || d.grid > d.B)
+    return qv::ERR_ARGS;
+  const qv::SwaBwdMmaArgs m{*a, static_cast<const qv::bf16*>(w)};
+  const int rc = qv_launch(qv::swa_bwd_mma_kernel, m, qv::SB_SMEM_BYTES,
+                           stream, d.grid);
+  if (rc != 0) return rc;
+  return qv_reduce(a->c.gws, a->c.grad, d.grid, a->c.wstride, d.rgrid, stream);
+}
+
+extern "C" int qv_unit_swa_bwd_mma_smem(const qv::Dims*) {
+  return qv::SB_SMEM_BYTES;
+}
+
+extern "C" int qv_unit_swa_bwd_mma_scratch(const qv::Dims* d) {
+  return qv::swa_bwd_mma_scratch_floats(*d);
 }

@@ -23,13 +23,16 @@ raises, naming the reason (:func:`kernel_geometry_error`).  At n=64 in
 bf16 (eval) the SWA, MSDA and cross/tail units run on the tensor cores
 (``swa_mma_kernel``, ``msda_mma_kernel``, ``cross_tail_mma_kernel``), for
 the widths :func:`swa_mma_error`, :func:`msda_mma_error` and
-:func:`cross_tail_mma_error` name; other widths raise.  In training in
-bf16 at hqavit_c100's widths the MSDA and cross/tail backward kernels run
-on the tensor cores too (``msda_bwd_mma_kernel``,
-``cross_tail_bwd_mma_kernel``, :func:`msda_bwd_mma_error`,
-:func:`cross_tail_bwd_mma_error`); float32, and bf16 at other widths,
-take the CUDA-core backward kernels (:func:`bwd_entry` picks the C entry
-before the launch).  ``ROUTES`` counts the launches of each C entry.
+:func:`cross_tail_mma_error` name; other widths raise.  At n=16 in bf16
+at hqavit_c100's widths the cross/tail forward runs on the tensor cores
+in eval and in training (``cross_tail_mma_kernel``, four samples to a
+tile; :func:`cross_tail_route`), and so do the SWA, MSDA and cross/tail
+backward kernels (``swa_bwd_mma_kernel``, ``msda_bwd_mma_kernel``,
+``cross_tail_bwd_mma_kernel``; :func:`swa_bwd_mma_error`,
+:func:`msda_bwd_mma_error`, :func:`cross_tail_bwd_mma_error`); float32,
+and bf16 at other n=16 widths, take the CUDA-core kernels (the route is
+picked by dtype and widths before the launch, :func:`bwd_entry`).
+``ROUTES`` counts the launches of each C entry.
 """
 
 from __future__ import annotations
@@ -51,12 +54,13 @@ UNITS = ("unit_swa", "unit_msda", "unit_cga", "unit_cross_tail")
 # launches of each kernel since the last reset (plain runs do not count)
 LAUNCHES = {n: 0 for n in UNITS + tuple(f"{u}_bwd" for u in UNITS)}
 # launches of each C entry qv_{name} since the last reset, which shows the
-# route a launch took (the units' CUDA-core entries, the n=64 eval
+# route a launch took (the units' CUDA-core entries, the bf16 forward
 # tensor-core ones, and the n=16 train backward tensor-core ones)
 ROUTES = {n: 0 for n in
           UNITS + tuple(f"{u}_bwd" for u in UNITS)
           + ("unit_swa_mma", "unit_msda_mma", "unit_cross_tail_mma",
-             "unit_msda_bwd_mma", "unit_cross_tail_bwd_mma")}
+             "unit_swa_bwd_mma", "unit_msda_bwd_mma",
+             "unit_cross_tail_bwd_mma")}
 
 
 # stated tolerance of a kernel against its plain version, as a fraction of
@@ -359,12 +363,13 @@ _ENTRY = {"unit_swa": SwaArgs, "unit_msda": MsdaArgs, "unit_cga": CgaArgs,
           "unit_cross_tail": CrossTailArgs, "unit_swa_bwd": SwaBwdArgs,
           "unit_msda_bwd": MsdaBwdArgs, "unit_cga_bwd": CgaBwdArgs,
           "unit_cross_tail_bwd": CrossTailBwdArgs}
-# units with an n=64 bf16 eval kernel on the tensor cores, entry
+# units with a bf16 forward kernel on the tensor cores (n=64 eval; for
+# cross/tail also n=16, eval and training), entry
 # qv_{unit}_mma(args, bf16 weight, bf16 weight, is_bf16, stream)
 _MMA_ENTRY = ("unit_swa", "unit_msda", "unit_cross_tail")
 # backward kernels with an n=16 bf16 tensor-core kernel, entry
 # qv_{unit}_bwd_mma(args, bf16 weights, is_bf16, stream)
-_BWD_MMA_ENTRY = ("unit_msda", "unit_cross_tail")
+_BWD_MMA_ENTRY = ("unit_swa", "unit_msda", "unit_cross_tail")
 _BOUND: Dict[int, bool] = {}
 SMEM_LIMIT = 232448          # bytes of shared memory a block may opt in to
 
@@ -388,7 +393,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         smem = getattr(lib, f"qv_{name}_smem")
         smem.argtypes = [ctypes.POINTER(Dims)]
         smem.restype = ctypes.c_int
-    for name in _MMA_ENTRY:       # the n=64 bf16 tensor-core kernels
+    for name in _MMA_ENTRY:       # the bf16 tensor-core forwards
         fn = getattr(lib, f"qv_{name}_mma")
         fn.argtypes = [ctypes.POINTER(_ENTRY[name]), _P, _P, ctypes.c_int, _P]
         fn.restype = ctypes.c_int
@@ -486,11 +491,12 @@ def swa_mma_error(g: FusedGeom) -> Optional[str]:
 
 
 def cross_tail_mma_error(g: FusedGeom) -> Optional[str]:
-    """Why the n=64 bf16 cross/tail kernel (``cross_tail_mma_kernel``,
-    written for hqavit_tiny_in's widths) cannot run geometry ``g`` (None
-    if it can)."""
+    """Why the bf16 cross/tail kernel (``cross_tail_mma_kernel``, written
+    for hqavit_tiny_in's and hqavit_c100's widths) cannot run geometry
+    ``g`` (None if it can): n=64 in eval, n=16 in eval and in training
+    (:func:`kernel_geometry_error` refuses n=64 in training)."""
     checks = (
-        (g.n == 64, "n=64 on an 8x8 grid"),
+        (g.n in (16, 64), "n=16 on a 4x4 grid or n=64 on an 8x8 grid"),
         ((g.c, g.heads) == (192, 4), "C=192 and 4 heads of 48"),
         ((g.ccf_hidden, g.bottleneck_hidden, g.d_c) == (96, 96, 48),
          "CCF-FFN and bottleneck hidden widths of 96 and d_c=48"),
@@ -500,7 +506,23 @@ def cross_tail_mma_error(g: FusedGeom) -> Optional[str]:
     )
     for ok, need in checks:
         if not ok:
-            return f"the n=64 bf16 cross/tail kernel needs {need}; got {g}"
+            return f"the bf16 cross/tail kernel needs {need}; got {g}"
+    return None
+
+
+def swa_bwd_mma_error(g: FusedGeom) -> Optional[str]:
+    """Why the n=16 bf16 SWA backward kernel (``swa_bwd_mma_kernel``,
+    written for hqavit_c100's widths) cannot run geometry ``g`` (None if
+    it can)."""
+    checks = (
+        ((g.n, g.nw, g.ws2) == (16, 1, 16), "n=16 in one SWA window"),
+        ((g.c, g.heads, g.lin_k) == (192, 4, 32),
+         "C=192, 4 heads of 48 and linformer_k=32"),
+        (g.bank_s <= 16, "at most 16 bank rows"),
+    )
+    for ok, need in checks:
+        if not ok:
+            return f"the n=16 bf16 SWA backward kernel needs {need}; got {g}"
     return None
 
 
@@ -541,7 +563,8 @@ def cross_tail_bwd_mma_error(g: FusedGeom) -> Optional[str]:
     return None
 
 
-_BWD_MMA_ERROR = {"unit_msda": msda_bwd_mma_error,
+_BWD_MMA_ERROR = {"unit_swa": swa_bwd_mma_error,
+                  "unit_msda": msda_bwd_mma_error,
                   "unit_cross_tail": cross_tail_bwd_mma_error}
 
 
@@ -782,22 +805,26 @@ def launch_msda(lib, p: Params, xn, bank_k, bank_v, g: FusedGeom, dtype,
 
 
 def _run_mma(lc: _Launch, a, p: Params, stream, error,
-             *weights: torch.Tensor) -> None:
-    """The unit's n=64 bf16 eval launch on the tensor cores (C entry
-    ``qv_{unit}_mma``), or ValueError with the reason ``error(g)`` gives
-    for widths its kernel does not take: ``weights`` cast to bf16 once
-    per call, which is the kernel's own rounding of them (cp.async copies
-    them as they are); one block per SM walks the samples (on the host,
-    one block walks them all)."""
+             *weights: torch.Tensor,
+             rng: Optional[R.BlockRng] = None) -> torch.Tensor:
+    """The unit's bf16 launch on the tensor cores (C entry
+    ``qv_{unit}_mma``; in training, with ``rng``, only cross/tail's at
+    n=16), or ValueError with the reason ``error(g)`` gives for widths its
+    kernel does not take: ``weights`` cast to bf16 once per call, which is
+    the kernel's own rounding of them (cp.async copies them as they are);
+    one block per SM walks the tiles of 64 token rows (on the host, one
+    block walks them all).  Returns the guard workspace."""
     err = error(lc.g)
     if err is not None:
         raise ValueError(f"{lc.name}: {err}")
     w16 = [w.to(torch.bfloat16).contiguous() for w in weights]
     lc.held += w16
-    blocks = (min(lc.b, _sm_count(lc.device)) if lc.device.type == "cuda"
+    tiles = -(-lc.b * lc.g.n // 64)
+    blocks = (min(tiles, _sm_count(lc.device)) if lc.device.type == "cuda"
               else 1)
-    lc.run(a, _dims(lc.g, lc.b, p, blocks, 1, None), stream,
-           entry=f"{lc.name}_mma", extra=tuple(w.data_ptr() for w in w16))
+    return lc.run(a, _dims(lc.g, lc.b, p, blocks, 1, rng), stream,
+                  entry=f"{lc.name}_mma",
+                  extra=tuple(w.data_ptr() for w in w16))
 
 
 def launch_cga(lib, p: Params, xn, bank_k, bank_v, g: FusedGeom, dtype,
@@ -865,12 +892,25 @@ def launch_cross_tail(lib, p: Params, x, xn, out_swa, out_msda, out_cga,
     a.swa, a.msda, a.cga = lc.act(out_swa), lc.act(out_msda), lc.act(out_cga)
     a.bank_k, a.bank_v = _bank(lc, bank_k, bank_v)
     _cross_tail_args(lc, p, a)
-    if train is None and g.n != 16 and dtype == torch.bfloat16:
-        _run_mma(lc, a, p, stream, cross_tail_mma_error,
-                 *_cross_tail_packed(p))
-        return y
-    ws = lc.run(a, _fwd_dims(lc, p, train, grid), stream)
+    if cross_tail_route(g, dtype) == "unit_cross_tail_mma":
+        ws = _run_mma(lc, a, p, stream, cross_tail_mma_error,
+                      *_cross_tail_packed(p),
+                      rng=None if train is None else train.rng)
+    else:
+        ws = lc.run(a, _fwd_dims(lc, p, train, grid), stream)
     return y if train is None else (y, ws)
+
+
+def cross_tail_route(g: FusedGeom, dtype) -> str:
+    """The C entry (``qv_{entry}``) a cross/tail forward launch takes, by
+    dtype and widths before the launch: bf16 on the tensor cores at n=64
+    (where other widths raise, with cross_tail_mma_error's reason) and at
+    n=16 where cross_tail_mma_error admits the widths; float32, and bf16
+    at other n=16 widths, on the CUDA cores."""
+    if dtype == torch.bfloat16 and (g.n != 16
+                                    or cross_tail_mma_error(g) is None):
+        return "unit_cross_tail_mma"
+    return "unit_cross_tail"
 
 
 def _cross_tail_packed(p: Params) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -900,10 +940,14 @@ def _leaf(p: Params, path: Tuple[str, ...]):
 
 
 class _Grads:
-    """A zeroed per-block gradient workspace [grid, wstride] laid out
-    field by field, and views of the reduced sums."""
+    """A per-block gradient workspace [grid, wstride] laid out field by
+    field, and views of the reduced sums.  Zeroed for the kernels that add
+    into their slice; left as allocated (``zero=False``) for a kernel that
+    stores every field of its slice without reading it
+    (``swa_bwd_mma_kernel``)."""
 
-    def __init__(self, lc: _Launch, unit: str, p: Params, grid: Grid):
+    def __init__(self, lc: _Launch, unit: str, p: Params, grid: Grid,
+                 zero: bool = True):
         s, c = lc.g.bank_s, lc.g.c
         self.items = []           # (field, index or None, shape, offset)
         off = 0
@@ -919,7 +963,8 @@ class _Grads:
             self.items.append((field, None, (1, s, c), off, (field,)))
             off += s * c
         self.wstride = off
-        self.gws = torch.zeros(grid.blocks, off, device=lc.device)
+        self.gws = (torch.zeros if zero else torch.empty)(
+            grid.blocks, off, device=lc.device)
         self.grad = torch.empty(off, device=lc.device)
 
     def fill(self, gs) -> None:
@@ -995,12 +1040,19 @@ def launch_swa_bwd(lib, p: Params, x, bank_k, bank_v, g: FusedGeom, dtype,
     f.bank_k, f.bank_v = _bank(lc, bank_k, bank_v)
     f.proj_w, f.proj_b = lc.dense(ps["proj"], c, c)
     f.d = _dims(g, lc.b, p, grid.blocks, grid.reduce, train.rng)
-    grads = _Grads(lc, "unit_swa", p, grid)
+    entry = bwd_entry("unit_swa", g, dtype)
+    mma = entry == "unit_swa_bwd_mma"
+    grads = _Grads(lc, "unit_swa", p, grid, zero=not mma)
     grads.fill(a.g)
-    _bwd_common(lc, a.c, bank_k, bank_v, ws, grads)
+    w16 = scratch = None
+    if mma:                          # qkv, proj, then both transposed
+        w16 = _bwd_weights(lc, ps["qkv"]["kernel"], ps["proj"]["kernel"])
+        per = lib.qv_unit_swa_bwd_mma_scratch(ctypes.byref(f.d))
+        scratch = torch.empty(grid.blocks * per, device=lc.device)
+    _bwd_common(lc, a.c, bank_k, bank_v, ws, grads, scratch)
     d_x = torch.empty_like(x)
     a.d_out, a.d_xn, a.d_x = lc.act(d_out), lc.act(d_xn), lc.act(d_x)
-    _run_bwd(lc, a, f.d, stream, "unit_swa_bwd")
+    _run_bwd(lc, a, f.d, stream, entry, w16)
     r = grads.result()
     return (d_x, r.pop(("bank_k",)), r.pop(("bank_v",))), r
 

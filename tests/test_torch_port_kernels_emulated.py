@@ -6,8 +6,11 @@ the stated tolerance (fused_kernels.TOLERANCE): the unit kernels at the
 tiny width, the hqavit_c100 width (16 tokens, one SWA window) and the
 hqavit_tiny_in geometry (64 tokens, four SWA windows, full width), the
 flash-attention kernel at the 224 path's shapes, in float32 and bf16.
-The bf16 flash kernel and the n=64 bf16 SWA, MSDA and cross/tail kernels
-run on the tensor cores: the emulation rebuilds mma.sync's and ldmatrix's
+The bf16 flash kernel, the n=64 bf16 SWA, MSDA and cross/tail kernels and
+the n=16 bf16 cross/tail kernel at the hqavit_c100 width (four samples
+to a tile of 64 rows; at B=2 a short tile) run on the tensor cores, which
+the route counts (fused_kernels.ROUTES) confirm: the emulation rebuilds
+mma.sync's and ldmatrix's
 fragments from the PTX ISA's layouts, so their fragment indexing is
 checked here too, after a self-test of the primitives (ldmatrix -> mma
 against A @ B).  This checks the kernels' arithmetic, indexing and the
@@ -109,6 +112,13 @@ def test_branch_kernel(emu_lib, case, dtype, unit):
                plain(p, xn, bk, bv, g, dtype))
 
 
+def _cross_tail_entry(g, dtype) -> str:
+    """The C entry a cross/tail launch must take: the tensor-core kernel
+    in bf16 at C=192 (n=16 and n=64), else the CUDA-core kernel."""
+    mma = dtype == torch.bfloat16 and g.c == 192
+    return "unit_cross_tail_mma" if mma else "unit_cross_tail"
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cross_tail_kernel(emu_lib, case, dtype):
     g, p, (bk, bv), x = case
@@ -117,9 +127,11 @@ def test_cross_tail_kernel(emu_lib, case, dtype):
         o, xn = K.swa_plain(p, x, bk, bv, g, dtype)
         m = K.msda_plain(p, xn, bk, bv, g, dtype)
         c = K.cga_plain(p, xn, bk, bv, g, dtype)
+        K.reset_launches()
         _check(K.launch_cross_tail(emu_lib, p, x, xn, o, m, c, bk, bv, g,
                                    dtype),
                K.cross_tail_plain(p, x, xn, o, m, c, bk, bv, g, dtype))
+    assert K.ROUTES[_cross_tail_entry(g, dtype)] == 1
 
 
 def test_nan_guard_is_batch_wide(emu_lib, case):
@@ -237,14 +249,16 @@ def test_mma_nan_guard_bf16(emu_lib, case, unit):
         xn = xn.clone()
         xn[1, 3, 5] = float("nan")
         args = (x, xn, o, m, c, bk, bv, g, dtype)
+        K.reset_launches()
         y = K.launch_cross_tail(emu_lib, p, *args)
         ref = K.cross_tail_plain(p, *args)
+    assert K.ROUTES[_cross_tail_entry(g, dtype)] == 1
     assert torch.isfinite(ref).all()
     _check_guarded(y, ref)
 
 
-def _short_bank_case():
-    cfg = _cfg("multiwindow")
+def _short_bank_case(width="multiwindow"):
+    cfg = _cfg(width)
     g = make_geom(cfg)._replace(bank_s=12)
     gen = torch.Generator().manual_seed(8)
     p = param_tree(init_weights(QuadBlockParams(cfg, g), gen))
@@ -262,12 +276,14 @@ def test_msda_kernel_short_bank(emu_lib):
                K.msda_plain(p, xn, bk, bv, g, torch.bfloat16))
 
 
-@pytest.mark.parametrize("unit", ["swa", "cross_tail"])
+@pytest.mark.parametrize("unit", ["swa", "cross_tail", "cross_tail_n16"])
 def test_mma_kernel_short_bank(emu_lib, unit):
-    """The n=64 bf16 SWA and cross/tail kernels with 12 bank rows: 44
-    keys a head in each SWA window, 12 in the cross attention, the padded
-    keys masked (the projected bank rows past 12 are finite bias rows)."""
-    g, p, bk, bv, x = _short_bank_case()
+    """The n=64 bf16 SWA and cross/tail kernels, and the cross/tail kernel
+    at n=16 (hqavit_c100's width), with 12 bank rows: 44 keys a head in
+    each SWA window, 12 in the cross attention, the padded keys masked
+    (the projected bank rows past 12 are finite bias rows)."""
+    g, p, bk, bv, x = _short_bank_case(
+        "flagship_width" if unit == "cross_tail_n16" else "multiwindow")
     dtype = torch.bfloat16
     with torch.no_grad():
         ref_out, ref_xn = K.swa_plain(p, x, bk, bv, g, dtype)
@@ -279,16 +295,44 @@ def test_mma_kernel_short_bank(emu_lib, unit):
         m = K.msda_plain(p, ref_xn, bk, bv, g, dtype)
         c = K.cga_plain(p, ref_xn, bk, bv, g, dtype)
         args = (x, ref_xn, ref_out, m, c, bk, bv, g, dtype)
+        K.reset_launches()
         _check(K.launch_cross_tail(emu_lib, p, *args),
                K.cross_tail_plain(p, *args))
+    assert K.ROUTES["unit_cross_tail_mma"] == 1
 
 
-@pytest.mark.parametrize("unit", ["swa", "cross_tail"])
-def test_mma_geometry_errors(unit):
+@pytest.mark.parametrize("unit", ["swa", "cross_tail", "cross_tail_n16"])
+def test_mma_geometry_errors(emu_lib, unit):
     """The n=64 bf16 SWA and cross/tail kernels take hqavit_tiny_in's
     geometry; at C=48 (which the float32 n=64 kernels take) the error
     names the width, and a bf16 n=64 eval launch raises it before any
-    kernel runs (no fallback)."""
+    kernel runs (no fallback).  The cross/tail kernel also takes
+    hqavit_c100's n=16 geometry; there the route is picked by dtype and
+    width before the launch (bf16 at C=192 on the tensor cores; float32,
+    and bf16 at C=48, on the CUDA cores), and its C entry returns ERR_ARGS
+    (1) for C=48 and for n=64 in training, before it touches an
+    argument."""
+    if unit == "cross_tail_n16":
+        flagship, tiny = make_geom(_cfg("flagship_width")), make_geom(
+            _cfg("tiny"))
+        assert K.cross_tail_mma_error(flagship) is None
+        reason = K.cross_tail_mma_error(tiny)
+        assert reason is not None and "C=192" in reason
+        for g, dtype, entry in (
+                (flagship, torch.bfloat16, "unit_cross_tail_mma"),
+                (flagship, torch.float32, "unit_cross_tail"),
+                (tiny, torch.bfloat16, "unit_cross_tail")):
+            assert K.cross_tail_route(g, dtype) == entry
+        wide = make_geom(_cfg("multiwindow"))
+        p = param_tree(init_weights(QuadBlockParams(_cfg("tiny"), tiny),
+                                    torch.Generator().manual_seed(2)))
+        for g, rng in ((tiny, None), (tiny, K.R.block_rng(1, 0.1, 0.1)),
+                       (wide, K.R.block_rng(1, 0.1, 0.1))):
+            args = K.CrossTailArgs()
+            args.d = K._dims(g, B, p, 1, 1, rng)
+            assert emu_lib.qv_unit_cross_tail_mma(ctypes.byref(args), None,
+                                                  None, 1, None) == 1
+        return
     error = {"swa": K.swa_mma_error,
              "cross_tail": K.cross_tail_mma_error}[unit]
     cfg = _cfg("multiwindow")

@@ -8,10 +8,14 @@ the plain version, with the same hash masks (dropout 0.1, drop-path 0.1)
 and cotangents, at the tiny width and the hqavit_c100 width, in float32
 and bf16, with 3 samples over 2 blocks (so the per-block partial sums and
 their reduction are exercised, and the bf16 tensor-core backward kernels
-of the MSDA and cross/tail units, which take two samples a pass at the
-hqavit_c100 width, run a pass with one sample).  Those two also run in
-bf16 at that width with the NaN guard tripped and with 12 bank rows, and
-their route (fused_kernels.bwd_entry) is checked without a kernel.
+of the SWA, MSDA and cross/tail units, which take two samples a pass at
+the hqavit_c100 width, run a pass with one sample; the bf16 cross/tail
+forward there runs on the tensor cores too, its 48 rows a short tile of
+64).  Those three also run in bf16 at that width with the NaN guard
+tripped and with 12 bank rows (the SWA backward with its gradient
+workspace left as allocated, since it stores every field), their route
+(fused_kernels.bwd_entry) is checked, and their C entries return
+ERR_ARGS for a geometry they do not take.
 Tolerances: fused_kernels.TOLERANCE
 (outputs), unit_checks.PARTIAL_TOLERANCE (partials) and
 fused_kernels.GRAD_TOLERANCE (gradients), each stated with its reason
@@ -154,7 +158,7 @@ def test_kernel_masks_are_the_plain_masks(emu_lib, tiny_case):
     assert (out - eval_out).abs().max() > 0.1 * eval_out.abs().max()
 
 
-MMA_BWD = ["unit_msda", "unit_cross_tail"]
+MMA_BWD = ["unit_swa", "unit_msda", "unit_cross_tail"]
 
 
 @pytest.fixture(scope="module")
@@ -164,10 +168,12 @@ def flagship_case():
 
 def _check_mma(emu_lib, case, unit, **kw):
     """_check in bf16 at hqavit_c100's width, which must take the unit's
-    tensor-core backward entry."""
+    tensor-core backward entry (and cross/tail's tensor-core forward)."""
     K.reset_launches()
     r = _check(emu_lib, case, unit, torch.bfloat16, **kw)
     assert K.ROUTES[f"{unit}_bwd_mma"] == 1 and K.ROUTES[f"{unit}_bwd"] == 0
+    if unit == "unit_cross_tail":
+        assert K.ROUTES[f"{unit}_mma"] == 1 and K.ROUTES[unit] == 0
     return r
 
 
@@ -188,11 +194,14 @@ def test_mma_backward_short_bank(emu_lib, flagship_case, unit):
 
 
 @pytest.mark.parametrize("unit", MMA_BWD)
-def test_mma_backward_route(unit):
+def test_mma_backward_route(emu_lib, unit):
     """bwd_entry takes the tensor-core entry exactly where the error
     function admits the geometry: bf16 at hqavit_c100's widths; float32
-    and the tiny width (whose reason names C) take the CUDA-core entry."""
-    error = {"unit_msda": K.msda_bwd_mma_error,
+    and the tiny width (whose reason names C) take the CUDA-core entry.
+    The tensor-core C entry itself returns ERR_ARGS (1) for the tiny
+    width and for float32, before it touches an argument."""
+    error = {"unit_swa": K.swa_bwd_mma_error,
+             "unit_msda": K.msda_bwd_mma_error,
              "unit_cross_tail": K.cross_tail_bwd_mma_error}[unit]
     flagship, tiny = make_geom(_cfg("flagship_width")), make_geom(_cfg("tiny"))
     assert error(flagship) is None
@@ -204,5 +213,11 @@ def test_mma_backward_route(unit):
         mma = dtype == torch.bfloat16 and error(g) is None
         assert K.bwd_entry(unit, g, dtype) == unit + ("_bwd_mma" if mma
                                                       else "_bwd")
-    for other in ("unit_swa", "unit_cga"):
-        assert K.bwd_entry(other, flagship, torch.bfloat16) == other + "_bwd"
+    assert K.bwd_entry("unit_cga", flagship, torch.bfloat16) == "unit_cga_bwd"
+    p = _case("tiny")[1]
+    entry = getattr(emu_lib, f"qv_{unit}_bwd_mma")
+    for g, is_bf16 in ((tiny, 1), (flagship, 0)):
+        args = K._ENTRY[f"{unit}_bwd"]()
+        args.f.d = K._dims(g, B, p, GRID.blocks, GRID.reduce,
+                           R.block_rng(1, 0.1, 0.1))
+        assert entry(ctypes.byref(args), None, is_bf16, None) == 1
