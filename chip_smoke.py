@@ -13,36 +13,38 @@ it stopped:
   (c) kernel checks: each fused-block unit kernel against its plain
       PyTorch version at B=256, hqavit_c100 shapes, float32 and bf16,
       seed-made weights and inputs, plus the batch-wide NaN guard; the
-      bf16 cross/tail unit, which runs on the tensor cores
-      (cross_tail_mma_kernel, four samples to a tile), also with the
-      guard tripped in one sample and with 12 bank rows, each launch
-      through the tensor-core entry; its registers, spills and shared
-      memory;
+      bf16 SWA, MSDA and cross/tail units, which run on the tensor cores
+      (swa_mma_kernel, msda_mma16_kernel, cross_tail_mma_kernel, four
+      samples to a tile), also with the guard tripped in one sample and
+      with 12 bank rows (SWA and MSDA also at B=255, a short last tile),
+      each launch through the tensor-core entry; their registers, spills
+      and shared memory;
   (d) the main path: ``qavit_tpu_torch.cli.evaluate`` on hqavit_c100 at
       full width and depth, B=1024, synthetic data from the seed, with
       every launch count set to 0 just before and read just after (each
-      kernel must launch 8 times per forward, every cross/tail launch
-      through the tensor-core entry); then the model's logits through
+      kernel must launch 8 times per forward, every SWA, MSDA and
+      cross/tail launch through its tensor-core entry); then the model's
+      logits through
       the kernels against the same model run with the plain versions on
       the card, in bf16 and float32;
   (e) timing with CUDA events: each kernel and its plain version at the
       main path's shapes (B=1024, bf16), against the card's bound, after
-      the cross/tail checks of (c) at B=1024;
+      the tensor-core checks of (c) at B=1024;
   (f) training kernels: each unit's train-mode forward (outputs and bank
       partials) and its backward kernel (gradients) against the plain
       version and autograd through it at B=256, float32 and bf16, with
       dropout 0.1 and drop-path 0.1 masks on, and with the NaN guard
       tripped (the guarded branch passes zero gradient; float32, and bf16
-      for the SWA, MSDA and cross/tail units, whose bf16 backward kernels
-      run on the tensor cores, as does the bf16 cross/tail forward), and
-      those three bf16 backward kernels with 12 bank rows; their
-      registers, spills and shared memory;
+      for the SWA, MSDA and cross/tail units, whose bf16 forward and
+      backward kernels run on the tensor cores), and those three units in
+      bf16 with 12 bank rows; the backward kernels' registers, spills and
+      shared memory;
   (g) the train path: ``qavit_tpu_torch.cli.bench --preset hqavit_c100
       --train --batch-sizes 1024`` with every launch count set to 0 just
       before and read just after (each unit's forward and backward kernel
-      8 times per step, the SWA, MSDA and cross/tail backward launches and
-      the cross/tail forward launches all through their tensor-core
-      entries, the bank count +24 per step);
+      8 times per step, the SWA, MSDA and cross/tail forward and backward
+      launches all through their tensor-core entries, the bank count +24
+      per step);
       then the kernel step
       against the plain step on the card at B=1024 from the same weights,
       batch and seeds: the gradients of one step in float32 and in bf16
@@ -54,7 +56,8 @@ it stopped:
       CUDA events: the train step, and each unit's train-mode forward and
       backward kernel against its plain version and its bound (a row
       named by its kernel where it runs on the tensor cores:
-      cross_tail_mma_kernel, swa_bwd_mma_kernel, ...);
+      swa_mma_kernel_train, cross_tail_mma_kernel, swa_bwd_mma_kernel,
+      ...);
   (i) the flash-attention kernel against its plain version at the 224
       path's MSDA and cross shapes (B=256, the cross keys both contiguous
       and broadcast over the batch with stride 0), at qavit_v2_extreme_tin's
@@ -96,6 +99,7 @@ and exits non-zero; without CUDA it exits 1 before printing a result.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import math
 import subprocess
@@ -192,7 +196,7 @@ def ptxas_summary(log: str):
         if m:
             raw = m.group(1)
             kern = re.search(r"qv\d+(\w+?_kernel)", raw)
-            ints = re.findall(r"Li(\d+)E", raw)
+            ints = re.findall(r"L[ib](\d+)E", raw)
             name = (kern.group(1) if kern else raw) + (
                 f"<{','.join(ints)}>" if ints else "") + (
                 "<bf16>" if "bf16" in raw or "13__nv_bfloat16" in raw
@@ -417,11 +421,11 @@ MMA_BWD = ("unit_swa", "unit_msda", "unit_cross_tail")
 
 
 def mma_backward_checks(K, g, p, dev, lib, stream, grid, train, rows, gen):
-    """Phase (f), the bf16 tensor-core backward kernels: the NaN guard
-    tripped in one sample, and 12 bank rows (the keys past them masked);
-    each launch must take the tensor-core entry (and the cross/tail
-    forward its tensor-core entry too).  Then their ptxas lines and shared
-    memory.  Returns the failed (unit, case) pairs."""
+    """Phase (f), the bf16 tensor-core forward and backward kernels: the
+    NaN guard tripped in one sample, and 12 bank rows (the keys past them
+    masked); each launch must take the tensor-core entry, forward and
+    backward.  Then the backward kernels' ptxas lines and shared memory.
+    Returns the failed (unit, case) pairs."""
     import torch
 
     from qavit_tpu_torch.kernels import unit_checks as UC
@@ -450,9 +454,8 @@ def mma_backward_checks(K, g, p, dev, lib, stream, grid, train, rows, gen):
             r = UC.check_unit(lib, unit, p, train12 if twelve else train,
                               batch, gc, dtype, grid, cots, stream,
                               guard_tripped=not twelve)
-            routed = K.ROUTES[f"{unit}_bwd_mma"] == 1
-            if unit == "unit_cross_tail":
-                routed = routed and K.ROUTES["unit_cross_tail_mma"] == 1
+            routed = (K.ROUTES[f"{unit}_bwd_mma"] == 1
+                      and K.ROUTES[f"{unit}_mma"] == 1)
             ok = r.ok and routed
             print(f"check {unit}_bwd bf16 {case} (tensor-core entry "
                   f"{routed}): flag {r.flag}, outputs {r.out_err:.2e}, "
@@ -493,8 +496,9 @@ def train_path(K, cfg):
                                  f"expected {want}")
     routes = dict(K.ROUTES)
     print(f"train path: launches per C entry {routes}", flush=True)
-    # the bf16 step's backwards and cross/tail forwards on the tensor cores
-    for entry in [f"{u}_bwd" for u in MMA_BWD] + ["unit_cross_tail"]:
+    # the bf16 step's SWA, MSDA and cross/tail forwards and backwards on
+    # the tensor cores
+    for entry in [f"{u}_bwd" for u in MMA_BWD] + list(MMA_BWD):
         if (routes[f"{entry}_mma"], routes[entry]) != (cfg.depth * steps, 0):
             raise AssertionError(
                 f"{entry}: {routes[f'{entry}_mma']} launches of the "
@@ -632,16 +636,19 @@ def kernel_vs_plain_step(K, cfg, dev):
 def unit_train_work(name, g, b, dtype_bytes, p):
     """(bytes, flops) of a unit's train-mode forward: the eval work
     (unit_work) plus the bank write's: its projections read once (float32)
-    and the [2, S, C] float32 sums written once; per sample the write
-    norm's compression (C x C) and gate (C x S) products and the two
-    gate-weighted sums (S x n x C each)."""
+    and the [2, S, C] float32 sums written once; per sample the gate's
+    product (C x S) and the gate-weighted sum of the write norm's rows
+    (S x n x C), and the compression (C x C) once, of that sum: a sample's
+    gate sums to 1 over its tokens, so the gate-weighted sum of the
+    compressed rows is the compression of the gate-weighted sum
+    (mma_ops.cuh, bank partials)."""
     nbytes, flops = unit_work(name, g, b, dtype_bytes, p)
     if name == "unit_cross_tail":
         return nbytes, flops
     n, c, s = g.n, g.c, g.bank_s
     w = 4 * (c * c + c * s + 4 * c + s)
-    per = 2 * n * c * c + 2 * n * c * s + 2 * 2 * n * s * c
-    return nbytes + w + 2 * s * c * 4, flops + b * per
+    per = 2 * n * c * s + 2 * n * s * c
+    return nbytes + w + 2 * s * c * 4, flops + b * per + 2 * s * c * c
 
 
 def kernel_row(name, source, replaces, launches, err, ms, plain_ms, work,
@@ -773,25 +780,30 @@ def csrc_kernel(K, unit, g, dtype, backward=False):
     if backward:
         mma = K.bwd_entry(unit, g, dtype).endswith("_mma")
         return f"{unit[5:]}_bwd{'_mma' if mma else ''}_kernel"
-    if unit == "unit_cross_tail":
-        return ("cross_tail_mma_kernel" if K.cross_tail_route(
-            g, dtype).endswith("_mma") else "cross_tail_kernel")
-    return f"{unit[5:]}_kernel"
+    route = {"unit_swa": K.swa_route, "unit_msda": K.msda_route,
+             "unit_cross_tail": K.cross_tail_route}.get(unit)
+    if route is None or not route(g, dtype).endswith("_mma"):
+        return f"{unit[5:]}_kernel"
+    return "msda_mma16_kernel" if unit == "unit_msda" and g.n == 16 else (
+        f"{unit[5:]}_mma_kernel")
 
 
 def record_name(K, unit, g, dtype, backward=False):
     """A row's name in the kernels record: the tensor-core kernel's where
-    the launch takes it at n=16, else the unit's (``unit_*_bwd``)."""
+    the launch takes it, else the unit's (``unit_*_bwd``)."""
     kern = csrc_kernel(K, unit, g, dtype, backward)
     return kern if "_mma" in kern else unit + ("_bwd" if backward else "")
 
 
-def cross_tail_mma_checks(K, g, p, bank, dev, gen, batch):
-    """Phases (c), (e): the bf16 cross/tail unit at n=16 against its plain
-    version at ``batch`` (2^-6 of max|plain|), as it is, with a NaN in one
-    sample's xn (the guard: the cross attention zero in every sample, the
-    block output finite), and with 12 bank rows; each launch must take
-    the tensor-core entry.  Raises on a failure."""
+def mma16_checks(K, g, p, bank, dev, gen, batch):
+    """Phases (c), (e): the bf16 SWA, MSDA and cross/tail units at n=16
+    against their plain versions (2^-6 of max|plain|) at ``batch`` as they
+    are; with a NaN in one sample's input (the guard: SWA's x and MSDA's
+    xn make every sample's output proj(0), SWA's xn keeping the NaN row;
+    cross/tail's xn, read by the cross branch's q only, makes every
+    sample's cross attention zero, the block output finite); with 12 bank
+    rows; and at ``batch - 1`` samples (a short last tile of three).  Each
+    launch must take the tensor-core entry.  Raises on a failure."""
     import torch
 
     dtype = torch.bfloat16
@@ -799,31 +811,48 @@ def cross_tail_mma_checks(K, g, p, bank, dev, gen, batch):
     g12 = g._replace(bank_s=12)
     bank12 = tuple(t[:, :12].contiguous() for t in bank)
     failed = []
-    for case in ("as it is", "NaN guard", "12 bank rows"):
+    for case in ("as it is", "NaN guard", "12 bank rows", "short last tile"):
         gc, bc = (g12, bank12) if case == "12 bank rows" else (g, bank)
-        o, xn = K.swa_plain(p, x, *bc, gc, dtype)
+        xc = x[:batch - 1] if case == "short last tile" else x
+        o, xn = K.swa_plain(p, xc, *bc, gc, dtype)
         m = K.msda_plain(p, xn, *bc, gc, dtype)
         c = K.cga_plain(p, xn, *bc, gc, dtype)
+        xs, xns = xc, xn
         if case == "NaN guard":
-            xn = xn.clone()
-            xn[batch // 2, 3, 5] = float("nan")
-        args = (x, xn, o, m, c, *bc, gc, dtype)
-        K.reset_launches()
-        out = K.unit_cross_tail(p, *args)
-        torch.cuda.synchronize()
-        routed = (K.ROUTES["unit_cross_tail_mma"],
-                  K.ROUTES["unit_cross_tail"]) == (1, 0)
-        ref = K.cross_tail_plain(p, *args)
-        err, ok = guarded_error(K, out, ref)
-        ok = ok and routed and bool(torch.isfinite(ref).all())
-        print(f"check unit_cross_tail  bf16 n={g.n} B={batch} {case} "
-              f"(tensor-core entry {routed}): max_abs_err {err:.3e}, "
-              f"tolerance {K.TOLERANCE[dtype] * ref.float().abs().max():.3e}"
-              f"  {'ok' if ok else 'FAIL'}", flush=True)
-        if not ok:
-            failed.append(case)
+            xs, xns = xc.clone(), xn.clone()
+            xs[batch // 2, 3, 5] = xns[batch // 2, 3, 5] = float("nan")
+        ct = (xc, xns, o, m, c, *bc, gc, dtype)
+        calls = {
+            "unit_swa": (lambda: K.unit_swa(p, xs, *bc, gc, dtype),
+                         lambda: K.swa_plain(p, xs, *bc, gc, dtype)),
+            "unit_msda": (lambda: K.unit_msda(p, xns, *bc, gc, dtype),
+                          lambda: K.msda_plain(p, xns, *bc, gc, dtype)),
+            "unit_cross_tail": (lambda: K.unit_cross_tail(p, *ct),
+                                lambda: K.cross_tail_plain(p, *ct))}
+        for unit, (kern, plain) in calls.items():
+            K.reset_launches()
+            out = kern()
+            torch.cuda.synchronize()
+            routed = (K.ROUTES[f"{unit}_mma"], K.ROUTES[unit]) == (1, 0)
+            ref = plain()
+            err, ok = guarded_error(K, out, ref)
+            ok = ok and routed and (unit != "unit_cross_tail"
+                                    or bool(torch.isfinite(ref).all()))
+            # the worst output's error as a share of its own bound
+            share = max(
+                K.max_abs_err(o[~torch.isnan(r)], r[~torch.isnan(r)])
+                / (K.TOLERANCE[dtype] * r[~torch.isnan(r)].float().abs()
+                   .max().item())
+                for o, r in zip(*(t if isinstance(t, tuple) else (t,)
+                                  for t in (out, ref))))
+            print(f"check {unit:16s} bf16 n={g.n} B={xc.shape[0]} {case} "
+                  f"(tensor-core entry {routed}): max_abs_err {err:.3e}, "
+                  f"{share:.2f} of its bound (2^-6 of max|plain|)"
+                  f"  {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                failed.append((unit, case))
     if failed:
-        raise AssertionError(f"the n={g.n} bf16 cross/tail kernel disagrees: "
+        raise AssertionError(f"the n={g.n} bf16 tensor-core units disagree: "
                              f"{failed}")
 
 
@@ -1447,11 +1476,17 @@ def main() -> int:
         if not torch.equal(out, p["swa"]["proj"]["bias"].expand_as(out)):
             raise AssertionError("unit_swa: the NaN guard is not batch-wide")
         print("check NaN guard: batch-wide in unit_swa ok", flush=True)
-        cross_tail_mma_checks(K, g, p, bank, dev, gen, CHECK_BATCH)
-    print_ptxas("cross_tail_mma_kernel")
-    print(f"cross_tail_mma_kernel: "
-          f"{kl.lib.qv_unit_cross_tail_mma_smem(None)} B of dynamic shared "
-          f"memory per block", flush=True)
+        mma16_checks(K, g, p, bank, dev, gen, CHECK_BATCH)
+    d16 = K._dims(g, CHECK_BATCH, p, 1, 1, None)
+    for kern, smem in (
+            ("swa_mma_kernel", kl.lib.qv_unit_swa_mma_smem(None)),
+            ("msda_mma16_kernel",
+             kl.lib.qv_unit_msda_mma_smem(ctypes.byref(d16))),
+            ("cross_tail_mma_kernel",
+             kl.lib.qv_unit_cross_tail_mma_smem(None))):
+        print_ptxas(kern)
+        print(f"{kern}: {smem} B of dynamic shared memory per block",
+              flush=True)
     say("phase (c) kernel checks: done")
 
     say("phase (d) main path: start")
@@ -1473,12 +1508,13 @@ def main() -> int:
                                  f"({cfg.depth} per forward x {forwards} "
                                  f"for each forward unit)")
     print(f"launches per C entry: {routes}", flush=True)
-    if (routes["unit_cross_tail_mma"], routes["unit_cross_tail"]) != (
-            cfg.depth * forwards, 0):
-        raise AssertionError(
-            f"unit_cross_tail: {routes['unit_cross_tail_mma']} launches of "
-            f"the tensor-core entry and {routes['unit_cross_tail']} of the "
-            f"CUDA-core one, expected {cfg.depth * forwards} and 0")
+    for unit in ("unit_swa", "unit_msda", "unit_cross_tail"):
+        if (routes[f"{unit}_mma"], routes[unit]) != (cfg.depth * forwards,
+                                                     0):
+            raise AssertionError(
+                f"{unit}: {routes[f'{unit}_mma']} launches of the "
+                f"tensor-core entry and {routes[unit]} of the CUDA-core "
+                f"one, expected {cfg.depth * forwards} and 0")
     if not (r["count"] == BATCH * MAIN_BATCHES and r["loss"] == r["loss"]
             and 0.0 <= r["top1"] <= r["top5"] <= 100.0):
         raise AssertionError(f"main path result out of range: {r}")
@@ -1520,7 +1556,7 @@ def main() -> int:
     dtype = torch.bfloat16
     record = []
     with torch.inference_mode():
-        cross_tail_mma_checks(K, g, p, bank, dev, gen, BATCH)
+        mma16_checks(K, g, p, bank, dev, gen, BATCH)
         x = torch.randn(BATCH, g.n, g.c, generator=gen).to(dev, dtype)
         for name, (kern, plain_fn) in unit_calls(K, p, g, dtype, x,
                                                  bank).items():

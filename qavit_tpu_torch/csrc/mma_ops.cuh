@@ -1,9 +1,10 @@
 // The pieces the bf16 tensor-core unit kernels share (msda_mma_kernel,
-// swa_mma_kernel, cross_tail_mma_kernel), built on mma.cuh's primitives:
-// a product whose weight streams through a ring of cp.async buffers, a
-// dense layer's epilogue, the q fragments of a warp's two heads, one
-// warp's softmax attention of 16 queries with its scores in registers,
-// and a warp-per-row LayerNorm of bf16 rows.  Then the pieces of the
+// swa_mma_kernel, msda_mma16_kernel, cross_tail_mma_kernel), built on
+// mma.cuh's primitives: a product whose weight streams through a ring of
+// cp.async buffers, a dense layer's epilogue, the q fragments of a warp's
+// two heads, one warp's softmax attention of 16 queries with its scores
+// in registers, a warp-per-row LayerNorm of bf16 rows, and the bank-write
+// partials of the train-mode forwards.  Then the pieces of the
 // backward kernels (swa_bwd_mma_kernel, msda_bwd_mma_kernel,
 // cross_tail_bwd_mma_kernel), which walk the batch in passes of two
 // samples of 16 tokens: products over a pass's rows with an epilogue per
@@ -269,6 +270,204 @@ __device__ __forceinline__ void ln_rows(const bf16* in, bf16* out, int ld,
               (v[i][2 * k] - mu[i]) * rstd[i] * sc[2 * k] + bi[2 * k],
               (v[i][2 * k + 1] - mu[i]) * rstd[i] * sc[2 * k + 1] +
                   bi[2 * k + 1]));
+}
+
+// --- the bank-write partials of the train-mode tensor-core forwards ---------
+//
+// fused_ref.bank_write_partial, per sample of 16 rows: normed =
+// rnd(LN(out; the branch's norm)), t = LN(normed; write_norm) with
+// jnp.var's two-pass variance, comp = t @ Wc + bc, gate = softmax over the
+// sample's tokens of t @ Wg + bg, all float32; part_k[m] = sum_n gate[n, m]
+// comp[n] and part_v[m] = sum_n gate[n, m] t[n], summed over the batch.
+// Since the gate of a sample sums to 1 over its tokens, part_k = part_v @
+// Wc + (sum_n gate[n, m]) bc: so a block sums only part_v and the gates
+// over its rows, in float32 FMAs (the 1e-4 tolerance of the partials is
+// beyond bf16 or TF32 operands), and forms its part_k from them once, at
+// the end.  A 192 x 192 product a row (2.4 M FMAs a tile of 64) becomes
+// one of 16 rows a block.
+
+constexpr int BP_C = 192;                        // the width they are for
+constexpr int BP_S = 16;                         // bank rows, at most
+constexpr int BP_ROWS = 64;                      // rows of a tile
+constexpr int BP_LDT = BP_C + 4;                 // t's leading dim (floats)
+static_assert(BP_C <= NTHREADS, "a thread a column");
+// scratch of bank_tile_partials, floats: t [64][BP_LDT], gate [64][BP_S],
+// the gate's kernel [C][BP_S]
+constexpr int BP_SCRATCH = BP_ROWS * (BP_LDT + BP_S) + BP_C * BP_S;
+
+// A thread's part of a block's sums: thread c < C holds part_v[m, c] for
+// every m < BP_S (zero past S), thread m < S the gates' sum of bank row m.
+struct BankSums {
+  float v[BP_S];
+  float gate;
+};
+
+__device__ __forceinline__ void bank_sums_zero(BankSums& acc) {
+#pragma unroll
+  for (int m = 0; m < BP_S; ++m) acc.v[m] = 0.f;
+  acc.gate = 0.f;
+}
+
+// The partials of the samples in a tile's first `rows` rows (a multiple
+// of 16; a short last tile's rows past its samples are left out), from
+// their bf16 branch outputs `out` (leading dim ld), added to acc.
+// scratch: BP_SCRATCH floats.  Block-wide; ends with a barrier.
+__device__ __forceinline__ void bank_tile_partials(const bf16* out, int ld,
+                                                   int rows,
+                                                   const BankWrite& bw, int S,
+                                                   float* scratch,
+                                                   BankSums& acc) {
+  constexpr int P = BP_C / 16;             // column pairs of a lane
+  float* t = scratch;
+  float* gate = t + BP_ROWS * BP_LDT;
+  float* wg = gate + BP_ROWS * BP_S;       // [C][BP_S], zero past S
+  for (int i = threadIdx.x; i < BP_C * BP_S; i += NTHREADS) {
+    const int k = i / BP_S, m = i - k * BP_S;
+    wg[i] = m < S ? bw.gate_w[k * S + m] : 0.f;
+  }
+  // t of every row, eight lanes a row (as ln_rows), two rows a thread
+  const int sub = threadIdx.x >> 3, c0 = 2 * (threadIdx.x & 7);
+#pragma unroll 1
+  for (int i = 0; i < BP_ROWS / (NTHREADS / 8); ++i) {
+    const int r = sub + i * (NTHREADS / 8);
+    float v[2 * P], s = 0.f, sq = 0.f;
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      const unsigned u =
+          *reinterpret_cast<const unsigned*>(out + r * ld + c0 + 16 * k);
+      v[2 * k] = bf16x2_lo(u);
+      v[2 * k + 1] = bf16x2_hi(u);
+      s += v[2 * k] + v[2 * k + 1];
+      sq += v[2 * k] * v[2 * k] + v[2 * k + 1] * v[2 * k + 1];
+    }
+#pragma unroll
+    for (int o = 4; o > 0; o >>= 1) {
+      s += __shfl_xor_sync(0xffffffffu, s, o);
+      sq += __shfl_xor_sync(0xffffffffu, sq, o);
+    }
+    const float mu = s / BP_C;
+    const float rstd = rsqrtf(fmaxf(sq / BP_C - mu * mu, 0.f) + LN_EPS);
+    float s2 = 0.f;
+#pragma unroll
+    for (int k = 0; k < 2 * P; ++k) {
+      const int col = c0 + 16 * (k >> 1) + (k & 1);
+      v[k] = rnd<bf16>((v[k] - mu) * rstd * bw.branch_s[col] +
+                       bw.branch_b[col]);
+      s2 += v[k];
+    }
+#pragma unroll
+    for (int o = 4; o > 0; o >>= 1)
+      s2 += __shfl_xor_sync(0xffffffffu, s2, o);
+    const float mu2 = s2 / BP_C;
+    float q = 0.f;
+#pragma unroll
+    for (int k = 0; k < 2 * P; ++k) q += (v[k] - mu2) * (v[k] - mu2);
+#pragma unroll
+    for (int o = 4; o > 0; o >>= 1) q += __shfl_xor_sync(0xffffffffu, q, o);
+    const float rstd2 = rsqrtf(q / BP_C + LN_EPS);
+#pragma unroll
+    for (int k = 0; k < 2 * P; ++k) {
+      const int col = c0 + 16 * (k >> 1) + (k & 1);
+      t[r * BP_LDT + col] =
+          (v[k] - mu2) * rstd2 * bw.norm_s[col] + bw.norm_b[col];
+    }
+  }
+  __syncthreads();
+  {  // the gate's logits t @ Wg + bg: thread (row, four of the 16 columns;
+     // zero past S)
+    const int r = threadIdx.x >> 2, m0 = 4 * (threadIdx.x & 3);
+    float a[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+    for (int k = 0; k < BP_C; ++k) {
+      const float tv = t[r * BP_LDT + k];
+      const float4 w = *reinterpret_cast<const float4*>(wg + k * BP_S + m0);
+      a[0] = fmaf(tv, w.x, a[0]);
+      a[1] = fmaf(tv, w.y, a[1]);
+      a[2] = fmaf(tv, w.z, a[2]);
+      a[3] = fmaf(tv, w.w, a[3]);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      gate[r * BP_S + m0 + j] = m0 + j < S ? a[j] + bw.gate_b[m0 + j] : 0.f;
+  }
+  __syncthreads();
+  if ((int)threadIdx.x < (BP_ROWS / NT) * BP_S) {  // (sample, bank row)
+    const int m = threadIdx.x % BP_S;
+    float* gp = gate + (threadIdx.x / BP_S) * NT * BP_S + m;
+    if (m < S) {
+      float mx = -INFINITY;
+      for (int n = 0; n < NT; ++n) mx = fmaxf(mx, gp[n * BP_S]);
+      float sum = 0.f;
+      for (int n = 0; n < NT; ++n) {
+        const float e = expf(gp[n * BP_S] - mx);
+        gp[n * BP_S] = e;
+        sum += e;
+      }
+      for (int n = 0; n < NT; ++n) gp[n * BP_S] = gp[n * BP_S] / sum;
+    }
+  }
+  __syncthreads();
+  if ((int)threadIdx.x < BP_C) {   // part_v of column c, every bank row
+    const int c = threadIdx.x;
+    for (int r = 0; r < rows; ++r) {
+      const float tv = t[r * BP_LDT + c];
+#pragma unroll
+      for (int m4 = 0; m4 < BP_S; m4 += 4) {
+        const float4 gw =
+            *reinterpret_cast<const float4*>(gate + r * BP_S + m4);
+        acc.v[m4] = fmaf(gw.x, tv, acc.v[m4]);
+        acc.v[m4 + 1] = fmaf(gw.y, tv, acc.v[m4 + 1]);
+        acc.v[m4 + 2] = fmaf(gw.z, tv, acc.v[m4 + 2]);
+        acc.v[m4 + 3] = fmaf(gw.w, tv, acc.v[m4 + 3]);
+      }
+    }
+  }
+  if ((int)threadIdx.x < S)
+    for (int r = 0; r < rows; ++r) acc.gate += gate[r * BP_S + threadIdx.x];
+  __syncthreads();
+}
+
+// This block's slice `part` [2, S, C] of the per-block partial sums, each
+// element stored once: part_v as summed, part_k = part_v @ Wc + (the
+// gates' sum) bc.  scratch: BP_C BP_S + BP_S floats.  Block-wide; ends
+// with a barrier.
+__device__ __forceinline__ void bank_store_partials(const BankSums& acc,
+                                                    const BankWrite& bw,
+                                                    int S, float* scratch,
+                                                    float* part) {
+  float* pv = scratch;                     // [C][BP_S]
+  float* gsum = scratch + BP_C * BP_S;
+  const int c = threadIdx.x;
+  if (c < BP_C)
+#pragma unroll
+    for (int m = 0; m < BP_S; ++m) {
+      pv[c * BP_S + m] = acc.v[m];
+      if (m < S) part[S * BP_C + m * BP_C + c] = acc.v[m];
+    }
+  if (c < S) gsum[c] = acc.gate;
+  __syncthreads();
+  if (c < BP_C) {
+    float a[BP_S];
+#pragma unroll
+    for (int m = 0; m < BP_S; ++m) a[m] = 0.f;
+    // 16 rows of Wc in flight a thread: its loads come from L2
+#pragma unroll 16
+    for (int k = 0; k < BP_C; ++k) {
+      const float w = bw.comp_w[k * BP_C + c];
+#pragma unroll
+      for (int m4 = 0; m4 < BP_S; m4 += 4) {
+        const float4 p = *reinterpret_cast<const float4*>(pv + k * BP_S + m4);
+        a[m4] = fmaf(p.x, w, a[m4]);
+        a[m4 + 1] = fmaf(p.y, w, a[m4 + 1]);
+        a[m4 + 2] = fmaf(p.z, w, a[m4 + 2]);
+        a[m4 + 3] = fmaf(p.w, w, a[m4 + 3]);
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < BP_S; ++m)
+      if (m < S) part[m * BP_C + c] = a[m] + gsum[m] * bw.comp_b[c];
+  }
+  __syncthreads();
 }
 
 // --- the backward kernels' pieces ------------------------------------------

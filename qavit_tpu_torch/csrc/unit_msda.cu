@@ -15,7 +15,9 @@
 // 6.3 MB read + 6.3 MB written (~3.8 us) and ~3.5 GFLOP (~3.5 us): either
 // limit allows a few microseconds.  The design is the SWA unit's: 256
 // threads hold one sample at a time, all intermediates in ~160 KB of
-// shared memory, float32 FMAs; it is latency-bound.
+// shared memory, float32 FMAs; it is latency-bound.  It runs float32, and
+// bf16 at widths the tensor-core kernel is not written for; bf16 at
+// hqavit_c100's widths runs msda_mma16_kernel (below), eval and training.
 //
 // n = 64 (hqavit_tiny_in / hqavit_proc_tin, eval), 64 queries, 40 pooled
 // rows.  Bound on the H100 at B=1024 (bf16): 51 MB of xn, out and the
@@ -53,8 +55,8 @@
 // (chip_smoke.py phase l, PERF.md section 6 row 2 @n64): 0.281-0.286 ms
 // per launch, 15x its bound, against 7.60-7.62 ms for the CUDA-core
 // tiled kernel in the same runs and 2.53-2.60 ms for the plain version.
-#include "mma_ops.cuh"
 #include "unit_msda.cuh"
+#include "window_mma.cuh"
 
 namespace qv {
 
@@ -189,12 +191,6 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 }
 
 // --- n = 64, bf16: the tensor-core kernel -----------------------------------
-
-struct MsdaMmaArgs {
-  MsdaArgs f;             // the unit's arguments (f.qkv_w, f.proj_w unread)
-  const bf16* qkv_w16;    // [C, 3C] qkv_w rounded to bf16
-  const bf16* proj_w16;   // [C, C]
-};
 
 // the geometry msda_mma_kernel is written for (fused_kernels.msda_mma_error)
 constexpr int MM_N = 64, MM_C = 192, MM_H = 4, MM_D = MM_C / MM_H;
@@ -439,6 +435,24 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     });
 }
 
+// --- n = 16, bf16: the tensor-core kernel ----------------------------------
+
+// hqavit_c100's MSDA at n = 16, eval and training (TRAIN): four samples
+// to a tile of 64 rows in SWA's layout (window_mma.cuh), each sample's
+// 10 pooled rows from row 16 s.  The n = 64 layout keeps one kc | vc
+// pair in 177 KB; four pairs, one a sample, would take ~77 KB more, past
+// the 227 KB a block may hold, while SWA's layout has room for them
+// (195 KB with the pooling lists): kv runs over 64 rows (the pooled rows
+// padded to 16 a sample) instead of 40, but every window's Linformer
+// product reads its own sample's rows alone, and the products keep the
+// n = 64 kernels' shapes.  (Passes of two samples would halve the work
+// between barriers, which is what bounds these kernels.)
+template <bool TRAIN>
+__global__ void __launch_bounds__(NTHREADS, 1)
+    msda_mma16_kernel(MsdaMmaArgs m) {
+  window_mma<WIN_MSDA, 4, TRAIN>(m);
+}
+
 }  // namespace qv
 
 extern "C" int qv_unit_msda_smem(const qv::Dims* d);
@@ -466,23 +480,40 @@ extern "C" int qv_unit_msda_smem(const qv::Dims* d) {
          (int)sizeof(float);
 }
 
-// The n = 64 bf16 eval kernel: `a` as for qv_unit_msda, the qkv and proj
-// kernels rounded to bf16 beside it.  ERR_ARGS for any other geometry or
-// type (the wrapper checks them first, msda_mma_error).
+// The bf16 tensor-core kernels: `a` as for qv_unit_msda, the qkv and proj
+// kernels rounded to bf16 beside it; one block per tile of 64 rows at
+// most.  n = 64 in eval (msda_mma_kernel), or n = 16 in eval and training
+// (msda_mma16_kernel; then the reduction pass of the bank partials
+// follows); ERR_ARGS for any other geometry or type (the wrapper checks
+// them first, msda_mma_error).
 extern "C" int qv_unit_msda_mma(const qv::MsdaArgs* a, const void* qkv_w16,
                                 const void* proj_w16, int is_bf16,
                                 void* stream) {
   const qv::Dims& d = a->d;
-  if (!is_bf16 || d.train || d.n != qv::MM_N || d.c != qv::MM_C ||
-      d.heads != qv::MM_H || d.lin_k != qv::MM_LK || d.bank_s > qv::MM_S ||
-      d.msda_keep > qv::MM_KEEP || d.grid > d.B)
+  const bool n64 = d.n == qv::MM_N && !d.train &&
+                   d.msda_keep <= qv::MM_KEEP;
+  const bool n16 = d.n == qv::NT && d.nw == 1 && d.msda_keep <= qv::NT;
+  const int tiles = (d.B * d.n + qv::SM_N - 1) / qv::SM_N;
+  if (!is_bf16 || !(n64 || n16) || d.c != qv::MM_C || d.heads != qv::MM_H ||
+      d.lin_k != qv::MM_LK || d.bank_s > qv::MM_S || d.grid > tiles)
     return qv::ERR_ARGS;
   const qv::MsdaMmaArgs m{*a, static_cast<const qv::bf16*>(qkv_w16),
                           static_cast<const qv::bf16*>(proj_w16)};
-  return qv_launch(qv::msda_mma_kernel, m, qv::MM_SMEM_BYTES, stream,
-                   d.grid);
+  if (n64)
+    return qv_launch(qv::msda_mma_kernel, m, qv::MM_SMEM_BYTES, stream,
+                     d.grid);
+  const int rc = d.train ? qv_launch(qv::msda_mma16_kernel<true>, m,
+                                     qv::SM_MSDA_BYTES, stream, d.grid)
+                         : qv_launch(qv::msda_mma16_kernel<false>, m,
+                                     qv::SM_MSDA_BYTES, stream, d.grid);
+  if (rc != 0 || !d.train) return rc;
+  return qv_reduce(a->bw.part, a->bw.part_out, d.grid, 2 * d.bank_s * d.c,
+                   d.rgrid, stream);
 }
 
-extern "C" int qv_unit_msda_mma_smem(const qv::Dims*) {
-  return qv::MM_SMEM_BYTES;
+// the shared memory of the launch with dims d (without d: of the n = 64
+// kernel)
+extern "C" int qv_unit_msda_mma_smem(const qv::Dims* d) {
+  return d != nullptr && d->n == qv::NT ? qv::SM_MSDA_BYTES
+                                        : qv::MM_SMEM_BYTES;
 }

@@ -24,10 +24,12 @@ bf16 (eval) the SWA, MSDA and cross/tail units run on the tensor cores
 (``swa_mma_kernel``, ``msda_mma_kernel``, ``cross_tail_mma_kernel``), for
 the widths :func:`swa_mma_error`, :func:`msda_mma_error` and
 :func:`cross_tail_mma_error` name; other widths raise.  At n=16 in bf16
-at hqavit_c100's widths the cross/tail forward runs on the tensor cores
-in eval and in training (``cross_tail_mma_kernel``, four samples to a
-tile; :func:`cross_tail_route`), and so do the SWA, MSDA and cross/tail
-backward kernels (``swa_bwd_mma_kernel``, ``msda_bwd_mma_kernel``,
+at hqavit_c100's widths the SWA, MSDA and cross/tail forwards run on the
+tensor cores in eval and in training (``swa_mma_kernel``,
+``msda_mma16_kernel``, ``cross_tail_mma_kernel``, four samples to a
+tile; :func:`swa_route`, :func:`msda_route`, :func:`cross_tail_route`),
+and so do the SWA, MSDA and cross/tail backward kernels
+(``swa_bwd_mma_kernel``, ``msda_bwd_mma_kernel``,
 ``cross_tail_bwd_mma_kernel``; :func:`swa_bwd_mma_error`,
 :func:`msda_bwd_mma_error`, :func:`cross_tail_bwd_mma_error`); float32,
 and bf16 at other n=16 widths, take the CUDA-core kernels (the route is
@@ -363,8 +365,8 @@ _ENTRY = {"unit_swa": SwaArgs, "unit_msda": MsdaArgs, "unit_cga": CgaArgs,
           "unit_cross_tail": CrossTailArgs, "unit_swa_bwd": SwaBwdArgs,
           "unit_msda_bwd": MsdaBwdArgs, "unit_cga_bwd": CgaBwdArgs,
           "unit_cross_tail_bwd": CrossTailBwdArgs}
-# units with a bf16 forward kernel on the tensor cores (n=64 eval; for
-# cross/tail also n=16, eval and training), entry
+# units with a bf16 forward kernel on the tensor cores (n=64 eval, n=16
+# eval and training), entry
 # qv_{unit}_mma(args, bf16 weight, bf16 weight, is_bf16, stream)
 _MMA_ENTRY = ("unit_swa", "unit_msda", "unit_cross_tail")
 # backward kernels with an n=16 bf16 tensor-core kernel, entry
@@ -459,34 +461,41 @@ def kernel_geometry_error(g: FusedGeom, train: bool = False
 
 
 def msda_mma_error(g: FusedGeom) -> Optional[str]:
-    """Why the n=64 bf16 MSDA kernel (``msda_mma_kernel``, written for
-    hqavit_tiny_in's widths) cannot run geometry ``g`` (None if it can)."""
+    """Why the bf16 MSDA kernels (``msda_mma_kernel`` at n=64, written for
+    hqavit_tiny_in's widths; ``msda_mma16_kernel`` at n=16, for
+    hqavit_c100's, four samples of 16 pooled rows at most to a tile)
+    cannot run geometry ``g`` (None if they can)."""
     checks = (
-        ((g.n, g.c, g.heads, g.lin_k) == (64, 192, 4, 32),
-         "n=64, C=192, 4 heads of 48 and linformer_k=32"),
+        ((g.n, g.nw) in ((64, 4), (16, 1)),
+         "n=64 in four SWA windows or n=16 in one"),
+        ((g.c, g.heads, g.lin_k) == (192, 4, 32),
+         "C=192, 4 heads of 48 and linformer_k=32"),
         (g.bank_s <= 16, "at most 16 bank rows"),
-        (g.msda_keep <= 48, "at most 48 pooled rows"),
+        (g.msda_keep <= (48 if g.n == 64 else 16),
+         "at most 48 pooled rows at n=64 and 16 at n=16"),
         (g.pool_stride <= 8, "a landmark pooling stride of at most 8"),
     )
     for ok, need in checks:
         if not ok:
-            return f"the n=64 bf16 MSDA kernel needs {need}; got {g}"
+            return f"the bf16 MSDA kernel needs {need}; got {g}"
     return None
 
 
 def swa_mma_error(g: FusedGeom) -> Optional[str]:
-    """Why the n=64 bf16 SWA kernel (``swa_mma_kernel``, written for
-    hqavit_tiny_in's widths) cannot run geometry ``g`` (None if it can)."""
+    """Why the bf16 SWA kernel (``swa_mma_kernel``, written for
+    hqavit_tiny_in's and hqavit_c100's widths) cannot run geometry ``g``
+    (None if it can): n=64 in eval, n=16 in eval and in training
+    (:func:`kernel_geometry_error` refuses n=64 in training)."""
     checks = (
-        ((g.n, g.nw, g.ws2) == (64, 4, 16),
-         "n=64 on an 8x8 grid in four 4x4 windows"),
+        ((g.n, g.nw, g.ws2) in ((64, 4, 16), (16, 1, 16)),
+         "n=64 on an 8x8 grid in four 4x4 windows, or n=16 in one"),
         ((g.c, g.heads, g.lin_k) == (192, 4, 32),
          "C=192, 4 heads of 48 and linformer_k=32"),
         (g.bank_s <= 16, "at most 16 bank rows"),
     )
     for ok, need in checks:
         if not ok:
-            return f"the n=64 bf16 SWA kernel needs {need}; got {g}"
+            return f"the bf16 SWA kernel needs {need}; got {g}"
     return None
 
 
@@ -763,10 +772,11 @@ def launch_swa(lib, p: Params, x, bank_k, bank_v, g: FusedGeom, dtype,
     a.e_v = lc.w(ps["linformer"]["E_v"], g.ws2, g.lin_k)
     a.bank_k, a.bank_v = _bank(lc, bank_k, bank_v)
     a.proj_w, a.proj_b = lc.dense(ps["proj"], c, c)
-    if train is None and g.n != 16 and dtype == torch.bfloat16:
-        _run_mma(lc, a, p, stream, swa_mma_error, ps["qkv"]["kernel"],
-                 ps["proj"]["kernel"])
-        return out, xn
+    if swa_route(g, dtype) == "unit_swa_mma":
+        ws, part = _run_mma(lc, a, p, stream, swa_mma_error,
+                            ps["qkv"]["kernel"], ps["proj"]["kernel"],
+                            train=train, grid=grid, branch="swa")
+        return (out, xn) if train is None else (out, xn, part, ws)
     if train is None:     # eval: one block per (sample, window)
         lc.run(a, _dims(g, lc.b, p, lc.b * g.nw, 1, None), stream)
         return out, xn
@@ -792,10 +802,11 @@ def launch_msda(lib, p: Params, xn, bank_k, bank_v, g: FusedGeom, dtype,
     a.e_v = lc.w(pm["linformer"]["E_v"], pad, g.lin_k)
     a.bank_k, a.bank_v = _bank(lc, bank_k, bank_v)
     a.proj_w, a.proj_b = lc.dense(pm["proj"], c, c)
-    if train is None and g.n != 16 and dtype == torch.bfloat16:
-        _run_mma(lc, a, p, stream, msda_mma_error, pm["qkv_kernel"],
-                 pm["proj"]["kernel"])
-        return out
+    if msda_route(g, dtype) == "unit_msda_mma":
+        ws, part = _run_mma(lc, a, p, stream, msda_mma_error,
+                            pm["qkv_kernel"], pm["proj"]["kernel"],
+                            train=train, grid=grid, branch="msda")
+        return out if train is None else (out, part, ws)
     if train is None:
         lc.run(a, _fwd_dims(lc, p, None, None), stream)
         return out
@@ -805,26 +816,39 @@ def launch_msda(lib, p: Params, xn, bank_k, bank_v, g: FusedGeom, dtype,
 
 
 def _run_mma(lc: _Launch, a, p: Params, stream, error,
-             *weights: torch.Tensor,
-             rng: Optional[R.BlockRng] = None) -> torch.Tensor:
+             *weights: torch.Tensor, train: Optional[UnitTrain] = None,
+             grid: Optional[Grid] = None, branch: Optional[str] = None
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The unit's bf16 launch on the tensor cores (C entry
-    ``qv_{unit}_mma``; in training, with ``rng``, only cross/tail's at
-    n=16), or ValueError with the reason ``error(g)`` gives for widths its
-    kernel does not take: ``weights`` cast to bf16 once per call, which is
-    the kernel's own rounding of them (cp.async copies them as they are);
-    one block per SM walks the tiles of 64 token rows (on the host, one
-    block walks them all).  Returns the guard workspace."""
+    ``qv_{unit}_mma``), or ValueError with the reason ``error(g)`` gives
+    for widths its kernel does not take: ``weights`` cast to bf16 once per
+    call, which is the kernel's own rounding of them (cp.async copies them
+    as they are).  One block per SM walks the tiles of 64 token rows (on
+    the host, one block walks them all); in training (``train``, n=16) at
+    most ``grid.blocks``, and a unit that writes the bank (``branch``)
+    gets the partial workspace of those blocks.  Returns the guard
+    workspace and, in training with ``branch``, the bank partials' sum."""
     err = error(lc.g)
     if err is not None:
         raise ValueError(f"{lc.name}: {err}")
     w16 = [w.to(torch.bfloat16).contiguous() for w in weights]
     lc.held += w16
     tiles = -(-lc.b * lc.g.n // 64)
-    blocks = (min(tiles, _sm_count(lc.device)) if lc.device.type == "cuda"
-              else 1)
-    return lc.run(a, _dims(lc.g, lc.b, p, blocks, 1, rng), stream,
-                  entry=f"{lc.name}_mma",
-                  extra=tuple(w.data_ptr() for w in w16))
+    if train is not None:
+        blocks = min(tiles, grid.blocks)
+    else:
+        blocks = (min(tiles, _sm_count(lc.device))
+                  if lc.device.type == "cuda" else 1)
+    part = None
+    if train is not None and branch is not None:
+        part = _bank_write(lc, a, p, branch, train,
+                           Grid(blocks, grid.reduce))
+    ws = lc.run(a, _dims(lc.g, lc.b, p, blocks,
+                         1 if grid is None else grid.reduce,
+                         None if train is None else train.rng), stream,
+                entry=f"{lc.name}_mma",
+                extra=tuple(w.data_ptr() for w in w16))
+    return ws, part
 
 
 def launch_cga(lib, p: Params, xn, bank_k, bank_v, g: FusedGeom, dtype,
@@ -893,24 +917,34 @@ def launch_cross_tail(lib, p: Params, x, xn, out_swa, out_msda, out_cga,
     a.bank_k, a.bank_v = _bank(lc, bank_k, bank_v)
     _cross_tail_args(lc, p, a)
     if cross_tail_route(g, dtype) == "unit_cross_tail_mma":
-        ws = _run_mma(lc, a, p, stream, cross_tail_mma_error,
-                      *_cross_tail_packed(p),
-                      rng=None if train is None else train.rng)
+        ws, _ = _run_mma(lc, a, p, stream, cross_tail_mma_error,
+                         *_cross_tail_packed(p), train=train, grid=grid)
     else:
         ws = lc.run(a, _fwd_dims(lc, p, train, grid), stream)
     return y if train is None else (y, ws)
 
 
-def cross_tail_route(g: FusedGeom, dtype) -> str:
-    """The C entry (``qv_{entry}``) a cross/tail forward launch takes, by
+def _mma_route(unit: str, error, g: FusedGeom, dtype) -> str:
+    """The C entry (``qv_{entry}``) a forward launch of ``unit`` takes, by
     dtype and widths before the launch: bf16 on the tensor cores at n=64
-    (where other widths raise, with cross_tail_mma_error's reason) and at
-    n=16 where cross_tail_mma_error admits the widths; float32, and bf16
-    at other n=16 widths, on the CUDA cores."""
-    if dtype == torch.bfloat16 and (g.n != 16
-                                    or cross_tail_mma_error(g) is None):
-        return "unit_cross_tail_mma"
-    return "unit_cross_tail"
+    (where other widths raise, with ``error``'s reason) and at n=16 where
+    ``error`` admits the widths, in eval and in training; float32, and
+    bf16 at other n=16 widths, on the CUDA cores."""
+    if dtype == torch.bfloat16 and (g.n != 16 or error(g) is None):
+        return f"{unit}_mma"
+    return unit
+
+
+def swa_route(g: FusedGeom, dtype) -> str:
+    return _mma_route("unit_swa", swa_mma_error, g, dtype)
+
+
+def msda_route(g: FusedGeom, dtype) -> str:
+    return _mma_route("unit_msda", msda_mma_error, g, dtype)
+
+
+def cross_tail_route(g: FusedGeom, dtype) -> str:
+    return _mma_route("unit_cross_tail", cross_tail_mma_error, g, dtype)
 
 
 def _cross_tail_packed(p: Params) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -11,8 +11,8 @@ hqavit_proc_tin forward that launches each forward unit 12 times, both
 matching the plain path's logits, each
 unit's train-mode forward and backward kernel against the plain version
 and autograd (fused_kernels.GRAD_TOLERANCE; the bf16 SWA, MSDA and
-cross/tail backwards and the bf16 cross/tail forward through their
-tensor-core entries), and one full-width train
+cross/tail forwards and backwards through their tensor-core entries), and
+one full-width train
 step that launches every forward and backward kernel 8 times; the
 flash-attention kernel against its plain version at the 224 shapes and
 where Nkv and D are not multiples of 16, and a full-depth
@@ -144,15 +144,14 @@ def test_backward_kernels_match_autograd_on_the_card(cuda, unit, dtype):
     r = UC.check_unit(lib, unit, p, train, batch, g, dtype, grid, cots,
                       torch.cuda.current_stream().cuda_stream)
     assert r.ok, r
-    # the route: bf16 SWA, MSDA and cross/tail backwards on the tensor
-    # cores, and the bf16 cross/tail forward
+    # the route: bf16 SWA, MSDA and cross/tail forwards and backwards on
+    # the tensor cores
     entry = K.bwd_entry(unit, g, dtype)
-    assert entry.endswith("_mma") == (dtype == torch.bfloat16 and unit in (
-        "unit_swa", "unit_msda", "unit_cross_tail"))
+    mma = dtype == torch.bfloat16 and unit in ("unit_swa", "unit_msda",
+                                               "unit_cross_tail")
+    assert entry.endswith("_mma") == mma
     assert K.ROUTES[entry] == 1
-    if unit == "unit_cross_tail":
-        fwd = "unit_cross_tail_mma" if dtype == torch.bfloat16 else unit
-        assert K.ROUTES[fwd] == 1
+    assert K.ROUTES[unit + ("_mma" if mma else "")] == 1
 
 
 def test_train_step_launches_each_kernel_per_block(cuda):

@@ -7,9 +7,10 @@ tiny width, the hqavit_c100 width (16 tokens, one SWA window) and the
 hqavit_tiny_in geometry (64 tokens, four SWA windows, full width), the
 flash-attention kernel at the 224 path's shapes, in float32 and bf16.
 The bf16 flash kernel, the n=64 bf16 SWA, MSDA and cross/tail kernels and
-the n=16 bf16 cross/tail kernel at the hqavit_c100 width (four samples
-to a tile of 64 rows; at B=2 a short tile) run on the tensor cores, which
-the route counts (fused_kernels.ROUTES) confirm: the emulation rebuilds
+the n=16 bf16 SWA, MSDA and cross/tail kernels at the hqavit_c100 width
+(four samples to a tile of 64 rows; at B=2 a short tile, at B=6 a full
+tile and a short one) run on the tensor cores, which the route counts
+(fused_kernels.ROUTES) confirm: the emulation rebuilds
 mma.sync's and ldmatrix's
 fragments from the PTX ISA's layouts, so their fragment indexing is
 checked here too, after a self-test of the primitives (ldmatrix -> mma
@@ -83,6 +84,13 @@ def case(request):
     return g, param_tree(blk), bank, x
 
 
+def _mma_entry(unit, g, dtype) -> str:
+    """The C entry an SWA or MSDA launch must take: the tensor-core kernel
+    in bf16 at C=192 (n=16 and n=64), else the CUDA-core kernel."""
+    mma = dtype == torch.bfloat16 and g.c == 192
+    return f"unit_{unit}_mma" if mma else f"unit_{unit}"
+
+
 def _check(out, ref):
     assert out.dtype == ref.dtype and out.shape == ref.shape
     assert K.within_tolerance(out, ref), (K.max_abs_err(out, ref),
@@ -94,10 +102,12 @@ def test_swa_kernel(emu_lib, case, dtype):
     g, p, (bk, bv), x = case
     x = x.to(dtype)
     with torch.no_grad():
+        K.reset_launches()
         out, xn = K.launch_swa(emu_lib, p, x, bk, bv, g, dtype)
         ref_out, ref_xn = K.swa_plain(p, x, bk, bv, g, dtype)
     _check(out, ref_out)
     _check(xn, ref_xn)
+    assert K.ROUTES[_mma_entry("swa", g, dtype)] == 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -108,8 +118,11 @@ def test_branch_kernel(emu_lib, case, dtype, unit):
     plain = {"msda": K.msda_plain, "cga": K.cga_plain}[unit]
     with torch.no_grad():
         xn = K.swa_plain(p, x.to(dtype), bk, bv, g, dtype)[1]
+        K.reset_launches()
         _check(launch(emu_lib, p, xn, bk, bv, g, dtype),
                plain(p, xn, bk, bv, g, dtype))
+    entry = _mma_entry(unit, g, dtype) if unit == "msda" else "unit_cga"
+    assert K.ROUTES[entry] == 1
 
 
 def _cross_tail_entry(g, dtype) -> str:
@@ -276,21 +289,30 @@ def test_msda_kernel_short_bank(emu_lib):
                K.msda_plain(p, xn, bk, bv, g, torch.bfloat16))
 
 
-@pytest.mark.parametrize("unit", ["swa", "cross_tail", "cross_tail_n16"])
+@pytest.mark.parametrize("unit", ["swa", "cross_tail", "cross_tail_n16",
+                                  "swa_n16", "msda_n16"])
 def test_mma_kernel_short_bank(emu_lib, unit):
-    """The n=64 bf16 SWA and cross/tail kernels, and the cross/tail kernel
-    at n=16 (hqavit_c100's width), with 12 bank rows: 44 keys a head in
-    each SWA window, 12 in the cross attention, the padded keys masked
-    (the projected bank rows past 12 are finite bias rows)."""
+    """The n=64 bf16 SWA and cross/tail kernels, and the SWA, MSDA and
+    cross/tail kernels at n=16 (hqavit_c100's width), with 12 bank rows:
+    44 keys a head in each SWA window and MSDA sample, 12 in the cross
+    attention, the padded keys masked (the projected bank rows past 12 are
+    finite bias rows)."""
     g, p, bk, bv, x = _short_bank_case(
-        "flagship_width" if unit == "cross_tail_n16" else "multiwindow")
+        "flagship_width" if unit.endswith("n16") else "multiwindow")
     dtype = torch.bfloat16
     with torch.no_grad():
+        K.reset_launches()
         ref_out, ref_xn = K.swa_plain(p, x, bk, bv, g, dtype)
-        if unit == "swa":
+        if unit.startswith("swa"):
             out, xn = K.launch_swa(emu_lib, p, x, bk, bv, g, dtype)
             _check(out, ref_out)
             _check(xn, ref_xn)
+            assert K.ROUTES["unit_swa_mma"] == 1
+            return
+        if unit == "msda_n16":
+            _check(K.launch_msda(emu_lib, p, ref_xn, bk, bv, g, dtype),
+                   K.msda_plain(p, ref_xn, bk, bv, g, dtype))
+            assert K.ROUTES["unit_msda_mma"] == 1
             return
         m = K.msda_plain(p, ref_xn, bk, bv, g, dtype)
         c = K.cga_plain(p, ref_xn, bk, bv, g, dtype)
@@ -301,7 +323,8 @@ def test_mma_kernel_short_bank(emu_lib, unit):
     assert K.ROUTES["unit_cross_tail_mma"] == 1
 
 
-@pytest.mark.parametrize("unit", ["swa", "cross_tail", "cross_tail_n16"])
+@pytest.mark.parametrize("unit", ["swa", "cross_tail", "cross_tail_n16",
+                                  "swa_n16", "msda_n16"])
 def test_mma_geometry_errors(emu_lib, unit):
     """The n=64 bf16 SWA and cross/tail kernels take hqavit_tiny_in's
     geometry; at C=48 (which the float32 n=64 kernels take) the error
@@ -311,7 +334,36 @@ def test_mma_geometry_errors(emu_lib, unit):
     width before the launch (bf16 at C=192 on the tensor cores; float32,
     and bf16 at C=48, on the CUDA cores), and its C entry returns ERR_ARGS
     (1) for C=48 and for n=64 in training, before it touches an
-    argument."""
+    argument.  So do the SWA and MSDA kernels at n=16 (their C entries
+    also refuse MSDA's 17 pooled rows a sample and n=64 in training)."""
+    if unit in ("swa_n16", "msda_n16"):
+        name = unit[:-4]
+        error, route = {"swa": (K.swa_mma_error, K.swa_route),
+                        "msda": (K.msda_mma_error, K.msda_route)}[name]
+        flagship, tiny = make_geom(_cfg("flagship_width")), make_geom(
+            _cfg("tiny"))
+        assert error(flagship) is None
+        reason = error(tiny)
+        assert reason is not None and "C=192" in reason
+        for g, dtype, mma in ((flagship, torch.bfloat16, True),
+                              (flagship, torch.float32, False),
+                              (tiny, torch.bfloat16, False)):
+            assert route(g, dtype) == f"unit_{name}" + ("_mma" if mma
+                                                        else "")
+        wide = make_geom(_cfg("multiwindow"))
+        bad = [(tiny, None), (tiny, K.R.block_rng(1, 0.1, 0.1)),
+               (wide, K.R.block_rng(1, 0.1, 0.1))]
+        if name == "msda":
+            bad.append((flagship._replace(msda_keep=17), None))
+            assert error(bad[-1][0]) is not None
+        p = param_tree(init_weights(QuadBlockParams(_cfg("tiny"), tiny),
+                                    torch.Generator().manual_seed(2)))
+        entry = getattr(emu_lib, f"qv_unit_{name}_mma")
+        for g, rng in bad:
+            args = K._ENTRY[f"unit_{name}"]()
+            args.d = K._dims(g, B, p, 1, 1, rng)
+            assert entry(ctypes.byref(args), None, None, 1, None) == 1
+        return
     if unit == "cross_tail_n16":
         flagship, tiny = make_geom(_cfg("flagship_width")), make_geom(
             _cfg("tiny"))
@@ -352,3 +404,30 @@ def test_mma_geometry_errors(emu_lib, unit):
         else:
             K.launch_cross_tail(None, p, x, x, x, x, x, bk, bv, g,
                                 torch.bfloat16)
+
+
+@pytest.mark.parametrize("unit", ["swa", "msda"])
+def test_n16_mma_kernels_two_tiles(emu_lib, unit):
+    """The n=16 bf16 SWA and MSDA tensor-core kernels at hqavit_c100's
+    width over 6 samples: a full tile of four and a short one of two,
+    each sample's rows loaded and stored alone."""
+    cfg = _cfg("flagship_width")
+    g = make_geom(cfg)
+    gen = torch.Generator().manual_seed(9)
+    p = param_tree(init_weights(QuadBlockParams(cfg, g), gen))
+    bk, bv = (torch.randn(1, g.bank_s, g.c, generator=gen) * 0.5
+              for _ in range(2))
+    dtype = torch.bfloat16
+    x = (torch.randn(6, g.n, g.c, generator=gen) * 2).to(dtype)
+    with torch.no_grad():
+        ref_out, ref_xn = K.swa_plain(p, x, bk, bv, g, dtype)
+        K.reset_launches()
+        if unit == "swa":
+            out, xn = K.launch_swa(emu_lib, p, x, bk, bv, g, dtype)
+            _check(xn, ref_xn)
+            ref = ref_out
+        else:
+            out = K.launch_msda(emu_lib, p, ref_xn, bk, bv, g, dtype)
+            ref = K.msda_plain(p, ref_xn, bk, bv, g, dtype)
+    _check(out, ref)
+    assert K.ROUTES[f"unit_{unit}_mma"] == 1

@@ -6,16 +6,18 @@ forward outputs and bank-write partials are held against its plain
 version, and its backward kernel's gradients against autograd through
 the plain version, with the same hash masks (dropout 0.1, drop-path 0.1)
 and cotangents, at the tiny width and the hqavit_c100 width, in float32
-and bf16, with 3 samples over 2 blocks (so the per-block partial sums and
-their reduction are exercised, and the bf16 tensor-core backward kernels
-of the SWA, MSDA and cross/tail units, which take two samples a pass at
-the hqavit_c100 width, run a pass with one sample; the bf16 cross/tail
-forward there runs on the tensor cores too, its 48 rows a short tile of
-64).  Those three also run in bf16 at that width with the NaN guard
-tripped and with 12 bank rows (the SWA backward with its gradient
-workspace left as allocated, since it stores every field), their route
-(fused_kernels.bwd_entry) is checked, and their C entries return
-ERR_ARGS for a geometry they do not take.
+and bf16, over 2 blocks: 3 samples at the tiny width, 6 at hqavit_c100's,
+so that the per-block partial sums and their reduction are exercised
+there too, where the bf16 SWA, MSDA and cross/tail forwards run on the
+tensor cores over tiles of four samples (two tiles, the second short, a
+block each), and the bf16 tensor-core backward kernels of those units,
+which take two samples a pass, run a pass with one sample.  Those three
+also run in bf16 at that width with the NaN guard tripped and with 12
+bank rows (the SWA backward with its gradient workspace left as
+allocated, since it stores every field), their routes (fused_kernels.
+bwd_entry, swa_route, msda_route, cross_tail_route) are checked, their
+backward C entries return ERR_ARGS for a geometry they do not take, and
+the SWA and MSDA tensor-core forwards replay the plain version's masks.
 Tolerances: fused_kernels.TOLERANCE
 (outputs), unit_checks.PARTIAL_TOLERANCE (partials) and
 fused_kernels.GRAD_TOLERANCE (gradients), each stated with its reason
@@ -42,6 +44,15 @@ from qavit_tpu_torch.nn.layers import init_weights, param_tree
 
 EMU = Path(__file__).resolve().parent / "cuda_emulation"
 B = 3
+# samples at each width: at hqavit_c100's, two tiles of the n=16
+# tensor-core forwards (4 + 2 samples), so they run on both blocks.  With
+# 3 samples (one tile, one block) their bank partials also read 1.1-1.4e-4
+# of max|plain| against PARTIAL_TOLERANCE: the kernels' bf16 outputs
+# differ from the plain version's in some 0.3% of elements by one ulp, the
+# tensor cores' summation order against the CPU's (with the emulated mma
+# summing in the CPU's order they are bit-identical), and one such
+# element moves a partial by ~5e-4 while max|partial| grows with the batch
+SAMPLES = {"tiny": B, "flagship_width": 2 * B}
 GRID = K.Grid(2, 2)
 UNITS = list(K.UNITS)
 
@@ -86,7 +97,7 @@ def _case(width):
     bankp = {k: v.detach() for k, v in bank.write_params().items()}
     rows = [torch.randn(1, g.bank_s, g.c, generator=gen) * 0.5
             for _ in range(2)]
-    x = torch.randn(B, g.n, g.c, generator=gen) * 2
+    x = torch.randn(SAMPLES[width], g.n, g.c, generator=gen) * 2
     return g, param_tree(blk), bankp, rows, x
 
 
@@ -168,12 +179,11 @@ def flagship_case():
 
 def _check_mma(emu_lib, case, unit, **kw):
     """_check in bf16 at hqavit_c100's width, which must take the unit's
-    tensor-core backward entry (and cross/tail's tensor-core forward)."""
+    tensor-core forward and backward entries."""
     K.reset_launches()
     r = _check(emu_lib, case, unit, torch.bfloat16, **kw)
     assert K.ROUTES[f"{unit}_bwd_mma"] == 1 and K.ROUTES[f"{unit}_bwd"] == 0
-    if unit == "unit_cross_tail":
-        assert K.ROUTES[f"{unit}_mma"] == 1 and K.ROUTES[unit] == 0
+    assert K.ROUTES[f"{unit}_mma"] == 1 and K.ROUTES[unit] == 0
     return r
 
 
@@ -221,3 +231,30 @@ def test_mma_backward_route(emu_lib, unit):
         args.f.d = K._dims(g, B, p, GRID.blocks, GRID.reduce,
                            R.block_rng(1, 0.1, 0.1))
         assert entry(ctypes.byref(args), None, is_bf16, None) == 1
+
+
+@pytest.mark.parametrize("unit", ["unit_swa", "unit_msda"])
+def test_mma_forward_masks_are_the_plain_masks(emu_lib, flagship_case,
+                                               unit):
+    """The n=16 tensor-core forwards in training at dropout 0.5: outputs
+    and bank partials equal to the plain version fed fused_ref's hash
+    masks within the stated tolerances, and the outputs away from the
+    unmasked forward's: each element's mask is its own sample's, at its
+    flat index in the JAX layout."""
+    g, p, bankp, rows, x = flagship_case
+    g = g._replace(dropout=0.5)
+    dtype = torch.bfloat16
+    train = K.UnitTrain(R.block_rng(99, 0.5, 0.1), bankp)
+    batch = C.unit_inputs(p, g, dtype, x.to(dtype), rows)[unit]
+    n = K._N_DIFF_OUT[unit]
+    K.reset_launches()
+    *outs, ws = K._FWD[unit](emu_lib, p, *batch, g, dtype, None, train, GRID)
+    assert K.ROUTES[f"{unit}_mma"] == 1 and int(ws[1]) == 0
+    ref = K.PLAIN[unit](p, *batch, g, dtype, train)
+    out_err, part_err = C.forward_errors(list(outs[:n]) + list(outs[n]),
+                                         ref, n)
+    assert out_err <= K.TOLERANCE[dtype] and part_err <= C.PARTIAL_TOLERANCE
+    eval_out = K.PLAIN[unit](p, *batch, g, dtype)
+    eval_out = eval_out[0] if isinstance(eval_out, tuple) else eval_out
+    assert ((outs[0].float() - eval_out.float()).abs().max()
+            > 0.1 * eval_out.float().abs().max())
