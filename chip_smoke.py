@@ -417,7 +417,7 @@ def backward_checks(K, cfg, g, p, dev):
 
 
 # bf16 tensor-core backwards
-MMA_BWD = ("unit_swa", "unit_msda", "unit_cross_tail")
+MMA_BWD = ("unit_swa", "unit_msda", "unit_cga", "unit_cross_tail")
 
 
 def mma_backward_checks(K, g, p, dev, lib, stream, grid, train, rows, gen):
@@ -496,8 +496,7 @@ def train_path(K, cfg):
                                  f"expected {want}")
     routes = dict(K.ROUTES)
     print(f"train path: launches per C entry {routes}", flush=True)
-    # the bf16 step's SWA, MSDA and cross/tail forwards and backwards on
-    # the tensor cores
+    # the bf16 step's forwards and backwards on the tensor cores
     for entry in [f"{u}_bwd" for u in MMA_BWD] + list(MMA_BWD):
         if (routes[f"{entry}_mma"], routes[entry]) != (cfg.depth * steps, 0):
             raise AssertionError(
@@ -781,6 +780,7 @@ def csrc_kernel(K, unit, g, dtype, backward=False):
         mma = K.bwd_entry(unit, g, dtype).endswith("_mma")
         return f"{unit[5:]}_bwd{'_mma' if mma else ''}_kernel"
     route = {"unit_swa": K.swa_route, "unit_msda": K.msda_route,
+             "unit_cga": K.cga_route,
              "unit_cross_tail": K.cross_tail_route}.get(unit)
     if route is None or not route(g, dtype).endswith("_mma"):
         return f"{unit[5:]}_kernel"
@@ -796,14 +796,15 @@ def record_name(K, unit, g, dtype, backward=False):
 
 
 def mma16_checks(K, g, p, bank, dev, gen, batch):
-    """Phases (c), (e): the bf16 SWA, MSDA and cross/tail units at n=16
-    against their plain versions (2^-6 of max|plain|) at ``batch`` as they
-    are; with a NaN in one sample's input (the guard: SWA's x and MSDA's
-    xn make every sample's output proj(0), SWA's xn keeping the NaN row;
-    cross/tail's xn, read by the cross branch's q only, makes every
-    sample's cross attention zero, the block output finite); with 12 bank
-    rows; and at ``batch - 1`` samples (a short last tile of three).  Each
-    launch must take the tensor-core entry.  Raises on a failure."""
+    """Phases (c), (e): the bf16 SWA, MSDA, CGA and cross/tail units at
+    n=16 against their plain versions (2^-6 of max|plain|) at ``batch`` as
+    they are; with a NaN in one sample's input (the guard: SWA's x and
+    MSDA's and CGA's xn make every sample's output proj(0), SWA's xn
+    keeping the NaN row; cross/tail's xn, read by the cross branch's q
+    only, makes every sample's cross attention zero, the block output
+    finite); with 12 bank rows; and at ``batch - 1`` samples (a short last
+    tile of three).  Each launch must take the tensor-core entry.  Raises
+    on a failure."""
     import torch
 
     dtype = torch.bfloat16
@@ -827,6 +828,8 @@ def mma16_checks(K, g, p, bank, dev, gen, batch):
                          lambda: K.swa_plain(p, xs, *bc, gc, dtype)),
             "unit_msda": (lambda: K.unit_msda(p, xns, *bc, gc, dtype),
                           lambda: K.msda_plain(p, xns, *bc, gc, dtype)),
+            "unit_cga": (lambda: K.unit_cga(p, xns, *bc, gc, dtype),
+                         lambda: K.cga_plain(p, xns, *bc, gc, dtype)),
             "unit_cross_tail": (lambda: K.unit_cross_tail(p, *ct),
                                 lambda: K.cross_tail_plain(p, *ct))}
         for unit, (kern, plain) in calls.items():
@@ -1201,9 +1204,13 @@ def multiwindow_checks(K, dev):
                 dev, dtype)
             for name, (kern, plain) in unit_calls(K, p, g, dtype, x,
                                                   bank).items():
+                K.reset_launches()
                 out = kern()
                 torch.cuda.synchronize()
                 err, rel, bound, ok = worst_error(K, out, plain())
+                # bf16 at n=64: every unit on its tensor-core entry
+                want = f"{name}_mma" if dtype == torch.bfloat16 else name
+                ok = ok and K.ROUTES[want] == 1
                 print(f"check {name:16s} n={g.n} {str(dtype):15s} "
                       f"B={CHECK_BATCH} max_abs_err {err:.3e} (relative to "
                       f"max|plain| {rel:.2e}, tolerance "
@@ -1239,6 +1246,19 @@ def multiwindow_checks(K, dev):
               flush=True)
         if not ok:
             failed.append(("unit_msda", "guard bf16"))
+        # the bf16 tensor-core CGA kernel's guard, through its own entry:
+        # every sample proj(0)
+        K.reset_launches()
+        out = K.unit_cga(p, xn, *bank, g, torch.bfloat16)
+        torch.cuda.synchronize()
+        ref = K.cga_plain(p, xn, *bank, g, torch.bfloat16)
+        ok = torch.equal(out, ref) and K.ROUTES["unit_cga_mma"] == 1
+        print(f"check unit_cga          n={g.n} NaN guard bf16 (one NaN in "
+              f"sample 7): equal to plain {torch.equal(out, ref)}, "
+              f"tensor-core entry {K.ROUTES['unit_cga_mma'] == 1}  "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failed.append(("unit_cga", "guard bf16"))
         # the bf16 SWA and cross/tail kernels' guards: a NaN in one
         # sample's x (SWA: every sample's output proj(0), xn keeps the NaN
         # row) or xn (read by the cross branch's q only: every sample's
@@ -1272,8 +1292,6 @@ def multiwindow_checks(K, dev):
             dev, torch.bfloat16)
         for name, (kern, plain) in unit_calls(K, p, g12, torch.bfloat16, x,
                                               bank12).items():
-            if name == "unit_cga":
-                continue
             err, rel, _, ok = worst_error(K, kern(), plain())
             print(f"check {name:16s} n={g.n} bf16 12 bank rows "
                   f"B={CHECK_BATCH} max_abs_err {err:.3e} (relative "
@@ -1283,9 +1301,10 @@ def multiwindow_checks(K, dev):
     if failed:
         raise AssertionError(f"n={g.n} unit kernels disagree: {failed}")
     lib = K.bind(build.load().lib)
-    for unit in ("swa", "msda", "cross_tail"):
+    d64 = K._dims(g, CHECK_BATCH, p, 1, 1, None)
+    for unit in ("swa", "msda", "cga", "cross_tail"):
         print_ptxas(f"{unit}_mma_kernel")
-        smem = getattr(lib, f"qv_unit_{unit}_mma_smem")(None)
+        smem = getattr(lib, f"qv_unit_{unit}_mma_smem")(ctypes.byref(d64))
         print(f"{unit}_mma_kernel: {smem} B of dynamic shared memory per "
               f"block", flush=True)
     return g, p, bank
@@ -1323,6 +1342,15 @@ def multiwindow_path(K, dev, g, p, bank):
         raise AssertionError(f"n=64 path launches {launches}, expected "
                              f"{want} ({cfg.depth} of each forward unit per "
                              f"forward)")
+    routes = dict(K.ROUTES)
+    print(f"n=64 path: launches per C entry {routes}", flush=True)
+    for unit in K.UNITS:      # bf16: every unit on its tensor-core entry
+        if (routes[f"{unit}_mma"], routes[unit]) != (cfg.depth * forwards,
+                                                     0):
+            raise AssertionError(
+                f"{unit}: {routes[f'{unit}_mma']} launches of the "
+                f"tensor-core entry and {routes[unit]} of the CUDA-core one "
+                f"in the n=64 path, expected {cfg.depth * forwards} and 0")
     if not (r["count"] == TIN_BATCH * TIN_BATCHES and r["loss"] == r["loss"]
             and 0.0 <= r["top1"] <= r["top5"] <= 100.0):
         raise AssertionError(f"n=64 path result out of range: {r}")
@@ -1374,7 +1402,8 @@ def multiwindow_path(K, dev, g, p, bank):
                 f"{name}@n64", f"qavit_tpu_torch/csrc/{name}.cu",
                 REPLACES[name], launches[name], err, cuda_ms(kern, iters=10),
                 cuda_ms(plain_fn, iters=10),
-                unit_work(name, g, TIN_BIG_BATCH, 2, p), dtype))
+                unit_work(name, g, TIN_BIG_BATCH, 2, p), dtype,
+                device_ms(kern, 10, csrc_kernel(K, name, g, dtype))))
     print(f"units per forward at B={TIN_BIG_BATCH} ({cfg.depth} blocks): "
           f"kernels {cfg.depth * sum(r['ms'] for r in rows):.2f} ms, plain "
           f"{cfg.depth * sum(r['plain_ms'] for r in rows):.2f} ms",
@@ -1478,10 +1507,14 @@ def main() -> int:
         print("check NaN guard: batch-wide in unit_swa ok", flush=True)
         mma16_checks(K, g, p, bank, dev, gen, CHECK_BATCH)
     d16 = K._dims(g, CHECK_BATCH, p, 1, 1, None)
+    d16t = K._dims(g, CHECK_BATCH, p, 1, 1, K.R.block_rng(0, 0.1, 0.1))
     for kern, smem in (
             ("swa_mma_kernel", kl.lib.qv_unit_swa_mma_smem(None)),
             ("msda_mma16_kernel",
              kl.lib.qv_unit_msda_mma_smem(ctypes.byref(d16))),
+            ("cga_mma_kernel",
+             f"{kl.lib.qv_unit_cga_mma_smem(ctypes.byref(d16))} (eval), "
+             f"{kl.lib.qv_unit_cga_mma_smem(ctypes.byref(d16t))} (train)"),
             ("cross_tail_mma_kernel",
              kl.lib.qv_unit_cross_tail_mma_smem(None))):
         print_ptxas(kern)
@@ -1508,7 +1541,7 @@ def main() -> int:
                                  f"({cfg.depth} per forward x {forwards} "
                                  f"for each forward unit)")
     print(f"launches per C entry: {routes}", flush=True)
-    for unit in ("unit_swa", "unit_msda", "unit_cross_tail"):
+    for unit in K.UNITS:
         if (routes[f"{unit}_mma"], routes[unit]) != (cfg.depth * forwards,
                                                      0):
             raise AssertionError(

@@ -1,17 +1,18 @@
 // The pieces the bf16 tensor-core unit kernels share (msda_mma_kernel,
-// swa_mma_kernel, msda_mma16_kernel, cross_tail_mma_kernel), built on
-// mma.cuh's primitives: a product whose weight streams through a ring of
-// cp.async buffers, a dense layer's epilogue, the q fragments of a warp's
-// two heads, one warp's softmax attention of 16 queries with its scores
-// in registers, a warp-per-row LayerNorm of bf16 rows, and the bank-write
-// partials of the train-mode forwards.  Then the pieces of the
-// backward kernels (swa_bwd_mma_kernel, msda_bwd_mma_kernel,
-// cross_tail_bwd_mma_kernel), which walk the batch in passes of two
-// samples of 16 tokens: products over a pass's rows with an epilogue per
-// pair of columns, weight gradients in^T @ dy over every row of the
-// block, stored once into its float32 slice from operand rows the passes
-// saved, the LayerNorm backward, and the attention with its dropout and
-// its backward, one warp per 16 queries and head.
+// swa_mma_kernel, msda_mma16_kernel, cross_tail_mma_kernel,
+// cga_mma_kernel), built on mma.cuh's primitives: a product whose weight
+// streams through a ring of cp.async buffers, a dense layer's epilogue,
+// the q fragments of a warp's two heads, one warp's softmax attention of
+// 16 queries with its scores in registers, a warp-per-row LayerNorm of
+// bf16 rows, and the bank-write partials of the train-mode forwards.
+// Then the pieces of the backward kernels (swa_bwd_mma_kernel,
+// msda_bwd_mma_kernel, cross_tail_bwd_mma_kernel, cga_bwd_mma_kernel),
+// which walk the batch in passes of two samples of 16 tokens (the CGA
+// backward: four): products over a pass's rows with an epilogue per pair
+// of columns, weight gradients in^T @ dy over every row of the block,
+// stored once into its float32 slice from operand rows the passes saved,
+// the LayerNorm backward, and the attention with its dropout and its
+// backward, one warp per 16 queries and head.
 #pragma once
 #include "mma.cuh"
 
@@ -582,14 +583,15 @@ __device__ __forceinline__ void gemm_pass_smem(const bf16* a, int lda,
           acc[j][2 * hf + 1]);
 }
 
-// The PASS_ROWS rows of a pass, cols (a multiple of 8) from shared memory
-// (src, leading dim lds) to the block's operand rows in device memory
-// (dst, leading dim ldd), 16 bytes a copy, for wgrad_block.  Block-wide,
-// without a barrier.
+// The rows of a pass (PASS_ROWS, or `rows`), cols (a multiple of 8) from
+// shared memory (src, leading dim lds) to the block's operand rows in
+// device memory (dst, leading dim ldd), 16 bytes a copy, for wgrad_block.
+// Block-wide, without a barrier.
 __device__ __forceinline__ void save_rows(bf16* dst, int ldd, const bf16* src,
-                                          int lds, int cols) {
+                                          int lds, int cols,
+                                          int rows = PASS_ROWS) {
   const int cpr = cols / 8;
-  for (int i = threadIdx.x; i < PASS_ROWS * cpr; i += NTHREADS) {
+  for (int i = threadIdx.x; i < rows * cpr; i += NTHREADS) {
     const int r = i / cpr, c = (i - r * cpr) * 8;
     *reinterpret_cast<uint4*>(dst + (size_t)r * ldd + c) =
         *reinterpret_cast<const uint4*>(src + r * lds + c);
@@ -789,29 +791,17 @@ __device__ __forceinline__ float attn_mask(const AttnMask& m, int row,
              : 0.f;
 }
 
-// One warp's softmax probabilities of 16 queries in one head over NKT
-// tiles of 16 keys, as warp_attention computes them (scores divided by
-// sqrt(D), keys from nkeys on -inf, float32 softmax by quad shuffles),
-// left in s in the C-fragment layout: s[j] holds keys 8j.. of query rows
-// g and g + 8.
-template <int NKT>
-__device__ __forceinline__ void attn_probs(const unsigned (&qa)[3][4],
-                                           const bf16* const (&kt)[NKT],
-                                           int ld, int hc, int nkeys,
-                                           float (&s)[2 * NKT][4]) {
-  const int lane = threadIdx.x & 31, t = lane & 3;
-  const float sqrt_d = sqrtf((float)ATT_D);
-#pragma unroll
-  for (int j = 0; j < 2 * NKT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < ATT_D / 16; ++ks)
-#pragma unroll
-    for (int np = 0; np < NKT; ++np) {
-      unsigned kb[4];
-      load_b_nk(kb, kt[np] + hc + ks * 16, ld, lane);
-      mma_bf16_16816(s[2 * np], qa[ks], kb);
-      mma_bf16_16816(s[2 * np + 1], qa[ks], kb + 2);
-    }
+// The float32 softmax of one warp's scores of 16 queries over NKT tiles of
+// 16 keys, in place in the C-fragment layout (s[j] holds keys 8j.. of
+// query rows g and g + 8): each score divided by sqrt_d as common.cuh's
+// attention divides it, keys from nkeys on -inf, the rows' maxima and
+// sums by quad shuffles.  RECIP: each exp times the reciprocal of its
+// row's sum (one float32 rounding more than the division, and no IEEE
+// division a score: the CGA kernels' 4-wide heads spend their time there).
+template <int NKT, bool RECIP = false>
+__device__ __forceinline__ void softmax_c(float (&s)[2 * NKT][4], int nkeys,
+                                          float sqrt_d) {
+  const int t = threadIdx.x & 3;
   float m0 = -INFINITY, m1 = -INFINITY;
 #pragma unroll
   for (int j = 0; j < 2 * NKT; ++j)
@@ -843,13 +833,47 @@ __device__ __forceinline__ void attn_probs(const unsigned (&qa)[3][4],
     l0 += __shfl_xor_sync(0xffffffffu, l0, o);
     l1 += __shfl_xor_sync(0xffffffffu, l1, o);
   }
+  if constexpr (RECIP) {
+    l0 = 1.f / l0;
+    l1 = 1.f / l1;
+  }
 #pragma unroll
   for (int j = 0; j < 2 * NKT; ++j)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      s[j][e] = s[j][e] / l0;
-      s[j][2 + e] = s[j][2 + e] / l1;
+      if constexpr (RECIP) {
+        s[j][e] *= l0;
+        s[j][2 + e] *= l1;
+      } else {
+        s[j][e] = s[j][e] / l0;
+        s[j][2 + e] = s[j][2 + e] / l1;
+      }
     }
+}
+
+// One warp's softmax probabilities of 16 queries in one head over NKT
+// tiles of 16 keys, as warp_attention computes them (scores divided by
+// sqrt(D), keys from nkeys on -inf, float32 softmax by quad shuffles),
+// left in s in the C-fragment layout: s[j] holds keys 8j.. of query rows
+// g and g + 8.
+template <int NKT>
+__device__ __forceinline__ void attn_probs(const unsigned (&qa)[3][4],
+                                           const bf16* const (&kt)[NKT],
+                                           int ld, int hc, int nkeys,
+                                           float (&s)[2 * NKT][4]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < 2 * NKT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < ATT_D / 16; ++ks)
+#pragma unroll
+    for (int np = 0; np < NKT; ++np) {
+      unsigned kb[4];
+      load_b_nk(kb, kt[np] + hc + ks * 16, ld, lane);
+      mma_bf16_16816(s[2 * np], qa[ks], kb);
+      mma_bf16_16816(s[2 * np + 1], qa[ks], kb + 2);
+    }
+  softmax_c<NKT>(s, nkeys, sqrtf((float)ATT_D));
 }
 
 // The A fragments of a 16-key step kk of probabilities (or dS) held in

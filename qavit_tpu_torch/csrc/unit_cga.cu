@@ -13,18 +13,28 @@
 // training: the hash masks and the bank-write partials, as in unit 1.
 //
 // Bound on the H100 at B=1024 (bf16): 6.3 MB read + 6.3 MB written
-// (~3.8 us) against ~0.9 GFLOP (~1 us): the bytes bound it.  A
-// 256-thread block keeps the [24, 16, 32] float32 scores and every
-// projection in ~100 KB of shared memory (two blocks share an SM; 12 KB
-// more in training), so the unit moves only its input and output through
-// device memory; it is latency-bound for now.
+// (~3.8 us) against ~0.9 GFLOP (~1 us): the bytes bound it.
 //
-// n = 64 (hqavit_tiny_in, eval): the scores of all 24 virtual heads would
-// take 480 KB, so cga_tiled_kernel projects q/k/v (all groups, 24 KB per
-// tensor) in 16-token tiles, then runs the attention one channel group
-// (4 heads x 64 queries x 80 keys, 80 KB of scores) at a time, and the
-// proj in 16-token tiles: 195 KB of shared memory at C=192, one block
-// per SM.  Every element is summed in the order of the n = 16 kernel.
+// float32 (and bf16 at widths cga_mma_kernel does not take): cga_kernel,
+// the first design on the CUDA cores.  A 256-thread block keeps the [24,
+// 16, 32] float32 scores and every projection in ~100 KB of shared memory
+// (two blocks share an SM; 12 KB more in training); latency-bound.
+//
+// n = 64 (hqavit_tiny_in, eval), float32: the scores of all 24 virtual
+// heads would take 480 KB, so cga_tiled_kernel projects q/k/v (all
+// groups, 24 KB per tensor) in 16-token tiles, then runs the attention one
+// channel group (4 heads x 64 queries x 80 keys, 80 KB of scores) at a
+// time, and the proj in 16-token tiles: 195 KB of shared memory at C=192,
+// one block per SM.  Every element is summed in the order of the n = 16
+// kernel.
+//
+// bf16 at C=192 in 6 groups of 32 (hqavit_c100, n = 16, eval and
+// training; hqavit_tiny_in, n = 64, eval): cga_mma_kernel, every product
+// on the tensor cores (mma.sync m16n8k16, bf16 operands, float32 sums),
+// the scores in registers, one block per SM walking tiles of 64 rows
+// (four samples of 16, or one of 64); its body and layout are
+// cga_mma.cuh's.  Time: PERF.md section 6 rows 3 and 3 @n64.
+#include "cga_mma.cuh"
 #include "unit_cga.cuh"
 
 namespace qv {
@@ -155,18 +165,25 @@ __global__ void __launch_bounds__(NTHREADS, 1) cga_tiled_kernel(CgaArgs a) {
     });
 }
 
+// --- bf16: the tensor-core kernel (cga_mma.cuh) ---------------------------
+
+// NS samples a tile: 1 at n = 64 (eval), 4 at n = 16 (eval; TRAIN: the
+// training instance)
+template <int NS, bool TRAIN>
+__global__ void __launch_bounds__(NTHREADS, 1) cga_mma_kernel(CgaMmaArgs m) {
+  cga_mma<NS, TRAIN>(m);
+}
+
 }  // namespace qv
 
 extern "C" int qv_unit_cga_smem(const qv::Dims* d);
 
 extern "C" int qv_unit_cga(const qv::CgaArgs* a, int is_bf16, void* stream) {
   const size_t smem = qv_unit_cga_smem(&a->d);
-  if (a->d.n != qv::NT) {         // eval only
-    if (a->d.train) return qv::ERR_ARGS;
-    return is_bf16 ? qv_launch(qv::cga_tiled_kernel<qv::bf16>, *a, smem,
-                               stream, a->d.grid)
-                   : qv_launch(qv::cga_tiled_kernel<float>, *a, smem, stream,
-                               a->d.grid);
+  if (a->d.n != qv::NT) {         // eval only; bf16 is qv_unit_cga_mma's
+    if (a->d.train || is_bf16) return qv::ERR_ARGS;
+    return qv_launch(qv::cga_tiled_kernel<float>, *a, smem, stream,
+                     a->d.grid);
   }
   const int rc =
       is_bf16 ? qv_launch(qv::cga_kernel<qv::bf16>, *a, smem, stream,
@@ -181,4 +198,39 @@ extern "C" int qv_unit_cga_smem(const qv::Dims* d) {
   return (d->n == qv::NT ? qv::cga_smem_floats(*d)
                          : qv::cga_tiled_smem_floats(*d)) *
          (int)sizeof(float);
+}
+
+// The bf16 tensor-core kernel: `a` as for qv_unit_cga, the packed q | k |
+// v kernel [32, 48] and the proj kernel [96, 192] rounded to bf16 beside
+// it; one block per tile of 64 rows at most.  n = 16 in one window in
+// eval and training (then the reduction pass of the bank partials
+// follows), or n = 64 in four windows on an 8x8 grid in eval; ERR_ARGS for
+// any other geometry or type (the wrapper checks them first,
+// cga_mma_error).
+extern "C" int qv_unit_cga_mma(const qv::CgaArgs* a, const void* qkv_w16,
+                               const void* proj_w16, int is_bf16,
+                               void* stream) {
+  const qv::Dims& d = a->d;
+  const bool n64 = d.n == qv::CG_ROWS && d.nw == 4 && d.side == 8 && !d.train;
+  const bool n16 = d.n == qv::NT && d.nw == 1 && d.side == qv::WS;
+  const int tiles = (d.B * d.n + qv::CG_ROWS - 1) / qv::CG_ROWS;
+  if (!is_bf16 || !(n64 || n16) || d.c != qv::CG_C || d.groups != qv::CG_G ||
+      d.cperg != qv::CG_CPERG || d.heads != qv::CG_H ||
+      d.bank_s > qv::CG_S || d.grid > tiles)
+    return qv::ERR_ARGS;
+  const qv::CgaMmaArgs m{*a, static_cast<const qv::bf16*>(qkv_w16),
+                         static_cast<const qv::bf16*>(proj_w16)};
+  const size_t smem = d.train ? qv::CG_TRAIN_BYTES : qv::CG_EVAL_BYTES;
+  const int rc =
+      n64 ? qv_launch(qv::cga_mma_kernel<1, false>, m, smem, stream, d.grid)
+      : d.train
+          ? qv_launch(qv::cga_mma_kernel<4, true>, m, smem, stream, d.grid)
+          : qv_launch(qv::cga_mma_kernel<4, false>, m, smem, stream, d.grid);
+  if (rc != 0 || !d.train) return rc;
+  return qv_reduce(a->bw.part, a->bw.part_out, d.grid, 2 * d.bank_s * d.c,
+                   d.rgrid, stream);
+}
+
+extern "C" int qv_unit_cga_mma_smem(const qv::Dims* d) {
+  return d->train ? qv::CG_TRAIN_BYTES : qv::CG_EVAL_BYTES;
 }

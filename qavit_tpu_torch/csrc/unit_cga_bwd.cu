@@ -5,20 +5,40 @@
 // (fused_kernels.py:88), whose attention backward the JAX package writes
 // by hand (fused_cores.py:315-353 _cga_attend_fn).
 //
-// Per sample: recompute through cga_body (unit_cga.cuh, the forward's
-// code, masks and NaN-guard flag replayed), then differentiate proj and
-// the 24-virtual-head attention, whose bank keys and values are shared by
-// the 6 groups (their gradients are summed over the groups), then the
-// group-shared q/k/v Dense layers back to d(xn), written per sample in the
-// working type.  The bank projections' gradients follow per sample from
-// the summed bank-key/value cotangents.  Weight and bank gradients go to
-// this block's float32 slice; the reduction pass sums the slices in block
-// order.
-//
 // Bound on the H100 at B=1024 (bf16): 3 x 6.3 MB moved (~5.6 us) against
-// ~4 x 0.9 GFLOP (~4 us): the bytes bound it.  Latency-bound in this first
-// design: one 256-thread block per SM, ~213 KB of shared memory (three
-// [24, 16, 32] float32 score tensors), float32 FMAs.
+// ~4 x 0.9 GFLOP (~4 us): the bytes bound it.
+//
+// float32 (and bf16 at widths cga_bwd_mma_kernel does not take),
+// cga_bwd_kernel: per sample, recompute through cga_body (unit_cga.cuh,
+// the forward's code, masks and NaN-guard flag replayed), then
+// differentiate proj and the 24-virtual-head attention, whose bank keys
+// and values are shared by the 6 groups (their gradients are summed over
+// the groups), then the group-shared q/k/v Dense layers back to d(xn),
+// written per sample in the working type.  The bank projections'
+// gradients follow per sample from the summed bank-key/value cotangents.
+// Weight and bank gradients go to this block's float32 slice; the
+// reduction pass sums the slices in block order.  Latency-bound: one
+// 256-thread block per SM, ~213 KB of shared memory (three [24, 16, 32]
+// float32 score tensors), float32 FMAs.
+//
+// bf16 at hqavit_c100's widths, cga_bwd_mma_kernel: every product on the
+// tensor cores (mma.sync m16n8k16, bf16 operands, float32 sums), passes of
+// four samples (64 rows), every activation and cotangent as bf16 in shared
+// memory (150 KB), the weights resident.  Per pass: the unit recomputed
+// through the forward's pieces (cga_mma.cuh: q | k | v, the attention with
+// its dropout replayed); d(att) = d(out) @ W_p^T; the attention backward
+// per (16 queries, group) and head in registers (cga_attend_bwd); d(xn) =
+// d(q | k | v) @ W_qkv^T per group in one product.  Each pass saves the
+// dense layers' operand rows to a per-block scratch (proj's per row, the
+// q/k/v kernel's per row and group), and at the end the block forms their
+// weight gradients over all its rows (wgrad_block).  The bank rows are
+// the same for every sample, so the block sums the projected bank keys'
+// and values' cotangents over its samples and groups (each warp in
+// registers, then the warps in order) and forms the bank projections'
+// and the bank rows' gradients from the sums once.  Every field of the
+// block's slice is stored once, without reading it, so the caller's
+// workspace needs no zeroing.  Time: PERF.md section 6 row 7.
+#include "cga_mma.cuh"
 #include "unit_cga.cuh"
 
 namespace qv {
@@ -138,4 +158,486 @@ extern "C" int qv_unit_cga_bwd(const qv::CgaBwdArgs* a, int is_bf16,
 
 extern "C" int qv_unit_cga_bwd_smem(const qv::Dims* d) {
   return qv::cga_bwd_smem_floats(*d) * (int)sizeof(float);
+}
+
+// --- bf16 at hqavit_c100's widths: the tensor-core kernel --------------------
+
+namespace qv {
+
+struct CgaBwdMmaArgs {
+  CgaBwdArgs a;           // the float32 kernel's arguments
+  // bf16 [32, 48] q | k | v | [96, 192] proj | [48, 32] q | k | v^T |
+  // [192, 96] proj^T
+  const bf16* w;
+};
+
+constexpr int CB_QKV = 0, CB_QKVT = CG_CPG * CG_QKV + CG_GW * CG_C;
+constexpr int CB_PROJT = CB_QKVT + CG_QKV * CG_CPG;
+constexpr int CB_LDT = CG_CPG + 8;      // q | k | v^T's and dS's, P's rows
+constexpr int CB_LDPT = CG_GW + 8;      // proj^T's rows
+// a block's saved operand rows (bf16; wgrad_block's inputs): per row of a
+// pass, proj's input and d(out); per row and group, the group's xn
+// columns and d(q | k | v)
+constexpr int CB_OPP = CG_GW + CG_C;
+constexpr int CB_OPQ = CG_CPG + CG_QKV;
+// shared memory, in bf16 elements: the three kernels, the projected bank,
+// xn and d(out) [64, C], q, k, v, att [64, 96]
+constexpr int CB_W = CG_CPG * CG_LDW + CG_QKV * CB_LDT + CG_C * CB_LDPT;
+constexpr int CB_SMEM_BYTES = 2 * (CB_W + CG_BANK + 2 * CG_XS + 4 * CG_QB);
+// each warp's dS and P [16, 32] keys, in d(out)'s space once d(att) is
+// formed; the warps' bank sums [8][2][16][16] floats, in q's at the end
+static_assert(8 * 2 * NT * CB_LDT <= CG_XS, "the warps' dS and P");
+static_assert(8 * 2 * 2 * 256 + 2 * 256 <= 4 * CG_QB, "the bank sums");
+
+// per block: the operand rows of its passes (bf16; one pass: 64 rows of
+// proj's, 6 x 64 of the q/k/v kernel's)
+__host__ __device__ inline int cga_bwd_mma_scratch_floats(const Dims& d) {
+  const int nb = (d.B + d.grid - 1) / d.grid;
+  return CG_ROWS * ((nb + 3) / 4) * (CB_OPP + CG_G * CB_OPQ) / 2;
+}
+
+// The backward of cga_attend (training, n = 16: the sample's 16 keys and
+// the bank's) for one 16-query tile in one group, its four heads, given
+// d(att) dA (the 16 rows at the group's first channel, leading dim ld, as
+// q, k, v): per head, P recomputed, dP = dA V^T through the mask am, dS =
+// P (dP - rowsum(dP P)) / sqrt(4) as warp_attention_bwd; dq = dS K, the
+// sample's keys' dK = dS^T q and dV = P^T dA, each head's four channels
+// written over its own in q, k, v once the head's reads are done (a later
+// head's products read other channels only: head_a and head_b select
+// them, and a product over keys or queries gives each channel from its
+// own column); the bank keys' and values' cotangents (keys x the group's
+// 16 channels) added to gkb, gvb.  ws: the warp's dS, then P, 16 x
+// CB_LDT each.
+__device__ __forceinline__ void cga_attend_bwd(bf16* q, bf16* k, bf16* v,
+                                               const bf16* dA, int ld,
+                                               const bf16* kb, const bf16* vb,
+                                               int nkeys, AttnMask am,
+                                               bf16* ws, float (&gkb)[2][4],
+                                               float (&gvb)[2][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float sqrt_d = sqrtf((float)CG_HD);
+  bf16* ds = ws;
+  bf16* pu = ws + NT * CB_LDT;
+  unsigned qa[4], da[4], kf[2][4], vf[2][4];
+  load_a(qa, q, ld, lane);
+  load_a(da, dA, ld, lane);
+  load_b_nk(kf[0], k, ld, lane);
+  load_b_nk(kf[1], kb, CG_LDB, lane);
+  load_b_nk(vf[0], v, ld, lane);
+  load_b_nk(vf[1], vb, CG_LDB, lane);
+  const int vh0 = am.vh;
+#pragma unroll 1
+  for (int h = 0; h < CG_H; ++h) {
+    am.vh = vh0 + h;
+    float s[4][4], dp[4][4];
+    cga_probs<2>(qa, kf, h, nkeys, s);
+    unsigned a[4];
+    head_a(da, h, a);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      unsigned b[4];
+      head_b(vf[np], h, b);
+      mma_bf16_16816(dp[2 * np], a, b);
+      mma_bf16_16816(dp[2 * np + 1], a, b + 2);
+    }
+    float dot0 = 0.f, dot1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = 8 * j + 2 * t + (e & 1), row = g + 8 * (e >> 1);
+        dp[j][e] = attn_mask(am, row, key, dp[j][e]);
+        if (e & 1)         // the probabilities PV used, for dV
+          store_bf16x2(pu + row * CB_LDT + key - 1,
+                       pack_bf16x2(attn_mask(am, row, key - 1, s[j][e - 1]),
+                                   attn_mask(am, row, key, s[j][e])));
+        if (e >> 1)
+          dot1 = fmaf(dp[j][e], s[j][e], dot1);
+        else
+          dot0 = fmaf(dp[j][e], s[j][e], dot0);
+      }
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      dot0 += __shfl_xor_sync(0xffffffffu, dot0, o);
+      dot1 += __shfl_xor_sync(0xffffffffu, dot1, o);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[j][e] = s[j][e] * (dp[j][e] - (e >> 1 ? dot1 : dot0)) / sqrt_d;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        store_bf16x2(ds + (g + 8 * hf) * CB_LDT + 8 * j + 2 * t,
+                     pack_bf16x2(s[j][2 * hf], s[j][2 * hf + 1]));
+    }
+    __syncwarp();
+    // dq = dS K over the 32 keys; dK, dV of the sample's keys (0..15) and
+    // the bank's (16..31)
+    float oq[4] = {0.f, 0.f, 0.f, 0.f}, ok[4] = {0.f, 0.f, 0.f, 0.f};
+    float ov[4] = {0.f, 0.f, 0.f, 0.f}, obk[4] = {0.f, 0.f, 0.f, 0.f};
+    float obv[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      unsigned pa[4], kn[4];
+      c_to_a<2>(s, kk, [](int, int, float x) { return x; }, pa);
+      load_b_kn(kn, kk ? kb : k, kk ? CG_LDB : ld, lane);
+      mma_bf16_16816(oq, pa, head_tile(kn, h).r);
+    }
+    {
+      unsigned at[4], bq[4], bd[4];
+      load_b_kn(bq, q, ld, lane);
+      load_b_kn(bd, dA, ld, lane);
+      load_a_t(at, ds, CB_LDT, lane);
+      mma_bf16_16816(ok, at, head_tile(bq, h).r);
+      load_a_t(at, ds + 16, CB_LDT, lane);
+      mma_bf16_16816(obk, at, head_tile(bq, h).r);
+      load_a_t(at, pu, CB_LDT, lane);
+      mma_bf16_16816(ov, at, head_tile(bd, h).r);
+      load_a_t(at, pu + 16, CB_LDT, lane);
+      mma_bf16_16816(obv, at, head_tile(bd, h).r);
+    }
+    __syncwarp();          // every lane's reads of this head are done
+    if (head_lane(h)) {
+      const int c = 8 * (h >> 1) + 2 * t;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = (g + 8 * hf) * ld + c;
+        store_bf16x2(q + r, pack_bf16x2(oq[2 * hf], oq[2 * hf + 1]));
+        store_bf16x2(k + r, pack_bf16x2(ok[2 * hf], ok[2 * hf + 1]));
+        store_bf16x2(v + r, pack_bf16x2(ov[2 * hf], ov[2 * hf + 1]));
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (h >> 1) {
+          gkb[1][e] += obk[e];
+          gvb[1][e] += obv[e];
+        } else {
+          gkb[0][e] += obk[e];
+          gvb[0][e] += obv[e];
+        }
+      }
+    }
+    __syncwarp();          // the next head's dS, P after these reads
+  }
+}
+
+// One block per SM walks its samples b = blockIdx.x, blockIdx.x + grid,
+// ... in passes of four (a short last pass runs samples of zeros with a
+// zero cotangent, which add nothing).  The [64, C] buffers of a pass: xs
+// (xn), dO (d(out) through the proj dropout; then the warps' dS and P;
+// then d(xn)); the [64, 96] ones: q, k, v, then d(q), d(k), d(v); att,
+// then d(att).
+__global__ void __launch_bounds__(NTHREADS, 1)
+    cga_bwd_mma_kernel(CgaBwdMmaArgs m) {
+  QV_SMEM_DECL
+  const CgaBwdArgs& a = m.a;
+  const CgaArgs& f = a.f;
+  const Dims& d = f.d;
+  const CgaGrads& gr = a.g;
+  const int S = d.bank_s, C = CG_C;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  bf16* wqkv = reinterpret_cast<bf16*>(qv_smem);   // [32][CG_LDW]
+  bf16* wqkvt = wqkv + CG_CPG * CG_LDW;            // [48][CB_LDT]
+  bf16* wpt = wqkvt + CG_QKV * CB_LDT;             // [192][CB_LDPT]
+  bf16* kbp = wpt + CG_C * CB_LDPT;                // [16][CG_LDB]
+  bf16* vbp = kbp + CG_S * CG_LDB;
+  bf16* xs = vbp + CG_S * CG_LDB;                  // [64][CG_LDX]
+  bf16* dO = xs + CG_XS;
+  bf16* q = dO + CG_XS;                            // [64][CG_LDQ] each
+  bf16* k = q + CG_QB;
+  bf16* v = k + CG_QB;
+  bf16* att = v + CG_QB;
+  bf16* wsc = dO + warp * 2 * NT * CB_LDT;         // this warp's dS, P
+  const bool zero_attn = d.guard && a.c.flag[1] != 0;
+  const int nb = (d.B - (int)blockIdx.x + (int)gridDim.x - 1) / gridDim.x;
+  const int passes = (nb + 3) / 4;
+  const int rows_max = cga_bwd_mma_scratch_floats(d) * 2 /
+                       (CB_OPP + CG_G * CB_OPQ);
+  bf16* opp = reinterpret_cast<bf16*>(
+      a.c.scratch + (size_t)blockIdx.x * cga_bwd_mma_scratch_floats(d));
+  bf16* opq = opp + (size_t)rows_max * CB_OPP;
+
+  // per block: the kernels (cp.async; the first pass's wait completes
+  // them) and the projected bank
+  stage_weight(wqkv, CG_LDW, m.w + CB_QKV, CG_CPG, CG_QKV);
+  stage_weight(wqkvt, CB_LDT, m.w + CB_QKVT, CG_QKV, CG_CPG);
+  stage_weight(wpt, CB_LDPT, m.w + CB_PROJT, CG_C, CG_GW);
+  cp_async_commit();
+  cga_bank_proj(f, kbp, vbp);
+  // this warp's sums of the bank keys' and values' cotangents over its
+  // units: keys g, g + 8 x channels 8j + 2t, 8j + 2t + 1 of the group's 16
+  float gkb[2][4] = {}, gvb[2][4] = {};
+
+  for (int p = 0; p < passes; ++p) {
+    const int ns = nb - 4 * p < 4 ? nb - 4 * p : 4;
+    int bs[4];
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+      bs[s] = (int)blockIdx.x + (4 * p + s) * (int)gridDim.x;
+    // the flat token index of the pass's row r (the samples by selects:
+    // an index into bs would go to memory)
+    auto tok = [&](int r) {
+      const int s = r >> 4;
+      const int b = s == 0 ? bs[0] : s == 1 ? bs[1] : s == 2 ? bs[2] : bs[3];
+      return b * NT + (r & 15);
+    };
+    // rows of sample slot s (< ns) from src, zeros past ns
+    auto stage = [&](bf16* dst, const void* src) {
+      for (int i = threadIdx.x; i < CG_ROWS * (C / 8); i += blockDim.x) {
+        const int r = i / (C / 8), c = (i - r * (C / 8)) * 8;
+        bf16* to = dst + r * CG_LDX + c;
+        if ((r >> 4) < ns)
+          cp_async_16(to, static_cast<const bf16*>(src) +
+                              (size_t)tok(r) * C + c);
+        else
+          *reinterpret_cast<uint4*>(to) = uint4{0u, 0u, 0u, 0u};
+      }
+    };
+    // rows r of dO to d(xn) in device memory, the pass's samples only
+    auto store_dxn = [&] {
+      for (int i = threadIdx.x; i < ns * NT * (C / 8); i += blockDim.x) {
+        const int r = i / (C / 8), c = (i - r * (C / 8)) * 8;
+        *reinterpret_cast<uint4*>(static_cast<bf16*>(a.d_xn) +
+                                  (size_t)tok(r) * C + c) =
+            *reinterpret_cast<const uint4*>(dO + r * CG_LDX + c);
+      }
+    };
+    bf16* pp = opp + (size_t)p * CG_ROWS * CB_OPP;
+    bf16* pq = opq + (size_t)p * CG_ROWS * CG_G * CB_OPQ;
+    stage(xs, f.xn);
+    stage(dO, a.d_out);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    // d(out) through the proj dropout
+    if (d.train && d.drop_on)
+      for (int i = threadIdx.x; i < CG_ROWS * C; i += blockDim.x) {
+        const int r = i / C, c = i - r * C;
+        bf16* e = dO + r * CG_LDX + c;
+        *e = from_f<bf16>(drop(d, CGA_PROJ, (unsigned)(tok(r) * C + c),
+                               to_f<bf16>(*e)));
+      }
+    if (zero_attn) {
+      // a guarded branch: no gradient passes through its attention, so
+      // only proj's bias learns (its input is zero), and d(xn) is zero
+      for (int i = threadIdx.x; i < CG_QB; i += blockDim.x)
+        att[i] = from_f<bf16>(0.f);
+      __syncthreads();
+      save_rows(pp, CB_OPP, att, CG_LDQ, CG_GW, CG_ROWS);
+      save_rows(pp + CG_GW, CB_OPP, dO, CG_LDX, C, CG_ROWS);
+      __syncthreads();
+      for (int i = threadIdx.x; i < CG_XS; i += blockDim.x)
+        dO[i] = from_f<bf16>(0.f);
+      __syncthreads();
+      store_dxn();
+      __syncthreads();
+      continue;
+    }
+    // ---- recompute ---------------------------------------------------
+    cga_qkv(xs, wqkv, f, q, k, v);
+    __syncthreads();
+    for (int u = warp; u < 4 * CG_G; u += NTHREADS / 32) {
+      const int mt = u / CG_G, grp = u - mt * CG_G, c0 = CG_CPERG * grp;
+      const int b = mt == 0 ? bs[0] : mt == 1 ? bs[1] : mt == 2 ? bs[2] : bs[3];
+      const AttnMask am{attn_drop(d, CGA_ATTN),
+                        (unsigned)b * CG_G * CG_H * NT * (NT + S),
+                        grp * CG_H, NT + S};
+      const int r0 = 16 * mt * CG_LDQ + c0;
+      cga_attend<2, true>(q + r0, k + r0, v + r0, CG_LDQ, kbp, vbp, NT + S,
+                          am, att + r0);
+    }
+    __syncthreads();
+    // ---- proj: its operand rows, then d(att) = d(out) @ W_p^T over att --
+    save_rows(pp, CB_OPP, att, CG_LDQ, CG_GW, CG_ROWS);
+    save_rows(pp + CG_GW, CB_OPP, dO, CG_LDX, C, CG_ROWS);
+    __syncthreads();
+    {  // warp w: rows 16 (w % 4).., columns 48 (w / 4)..
+      const int mt = warp & 3, n0 = 48 * (warp >> 2);
+      float acc[6][4];
+#pragma unroll
+      for (int j = 0; j < 6; ++j)
+        acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+#pragma unroll 4
+      for (int ks = 0; ks < C / 16; ++ks) {
+        unsigned af[4];
+        load_a(af, dO + 16 * mt * CG_LDX + 16 * ks, CG_LDX, lane);
+#pragma unroll
+        for (int np = 0; np < 3; ++np) {
+          unsigned bf[4];
+          load_b_kn(bf, wpt + 16 * ks * CB_LDPT + n0 + 16 * np, CB_LDPT,
+                    lane);
+          mma_bf16_16816(acc[2 * np], af, bf);
+          mma_bf16_16816(acc[2 * np + 1], af, bf + 2);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 6; ++j)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          store_bf16x2(att + (16 * mt + g + 8 * hf) * CG_LDQ + n0 + 8 * j +
+                           2 * t,
+                       pack_bf16x2(acc[j][2 * hf], acc[j][2 * hf + 1]));
+    }
+    __syncthreads();
+    // ---- the attention: d(q), d(k), d(v) over q, k, v; the bank's sums --
+    for (int u = warp; u < 4 * CG_G; u += NTHREADS / 32) {
+      const int mt = u / CG_G, grp = u - mt * CG_G, c0 = CG_CPERG * grp;
+      const int b = mt == 0 ? bs[0] : mt == 1 ? bs[1] : mt == 2 ? bs[2] : bs[3];
+      const AttnMask am{attn_drop(d, CGA_ATTN),
+                        (unsigned)b * CG_G * CG_H * NT * (NT + S),
+                        grp * CG_H, NT + S};
+      const int r0 = 16 * mt * CG_LDQ + c0;
+      cga_attend_bwd(q + r0, k + r0, v + r0, att + r0, CG_LDQ, kbp, vbp,
+                     NT + S, am, wsc, gkb, gvb);
+    }
+    __syncthreads();
+    // ---- the q | k | v kernel: its operand rows (row, group), then d(xn)
+    // = d(q | k | v) @ W_qkv^T per group into dO's space ------------------
+    for (int i = threadIdx.x; i < CG_ROWS * CG_G * (CB_OPQ / 8);
+         i += blockDim.x) {
+      const int rg = i / (CB_OPQ / 8), c = (i - rg * (CB_OPQ / 8)) * 8;
+      const int r = rg / CG_G, grp = rg - r * CG_G;
+      const bf16* src =
+          c < CG_CPG ? xs + r * CG_LDX + CG_CPG * grp + c
+                     : (c < CG_CPG + CG_CPERG ? q
+                        : c < CG_CPG + 2 * CG_CPERG ? k : v) +
+                           r * CG_LDQ + CG_CPERG * grp + (c - CG_CPG) % CG_CPERG;
+      *reinterpret_cast<uint4*>(pq + (size_t)rg * CB_OPQ + c) =
+          *reinterpret_cast<const uint4*>(src);
+    }
+    for (int u = warp; u < 4 * CG_G; u += NTHREADS / 32) {
+      const int mt = u / CG_G, grp = u - mt * CG_G;
+      float acc[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+      bf16* const dsrc[3] = {q, k, v};
+#pragma unroll
+      for (int w = 0; w < 3; ++w) {
+        unsigned af[4];
+        load_a(af, dsrc[w] + 16 * mt * CG_LDQ + CG_CPERG * grp, CG_LDQ, lane);
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          unsigned bf[4];
+          load_b_kn(bf, wqkvt + 16 * w * CB_LDT + 16 * np, CB_LDT, lane);
+          mma_bf16_16816(acc[2 * np], af, bf);
+          mma_bf16_16816(acc[2 * np + 1], af, bf + 2);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          store_bf16x2(dO + (16 * mt + g + 8 * hf) * CG_LDX + CG_CPG * grp +
+                           8 * j + 2 * t,
+                       pack_bf16x2(acc[j][2 * hf], acc[j][2 * hf + 1]));
+    }
+    __syncthreads();
+    store_dxn();
+    __syncthreads();
+  }
+  // ---- the bank: the warps' sums in order, then its gradients, each
+  // element stored once -------------------------------------------------
+  float* red = reinterpret_cast<float*>(q);        // [8][2][16][16]
+  float* dkb = red + 8 * 2 * 256;                  // [2][16][16] sums
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = (g + 8 * (e >> 1)) * CG_CPERG + 8 * j + 2 * t + (e & 1);
+      red[(warp * 2) * 256 + i] = gkb[j][e];
+      red[(warp * 2 + 1) * 256 + i] = gvb[j][e];
+    }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 2 * 256; i += blockDim.x) {
+    const int w = i >> 8, e = i & 255;
+    float sum = 0.f;
+    for (int wp = 0; wp < NTHREADS / 32; ++wp) sum += red[(wp * 2 + w) * 256 + e];
+    dkb[i] = zero_attn ? 0.f : sum;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 2 * CG_C * CG_CPERG; i += blockDim.x) {
+    // the projections' kernels: bank^T @ sum, [C, 16] each
+    const int w = i / (CG_C * CG_CPERG), e = i - w * CG_C * CG_CPERG;
+    const int kk = e / CG_CPERG, j = e - kk * CG_CPERG;
+    const float* br = (w ? a.c.bank_vr : a.c.bank_kr) + kk;
+    const float* dsum = dkb + w * 256 + j;
+    float acc = 0.f;
+    for (int mm = 0; mm < S; ++mm)
+      acc = fmaf(br[mm * C], dsum[mm * CG_CPERG], acc);
+    slice(w ? gr.bv_w : gr.bk_w, a.c)[e] = zero_attn ? 0.f : acc;
+  }
+  for (int i = threadIdx.x; i < 2 * CG_CPERG; i += blockDim.x) {
+    const int w = i / CG_CPERG, j = i - w * CG_CPERG;
+    float acc = 0.f;
+    for (int mm = 0; mm < S; ++mm) acc += dkb[w * 256 + mm * CG_CPERG + j];
+    slice(w ? gr.bv_b : gr.bk_b, a.c)[j] = acc;
+  }
+  for (int i = threadIdx.x; i < 2 * S * CG_C; i += blockDim.x) {
+    // the bank rows: sum @ rnd(W)^T, [S, C] each
+    const int w = i / (S * CG_C), e = i - w * S * CG_C;
+    const int mm = e / CG_C, kk = e - mm * CG_C;
+    const float* W = (w ? f.bv_w : f.bk_w) + kk * CG_CPERG;
+    const float* dsum = dkb + w * 256 + mm * CG_CPERG;
+    float acc = 0.f;
+#pragma unroll
+    for (int j = 0; j < CG_CPERG; ++j)
+      acc = fmaf(dsum[j], rnd<bf16>(W[j]), acc);
+    slice(w ? gr.bank_v : gr.bank_k, a.c)[e] = zero_attn ? 0.f : acc;
+  }
+  __syncthreads();
+  // ---- the weight gradients over every row of the block, each stored
+  // once into the slice (zeros for the guarded branch's q, k, v) ---------
+  bf16* stage = reinterpret_cast<bf16*>(qv_smem);
+  wgrad_block(opp, opp + CG_GW, CB_OPP, CG_ROWS * passes, CG_GW, C,
+              slice(gr.proj_w, a.c), C, slice(gr.proj_b, a.c), stage,
+              CB_SMEM_BYTES / 2);
+  for (int w = 0; w < 3; ++w) {
+    // q, k or v's slice fields by selects (an array indexed by w would go
+    // to the stack)
+    float* gw = slice(w == 0 ? gr.q_w : w == 1 ? gr.k_w : gr.v_w, a.c);
+    float* gb = slice(w == 0 ? gr.q_b : w == 1 ? gr.k_b : gr.v_b, a.c);
+    if (zero_attn) {
+      for (int i = threadIdx.x; i < CG_CPG * CG_CPERG; i += blockDim.x)
+        gw[i] = 0.f;
+      for (int i = threadIdx.x; i < CG_CPERG; i += blockDim.x) gb[i] = 0.f;
+    } else {
+      wgrad_block(opq, opq + CG_CPG + CG_CPERG * w, CB_OPQ,
+                  CG_ROWS * CG_G * passes, CG_CPG, CG_CPERG, gw, CG_CPERG,
+                  gb, stage, CB_SMEM_BYTES / 2);
+    }
+  }
+}
+
+}  // namespace qv
+
+// bf16 at hqavit_c100's widths: `a` as for qv_unit_cga_bwd with a
+// per-block scratch of cga_bwd_mma_scratch_floats(d), the bf16 weights
+// beside it (CgaBwdMmaArgs); the workspace `gws` may hold anything (the
+// kernel stores every field).  ERR_ARGS for any other geometry or type
+// (the wrapper checks them first, cga_bwd_mma_error).
+extern "C" int qv_unit_cga_bwd_mma(const qv::CgaBwdArgs* a, const void* w,
+                                   int is_bf16, void* stream) {
+  const qv::Dims& d = a->f.d;
+  if (!is_bf16 || !d.train || d.n != qv::NT || d.nw != 1 ||
+      d.c != qv::CG_C || d.groups != qv::CG_G || d.cperg != qv::CG_CPERG ||
+      d.heads != qv::CG_H || d.bank_s > qv::CG_S || d.grid > d.B)
+    return qv::ERR_ARGS;
+  const qv::CgaBwdMmaArgs m{*a, static_cast<const qv::bf16*>(w)};
+  const int rc = qv_launch(qv::cga_bwd_mma_kernel, m, qv::CB_SMEM_BYTES,
+                           stream, d.grid);
+  if (rc != 0) return rc;
+  return qv_reduce(a->c.gws, a->c.grad, d.grid, a->c.wstride, d.rgrid, stream);
+}
+
+extern "C" int qv_unit_cga_bwd_mma_smem(const qv::Dims*) {
+  return qv::CB_SMEM_BYTES;
+}
+
+extern "C" int qv_unit_cga_bwd_mma_scratch(const qv::Dims* d) {
+  return qv::cga_bwd_mma_scratch_floats(*d);
 }

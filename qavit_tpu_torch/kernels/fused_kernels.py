@@ -20,20 +20,22 @@ the forward kernel saves only the unit's inputs, and the backward kernel
 launch adds one to ``LAUNCHES[name]``.  The kernels take the geometries of
 :data:`EVAL_GEOMETRIES` (training: :data:`TRAIN_GEOMETRIES`); any other
 raises, naming the reason (:func:`kernel_geometry_error`).  At n=64 in
-bf16 (eval) the SWA, MSDA and cross/tail units run on the tensor cores
-(``swa_mma_kernel``, ``msda_mma_kernel``, ``cross_tail_mma_kernel``), for
-the widths :func:`swa_mma_error`, :func:`msda_mma_error` and
+bf16 (eval) the SWA, MSDA, CGA and cross/tail units run on the tensor
+cores (``swa_mma_kernel``, ``msda_mma_kernel``, ``cga_mma_kernel``,
+``cross_tail_mma_kernel``), for the widths :func:`swa_mma_error`,
+:func:`msda_mma_error`, :func:`cga_mma_error` and
 :func:`cross_tail_mma_error` name; other widths raise.  At n=16 in bf16
-at hqavit_c100's widths the SWA, MSDA and cross/tail forwards run on the
-tensor cores in eval and in training (``swa_mma_kernel``,
-``msda_mma16_kernel``, ``cross_tail_mma_kernel``, four samples to a
-tile; :func:`swa_route`, :func:`msda_route`, :func:`cross_tail_route`),
-and so do the SWA, MSDA and cross/tail backward kernels
-(``swa_bwd_mma_kernel``, ``msda_bwd_mma_kernel``,
+at hqavit_c100's widths the four forwards run on the tensor cores in eval
+and in training (``swa_mma_kernel``, ``msda_mma16_kernel``,
+``cga_mma_kernel``, ``cross_tail_mma_kernel``, four samples to a tile;
+:func:`swa_route`, :func:`msda_route`, :func:`cga_route`,
+:func:`cross_tail_route`), and so do the four backward kernels
+(``swa_bwd_mma_kernel``, ``msda_bwd_mma_kernel``, ``cga_bwd_mma_kernel``,
 ``cross_tail_bwd_mma_kernel``; :func:`swa_bwd_mma_error`,
-:func:`msda_bwd_mma_error`, :func:`cross_tail_bwd_mma_error`); float32,
-and bf16 at other n=16 widths, take the CUDA-core kernels (the route is
-picked by dtype and widths before the launch, :func:`bwd_entry`).
+:func:`msda_bwd_mma_error`, :func:`cga_bwd_mma_error`,
+:func:`cross_tail_bwd_mma_error`); float32, and bf16 at other n=16
+widths, take the CUDA-core kernels (the route is picked by dtype and
+widths before the launch, :func:`bwd_entry`).
 ``ROUTES`` counts the launches of each C entry.
 """
 
@@ -60,9 +62,9 @@ LAUNCHES = {n: 0 for n in UNITS + tuple(f"{u}_bwd" for u in UNITS)}
 # tensor-core ones, and the n=16 train backward tensor-core ones)
 ROUTES = {n: 0 for n in
           UNITS + tuple(f"{u}_bwd" for u in UNITS)
-          + ("unit_swa_mma", "unit_msda_mma", "unit_cross_tail_mma",
-             "unit_swa_bwd_mma", "unit_msda_bwd_mma",
-             "unit_cross_tail_bwd_mma")}
+          + ("unit_swa_mma", "unit_msda_mma", "unit_cga_mma",
+             "unit_cross_tail_mma", "unit_swa_bwd_mma", "unit_msda_bwd_mma",
+             "unit_cga_bwd_mma", "unit_cross_tail_bwd_mma")}
 
 
 # stated tolerance of a kernel against its plain version, as a fraction of
@@ -368,10 +370,10 @@ _ENTRY = {"unit_swa": SwaArgs, "unit_msda": MsdaArgs, "unit_cga": CgaArgs,
 # units with a bf16 forward kernel on the tensor cores (n=64 eval, n=16
 # eval and training), entry
 # qv_{unit}_mma(args, bf16 weight, bf16 weight, is_bf16, stream)
-_MMA_ENTRY = ("unit_swa", "unit_msda", "unit_cross_tail")
+_MMA_ENTRY = ("unit_swa", "unit_msda", "unit_cga", "unit_cross_tail")
 # backward kernels with an n=16 bf16 tensor-core kernel, entry
 # qv_{unit}_bwd_mma(args, bf16 weights, is_bf16, stream)
-_BWD_MMA_ENTRY = ("unit_swa", "unit_msda", "unit_cross_tail")
+_BWD_MMA_ENTRY = ("unit_swa", "unit_msda", "unit_cga", "unit_cross_tail")
 _BOUND: Dict[int, bool] = {}
 SMEM_LIMIT = 232448          # bytes of shared memory a block may opt in to
 
@@ -499,6 +501,25 @@ def swa_mma_error(g: FusedGeom) -> Optional[str]:
     return None
 
 
+def cga_mma_error(g: FusedGeom) -> Optional[str]:
+    """Why the bf16 CGA kernel (``cga_mma_kernel``, written for
+    hqavit_c100's and hqavit_tiny_in's widths) cannot run geometry ``g``
+    (None if it can): n=16 in eval and in training, n=64 in four SWA
+    windows in eval (:func:`kernel_geometry_error` refuses n=64 in
+    training)."""
+    checks = (
+        ((g.n, g.nw) in ((16, 1), (64, 4)),
+         "n=16 in one SWA window or n=64 in four"),
+        ((g.c, g.groups, g.cperg, g.heads) == (192, 6, 16, 4),
+         "C=192 in 6 channel groups of 32, cperg 16 and 4 heads"),
+        (g.bank_s <= 16, "at most 16 bank rows"),
+    )
+    for ok, need in checks:
+        if not ok:
+            return f"the bf16 CGA kernel needs {need}; got {g}"
+    return None
+
+
 def cross_tail_mma_error(g: FusedGeom) -> Optional[str]:
     """Why the bf16 cross/tail kernel (``cross_tail_mma_kernel``, written
     for hqavit_tiny_in's and hqavit_c100's widths) cannot run geometry
@@ -572,8 +593,25 @@ def cross_tail_bwd_mma_error(g: FusedGeom) -> Optional[str]:
     return None
 
 
+def cga_bwd_mma_error(g: FusedGeom) -> Optional[str]:
+    """Why the n=16 bf16 CGA backward kernel (``cga_bwd_mma_kernel``,
+    written for hqavit_c100's widths) cannot run geometry ``g`` (None if
+    it can)."""
+    checks = (
+        ((g.n, g.nw) == (16, 1), "n=16 in one SWA window"),
+        ((g.c, g.groups, g.cperg, g.heads) == (192, 6, 16, 4),
+         "C=192 in 6 channel groups of 32, cperg 16 and 4 heads"),
+        (g.bank_s <= 16, "at most 16 bank rows"),
+    )
+    for ok, need in checks:
+        if not ok:
+            return f"the n=16 bf16 CGA backward kernel needs {need}; got {g}"
+    return None
+
+
 _BWD_MMA_ERROR = {"unit_swa": swa_bwd_mma_error,
                   "unit_msda": msda_bwd_mma_error,
+                  "unit_cga": cga_bwd_mma_error,
                   "unit_cross_tail": cross_tail_bwd_mma_error}
 
 
@@ -867,6 +905,11 @@ def launch_cga(lib, p: Params, xn, bank_k, bank_v, g: FusedGeom, dtype,
     a.bv_w, a.bv_b = lc.dense(pc["bank_v_proj"], c, g.cperg)
     a.bank_k, a.bank_v = _bank(lc, bank_k, bank_v)
     a.proj_w, a.proj_b = lc.dense(pc["proj"], g.groups * g.cperg, c)
+    if cga_route(g, dtype) == "unit_cga_mma":
+        ws, part = _run_mma(lc, a, p, stream, cga_mma_error,
+                            _cga_qkv_packed(p), pc["proj"]["kernel"],
+                            train=train, grid=grid, branch="cga")
+        return out if train is None else (out, part, ws)
     if train is None:
         lc.run(a, _fwd_dims(lc, p, None, None), stream)
         return out
@@ -943,8 +986,20 @@ def msda_route(g: FusedGeom, dtype) -> str:
     return _mma_route("unit_msda", msda_mma_error, g, dtype)
 
 
+def cga_route(g: FusedGeom, dtype) -> str:
+    return _mma_route("unit_cga", cga_mma_error, g, dtype)
+
+
 def cross_tail_route(g: FusedGeom, dtype) -> str:
     return _mma_route("unit_cross_tail", cross_tail_mma_error, g, dtype)
+
+
+def _cga_qkv_packed(p: Params) -> torch.Tensor:
+    """The CGA unit's q, k and v kernels side by side, [C / groups,
+    3 cperg], as ``cga_mma_kernel`` reads them."""
+    pc = p["cga"]
+    return torch.cat([pc[k]["kernel"] for k in ("q_proj", "k_proj",
+                                                "v_proj")], dim=1)
 
 
 def _cross_tail_packed(p: Params) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -978,7 +1033,7 @@ class _Grads:
     field, and views of the reduced sums.  Zeroed for the kernels that add
     into their slice; left as allocated (``zero=False``) for a kernel that
     stores every field of its slice without reading it
-    (``swa_bwd_mma_kernel``)."""
+    (``swa_bwd_mma_kernel``, ``cga_bwd_mma_kernel``)."""
 
     def __init__(self, lc: _Launch, unit: str, p: Params, grid: Grid,
                  zero: bool = True):
@@ -1141,12 +1196,19 @@ def launch_cga_bwd(lib, p: Params, xn, bank_k, bank_v, g: FusedGeom, dtype,
     f.bank_k, f.bank_v = _bank(lc, bank_k, bank_v)
     f.proj_w, f.proj_b = lc.dense(pc["proj"], g.groups * g.cperg, c)
     f.d = _dims(g, lc.b, p, grid.blocks, grid.reduce, train.rng)
-    grads = _Grads(lc, "unit_cga", p, grid)
+    entry = bwd_entry("unit_cga", g, dtype)
+    mma = entry == "unit_cga_bwd_mma"
+    grads = _Grads(lc, "unit_cga", p, grid, zero=not mma)
     grads.fill(a.g)
-    _bwd_common(lc, a.c, bank_k, bank_v, ws, grads)
+    w16 = scratch = None
+    if mma:                 # q | k | v, proj, then both transposed
+        w16 = _bwd_weights(lc, _cga_qkv_packed(p), pc["proj"]["kernel"])
+        per = lib.qv_unit_cga_bwd_mma_scratch(ctypes.byref(f.d))
+        scratch = torch.empty(grid.blocks * per, device=lc.device)
+    _bwd_common(lc, a.c, bank_k, bank_v, ws, grads, scratch)
     d_xn = torch.empty_like(xn)
     a.d_out, a.d_xn = lc.act(d_out), lc.act(d_xn)
-    _run_bwd(lc, a, f.d, stream, "unit_cga_bwd")
+    _run_bwd(lc, a, f.d, stream, entry, w16)
     r = grads.result()
     return (d_xn, r.pop(("bank_k",)), r.pop(("bank_v",))), r
 

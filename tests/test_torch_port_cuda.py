@@ -10,15 +10,15 @@ hqavit_c100 forward that launches every kernel 8 times and a full-depth
 hqavit_proc_tin forward that launches each forward unit 12 times, both
 matching the plain path's logits, each
 unit's train-mode forward and backward kernel against the plain version
-and autograd (fused_kernels.GRAD_TOLERANCE; the bf16 SWA, MSDA and
-cross/tail forwards and backwards through their tensor-core entries), and
-one full-width train
+and autograd (fused_kernels.GRAD_TOLERANCE; the bf16 forwards and
+backwards through their tensor-core entries), the n=16 bf16 CGA forward
+(eval and train) and backward routes, and one full-width train
 step that launches every forward and backward kernel 8 times; the
 flash-attention kernel against its plain version at the 224 shapes and
 where Nkv and D are not multiples of 16, and a full-depth
 qavit_224_v1_proc forward that launches it 16 times and matches the plain
 path's logits; the tensor-core primitives' self-test (ldmatrix ->
-mma.sync against A @ B) and the n=64 bf16 SWA, MSDA and cross/tail
+mma.sync against A @ B) and the n=64 bf16 SWA, MSDA, CGA and cross/tail
 kernels with a short bank and with their NaN guard tripped."""
 
 from unittest import mock
@@ -144,11 +144,9 @@ def test_backward_kernels_match_autograd_on_the_card(cuda, unit, dtype):
     r = UC.check_unit(lib, unit, p, train, batch, g, dtype, grid, cots,
                       torch.cuda.current_stream().cuda_stream)
     assert r.ok, r
-    # the route: bf16 SWA, MSDA and cross/tail forwards and backwards on
-    # the tensor cores
+    # the route: every bf16 forward and backward on the tensor cores
     entry = K.bwd_entry(unit, g, dtype)
-    mma = dtype == torch.bfloat16 and unit in ("unit_swa", "unit_msda",
-                                               "unit_cross_tail")
+    mma = dtype == torch.bfloat16
     assert entry.endswith("_mma") == mma
     assert K.ROUTES[entry] == 1
     assert K.ROUTES[unit + ("_mma" if mma else "")] == 1
@@ -271,12 +269,20 @@ def test_multiwindow_msda_nan_guard_bf16_on_the_card(cuda):
 
 
 def _tin_unit(cuda, unit, bank_s, seed, nan_at=None):
-    """(kernel output, plain output) of the n=64 bf16 SWA (x) or
+    """(kernel output, plain output) of the n=64 bf16 SWA (x), CGA (xn) or
     cross/tail (xn, the cross branch's q input) unit, a NaN put at
     ``nan_at`` of that input."""
     g, p, bk, bv, x = _tin_msda_inputs(cuda, bank_s, seed)
     dtype = torch.bfloat16
     with torch.inference_mode():
+        if unit == "cga":
+            if nan_at is not None:
+                x[nan_at] = float("nan")
+            K.reset_launches()
+            out = K.unit_cga(p, x, bk, bv, g, dtype)
+            torch.cuda.synchronize()
+            assert K.ROUTES["unit_cga_mma"] == 1
+            return out, K.cga_plain(p, x, bk, bv, g, dtype)
         if unit == "swa":
             if nan_at is not None:
                 x[nan_at] = float("nan")
@@ -293,20 +299,20 @@ def _tin_unit(cuda, unit, bank_s, seed, nan_at=None):
         return out, K.cross_tail_plain(p, *args)
 
 
-@pytest.mark.parametrize("unit", ["swa", "cross_tail"])
+@pytest.mark.parametrize("unit", ["swa", "cross_tail", "cga"])
 def test_multiwindow_mma_short_bank_on_the_card(cuda, unit):
-    """The n=64 bf16 SWA and cross/tail kernels with 12 bank rows."""
+    """The n=64 bf16 SWA, CGA and cross/tail kernels with 12 bank rows."""
     out, ref = _tin_unit(cuda, unit, 12, 6)
     for o, r in zip(out if unit == "swa" else (out,),
                     ref if unit == "swa" else (ref,)):
         assert K.within_tolerance(o, r), K.max_abs_err(o, r)
 
 
-@pytest.mark.parametrize("unit", ["swa", "cross_tail"])
+@pytest.mark.parametrize("unit", ["swa", "cross_tail", "cga"])
 def test_multiwindow_mma_nan_guard_bf16_on_the_card(cuda, unit):
-    """A NaN in one sample: SWA's output is proj(0) in every sample and xn
-    keeps the NaN row; the cross/tail output is finite, every sample's
-    cross attention zero, as plain."""
+    """A NaN in one sample: SWA's and CGA's output is proj(0) in every
+    sample and SWA's xn keeps the NaN row; the cross/tail output is
+    finite, every sample's cross attention zero, as plain."""
     out, ref = _tin_unit(cuda, unit, 16, 7, (9, 3, 5))
     if unit == "swa":
         assert torch.equal(out[0], ref[0])
@@ -314,3 +320,71 @@ def test_multiwindow_mma_nan_guard_bf16_on_the_card(cuda, unit):
     nan = torch.isnan(ref)
     assert torch.equal(torch.isnan(out), nan)
     assert K.within_tolerance(out[~nan], ref[~nan])
+
+
+def _c100_cga_inputs(cuda, b, seed):
+    from qavit_tpu_torch.kernels import fused_ref as R
+    from qavit_tpu_torch.kernels import unit_checks as UC
+    from qavit_tpu_torch.nn.bank import GlobalBankParams
+
+    cfg = get_preset("hqavit_c100").model
+    g = make_geom(cfg)
+    gen = torch.Generator().manual_seed(seed)
+    p = param_tree(init_weights(QuadBlockParams(cfg, g), gen).to(cuda))
+    bank = init_weights(GlobalBankParams(cfg.bank, g.c), gen).to(cuda)
+    bankp = {k: v.detach() for k, v in bank.write_params().items()}
+    rows = tuple((torch.randn(1, g.bank_s, g.c, generator=gen) * 0.5).to(
+        cuda) for _ in range(2))
+    x = torch.randn(b, g.n, g.c, generator=gen).to(cuda, torch.bfloat16)
+    batch = UC.unit_inputs(p, g, torch.bfloat16, x, rows)["unit_cga"]
+    train = K.UnitTrain(R.block_rng(seed, 0.1, 0.1), bankp)
+    return g, p, batch, train, gen
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_n16_cga_forward_takes_the_tensor_cores(cuda, train):
+    """The n=16 bf16 CGA forward at hqavit_c100's widths, eval and train,
+    over 63 samples (a short last tile) through ``cga_mma_kernel`` only,
+    within the stated tolerances of the plain version."""
+    from qavit_tpu_torch.kernels import build
+    from qavit_tpu_torch.kernels import unit_checks as UC
+
+    g, p, batch, tr, _ = _c100_cga_inputs(cuda, 63, 11)
+    dtype = torch.bfloat16
+    lib = K.bind(build.load().lib)
+    stream = torch.cuda.current_stream().cuda_stream
+    K.reset_launches()
+    with torch.inference_mode():
+        if train:
+            *outs, _ = K.launch_cga(lib, p, *batch, g, dtype, stream, tr,
+                                    K.train_grid(cuda, 63))
+            ref = K.cga_plain(p, *batch, g, dtype, tr)
+            out_err, part_err = UC.forward_errors(
+                [outs[0], outs[1][0], outs[1][1]], ref, 1)
+            assert out_err <= K.TOLERANCE[dtype], out_err
+            assert part_err <= UC.PARTIAL_TOLERANCE, part_err
+        else:
+            out = K.unit_cga(p, *batch, g, dtype)
+            torch.cuda.synchronize()
+            ref = K.cga_plain(p, *batch, g, dtype)
+            assert K.within_tolerance(out, ref), K.max_abs_err(out, ref)
+    assert (K.ROUTES["unit_cga_mma"], K.ROUTES["unit_cga"]) == (1, 0)
+
+
+def test_n16_cga_backward_takes_the_tensor_cores(cuda):
+    """The n=16 bf16 CGA backward at hqavit_c100's widths through
+    ``cga_bwd_mma_kernel``, its gradients against autograd through the
+    plain version (GRAD_TOLERANCE), over 63 samples (a short last pass)."""
+    from qavit_tpu_torch.kernels import build
+    from qavit_tpu_torch.kernels import unit_checks as UC
+
+    g, p, batch, tr, gen = _c100_cga_inputs(cuda, 63, 12)
+    dtype = torch.bfloat16
+    lib = K.bind(build.load().lib)
+    cots = UC.random_cotangents("unit_cga", batch, dtype, gen)
+    K.reset_launches()
+    r = UC.check_unit(lib, "unit_cga", p, tr, batch, g, dtype,
+                      K.train_grid(cuda, 63), cots,
+                      torch.cuda.current_stream().cuda_stream)
+    assert r.ok, r
+    assert (K.ROUTES["unit_cga_bwd_mma"], K.ROUTES["unit_cga_bwd"]) == (1, 0)

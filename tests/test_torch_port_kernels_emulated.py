@@ -6,10 +6,10 @@ the stated tolerance (fused_kernels.TOLERANCE): the unit kernels at the
 tiny width, the hqavit_c100 width (16 tokens, one SWA window) and the
 hqavit_tiny_in geometry (64 tokens, four SWA windows, full width), the
 flash-attention kernel at the 224 path's shapes, in float32 and bf16.
-The bf16 flash kernel, the n=64 bf16 SWA, MSDA and cross/tail kernels and
-the n=16 bf16 SWA, MSDA and cross/tail kernels at the hqavit_c100 width
-(four samples to a tile of 64 rows; at B=2 a short tile, at B=6 a full
-tile and a short one) run on the tensor cores, which the route counts
+The bf16 flash kernel, the n=64 bf16 SWA, MSDA, CGA and cross/tail kernels
+and the n=16 bf16 SWA, MSDA, CGA and cross/tail kernels at the hqavit_c100
+width (four samples to a tile of 64 rows; at B=2 a short tile, at B=6 a
+full tile and a short one) run on the tensor cores, which the route counts
 (fused_kernels.ROUTES) confirm: the emulation rebuilds
 mma.sync's and ldmatrix's
 fragments from the PTX ISA's layouts, so their fragment indexing is
@@ -85,8 +85,8 @@ def case(request):
 
 
 def _mma_entry(unit, g, dtype) -> str:
-    """The C entry an SWA or MSDA launch must take: the tensor-core kernel
-    in bf16 at C=192 (n=16 and n=64), else the CUDA-core kernel."""
+    """The C entry an SWA, MSDA or CGA launch must take: the tensor-core
+    kernel in bf16 at C=192 (n=16 and n=64), else the CUDA-core kernel."""
     mma = dtype == torch.bfloat16 and g.c == 192
     return f"unit_{unit}_mma" if mma else f"unit_{unit}"
 
@@ -121,8 +121,7 @@ def test_branch_kernel(emu_lib, case, dtype, unit):
         K.reset_launches()
         _check(launch(emu_lib, p, xn, bk, bv, g, dtype),
                plain(p, xn, bk, bv, g, dtype))
-    entry = _mma_entry(unit, g, dtype) if unit == "msda" else "unit_cga"
-    assert K.ROUTES[entry] == 1
+    assert K.ROUTES[_mma_entry(unit, g, dtype)] == 1
 
 
 def _cross_tail_entry(g, dtype) -> str:
@@ -239,16 +238,25 @@ def _check_guarded(out, ref):
     _check(out[~nan], ref[~nan])
 
 
-@pytest.mark.parametrize("unit", ["swa", "cross_tail"])
+@pytest.mark.parametrize("unit", ["swa", "cross_tail", "cga"])
 def test_mma_nan_guard_bf16(emu_lib, case, unit):
     """bf16: a NaN in one sample trips the unit's batch-wide guard.  SWA
     (x): every sample's output is proj(0) and xn keeps the sample's NaN
-    row; cross/tail (xn, read only by the cross branch's q): every
-    sample's cross attention output is zero, the block output finite."""
+    row; CGA (xn): every sample's output is proj(0); cross/tail (xn, read
+    only by the cross branch's q): every sample's cross attention output
+    is zero, the block output finite."""
     g, p, (bk, bv), x = case
     dtype = torch.bfloat16
     x = x.to(dtype)
     with torch.no_grad():
+        if unit == "cga":
+            xn = K.swa_plain(p, x, bk, bv, g, dtype)[1].clone()
+            xn[1, 3, 5] = float("nan")
+            K.reset_launches()
+            out = K.launch_cga(emu_lib, p, xn, bk, bv, g, dtype)
+            assert torch.equal(out, K.cga_plain(p, xn, bk, bv, g, dtype))
+            assert K.ROUTES[_mma_entry("cga", g, dtype)] == 1
+            return
         if unit == "swa":
             x[1, 3, 5] = float("nan")
             out, xn = K.launch_swa(emu_lib, p, x, bk, bv, g, dtype)
@@ -290,13 +298,13 @@ def test_msda_kernel_short_bank(emu_lib):
 
 
 @pytest.mark.parametrize("unit", ["swa", "cross_tail", "cross_tail_n16",
-                                  "swa_n16", "msda_n16"])
+                                  "swa_n16", "msda_n16", "cga", "cga_n16"])
 def test_mma_kernel_short_bank(emu_lib, unit):
-    """The n=64 bf16 SWA and cross/tail kernels, and the SWA, MSDA and
-    cross/tail kernels at n=16 (hqavit_c100's width), with 12 bank rows:
-    44 keys a head in each SWA window and MSDA sample, 12 in the cross
-    attention, the padded keys masked (the projected bank rows past 12 are
-    finite bias rows)."""
+    """The n=64 bf16 SWA, CGA and cross/tail kernels, and the SWA, MSDA,
+    CGA and cross/tail kernels at n=16 (hqavit_c100's width), with 12 bank
+    rows: 44 keys a head in each SWA window and MSDA sample, 76 and 28 a
+    CGA head, 12 in the cross attention, the padded keys masked (the
+    projected bank rows past 12 are finite bias rows, the CGA's zeros)."""
     g, p, bk, bv, x = _short_bank_case(
         "flagship_width" if unit.endswith("n16") else "multiwindow")
     dtype = torch.bfloat16
@@ -314,6 +322,11 @@ def test_mma_kernel_short_bank(emu_lib, unit):
                    K.msda_plain(p, ref_xn, bk, bv, g, dtype))
             assert K.ROUTES["unit_msda_mma"] == 1
             return
+        if unit.startswith("cga"):
+            _check(K.launch_cga(emu_lib, p, ref_xn, bk, bv, g, dtype),
+                   K.cga_plain(p, ref_xn, bk, bv, g, dtype))
+            assert K.ROUTES["unit_cga_mma"] == 1
+            return
         m = K.msda_plain(p, ref_xn, bk, bv, g, dtype)
         c = K.cga_plain(p, ref_xn, bk, bv, g, dtype)
         args = (x, ref_xn, ref_out, m, c, bk, bv, g, dtype)
@@ -324,9 +337,9 @@ def test_mma_kernel_short_bank(emu_lib, unit):
 
 
 @pytest.mark.parametrize("unit", ["swa", "cross_tail", "cross_tail_n16",
-                                  "swa_n16", "msda_n16"])
+                                  "swa_n16", "msda_n16", "cga", "cga_n16"])
 def test_mma_geometry_errors(emu_lib, unit):
-    """The n=64 bf16 SWA and cross/tail kernels take hqavit_tiny_in's
+    """The n=64 bf16 SWA, CGA and cross/tail kernels take hqavit_tiny_in's
     geometry; at C=48 (which the float32 n=64 kernels take) the error
     names the width, and a bf16 n=64 eval launch raises it before any
     kernel runs (no fallback).  The cross/tail kernel also takes
@@ -334,12 +347,14 @@ def test_mma_geometry_errors(emu_lib, unit):
     width before the launch (bf16 at C=192 on the tensor cores; float32,
     and bf16 at C=48, on the CUDA cores), and its C entry returns ERR_ARGS
     (1) for C=48 and for n=64 in training, before it touches an
-    argument.  So do the SWA and MSDA kernels at n=16 (their C entries
-    also refuse MSDA's 17 pooled rows a sample and n=64 in training)."""
-    if unit in ("swa_n16", "msda_n16"):
+    argument.  So do the SWA, MSDA and CGA kernels at n=16 (their C
+    entries also refuse MSDA's 17 pooled rows a sample, CGA's 17 bank rows
+    and n=64 in training)."""
+    if unit in ("swa_n16", "msda_n16", "cga_n16"):
         name = unit[:-4]
         error, route = {"swa": (K.swa_mma_error, K.swa_route),
-                        "msda": (K.msda_mma_error, K.msda_route)}[name]
+                        "msda": (K.msda_mma_error, K.msda_route),
+                        "cga": (K.cga_mma_error, K.cga_route)}[name]
         flagship, tiny = make_geom(_cfg("flagship_width")), make_geom(
             _cfg("tiny"))
         assert error(flagship) is None
@@ -355,6 +370,9 @@ def test_mma_geometry_errors(emu_lib, unit):
                (wide, K.R.block_rng(1, 0.1, 0.1))]
         if name == "msda":
             bad.append((flagship._replace(msda_keep=17), None))
+            assert error(bad[-1][0]) is not None
+        if name == "cga":
+            bad.append((flagship._replace(bank_s=17), None))
             assert error(bad[-1][0]) is not None
         p = param_tree(init_weights(QuadBlockParams(_cfg("tiny"), tiny),
                                     torch.Generator().manual_seed(2)))
@@ -385,7 +403,7 @@ def test_mma_geometry_errors(emu_lib, unit):
             assert emu_lib.qv_unit_cross_tail_mma(ctypes.byref(args), None,
                                                   None, 1, None) == 1
         return
-    error = {"swa": K.swa_mma_error,
+    error = {"swa": K.swa_mma_error, "cga": K.cga_mma_error,
              "cross_tail": K.cross_tail_mma_error}[unit]
     cfg = _cfg("multiwindow")
     assert error(make_geom(cfg)) is None
@@ -401,16 +419,18 @@ def test_mma_geometry_errors(emu_lib, unit):
     with pytest.raises(ValueError, match="C=192"):
         if unit == "swa":
             K.launch_swa(None, p, x, bk, bv, g, torch.bfloat16)
+        elif unit == "cga":
+            K.launch_cga(None, p, x, bk, bv, g, torch.bfloat16)
         else:
             K.launch_cross_tail(None, p, x, x, x, x, x, bk, bv, g,
                                 torch.bfloat16)
 
 
-@pytest.mark.parametrize("unit", ["swa", "msda"])
+@pytest.mark.parametrize("unit", ["swa", "msda", "cga"])
 def test_n16_mma_kernels_two_tiles(emu_lib, unit):
-    """The n=16 bf16 SWA and MSDA tensor-core kernels at hqavit_c100's
-    width over 6 samples: a full tile of four and a short one of two,
-    each sample's rows loaded and stored alone."""
+    """The n=16 bf16 SWA, MSDA and CGA tensor-core kernels at
+    hqavit_c100's width over 6 samples: a full tile of four and a short
+    one of two, each sample's rows loaded and stored alone."""
     cfg = _cfg("flagship_width")
     g = make_geom(cfg)
     gen = torch.Generator().manual_seed(9)
@@ -426,8 +446,11 @@ def test_n16_mma_kernels_two_tiles(emu_lib, unit):
             out, xn = K.launch_swa(emu_lib, p, x, bk, bv, g, dtype)
             _check(xn, ref_xn)
             ref = ref_out
-        else:
+        elif unit == "msda":
             out = K.launch_msda(emu_lib, p, ref_xn, bk, bv, g, dtype)
             ref = K.msda_plain(p, ref_xn, bk, bv, g, dtype)
+        else:
+            out = K.launch_cga(emu_lib, p, ref_xn, bk, bv, g, dtype)
+            ref = K.cga_plain(p, ref_xn, bk, bv, g, dtype)
     _check(out, ref)
     assert K.ROUTES[f"unit_{unit}_mma"] == 1

@@ -8,16 +8,16 @@ the plain version, with the same hash masks (dropout 0.1, drop-path 0.1)
 and cotangents, at the tiny width and the hqavit_c100 width, in float32
 and bf16, over 2 blocks: 3 samples at the tiny width, 6 at hqavit_c100's,
 so that the per-block partial sums and their reduction are exercised
-there too, where the bf16 SWA, MSDA and cross/tail forwards run on the
-tensor cores over tiles of four samples (two tiles, the second short, a
-block each), and the bf16 tensor-core backward kernels of those units,
-which take two samples a pass, run a pass with one sample.  Those three
-also run in bf16 at that width with the NaN guard tripped and with 12
-bank rows (the SWA backward with its gradient workspace left as
-allocated, since it stores every field), their routes (fused_kernels.
-bwd_entry, swa_route, msda_route, cross_tail_route) are checked, their
-backward C entries return ERR_ARGS for a geometry they do not take, and
-the SWA and MSDA tensor-core forwards replay the plain version's masks.
+there too, where the bf16 forwards run on the tensor cores over tiles of
+four samples (two tiles, the second short, a block each), and the bf16
+tensor-core backward kernels, which take two samples a pass (the CGA
+backward four), run a short pass.  Those four also run in bf16 at that
+width with the NaN guard tripped and with 12 bank rows (the SWA and CGA
+backwards with their gradient workspace left as allocated, since they
+store every field), their routes (fused_kernels.bwd_entry, swa_route,
+msda_route, cga_route, cross_tail_route) are checked, their backward C
+entries return ERR_ARGS for a geometry they do not take, and the SWA,
+MSDA and CGA tensor-core forwards replay the plain version's masks.
 Tolerances: fused_kernels.TOLERANCE
 (outputs), unit_checks.PARTIAL_TOLERANCE (partials) and
 fused_kernels.GRAD_TOLERANCE (gradients), each stated with its reason
@@ -169,7 +169,7 @@ def test_kernel_masks_are_the_plain_masks(emu_lib, tiny_case):
     assert (out - eval_out).abs().max() > 0.1 * eval_out.abs().max()
 
 
-MMA_BWD = ["unit_swa", "unit_msda", "unit_cross_tail"]
+MMA_BWD = ["unit_swa", "unit_msda", "unit_cga", "unit_cross_tail"]
 
 
 @pytest.fixture(scope="module")
@@ -212,6 +212,7 @@ def test_mma_backward_route(emu_lib, unit):
     width and for float32, before it touches an argument."""
     error = {"unit_swa": K.swa_bwd_mma_error,
              "unit_msda": K.msda_bwd_mma_error,
+             "unit_cga": K.cga_bwd_mma_error,
              "unit_cross_tail": K.cross_tail_bwd_mma_error}[unit]
     flagship, tiny = make_geom(_cfg("flagship_width")), make_geom(_cfg("tiny"))
     assert error(flagship) is None
@@ -223,7 +224,6 @@ def test_mma_backward_route(emu_lib, unit):
         mma = dtype == torch.bfloat16 and error(g) is None
         assert K.bwd_entry(unit, g, dtype) == unit + ("_bwd_mma" if mma
                                                       else "_bwd")
-    assert K.bwd_entry("unit_cga", flagship, torch.bfloat16) == "unit_cga_bwd"
     p = _case("tiny")[1]
     entry = getattr(emu_lib, f"qv_{unit}_bwd_mma")
     for g, is_bf16 in ((tiny, 1), (flagship, 0)):
@@ -233,7 +233,7 @@ def test_mma_backward_route(emu_lib, unit):
         assert entry(ctypes.byref(args), None, is_bf16, None) == 1
 
 
-@pytest.mark.parametrize("unit", ["unit_swa", "unit_msda"])
+@pytest.mark.parametrize("unit", ["unit_swa", "unit_msda", "unit_cga"])
 def test_mma_forward_masks_are_the_plain_masks(emu_lib, flagship_case,
                                                unit):
     """The n=16 tensor-core forwards in training at dropout 0.5: outputs
