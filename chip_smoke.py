@@ -88,7 +88,26 @@ it stopped:
       launch); its logits through the kernels against the plain versions
       on the card, bf16 and float32; the eval forward's time at B=128 and
       B=1024; each unit kernel's time against its plain version and its
-      bound at B=1024, bf16; one forward traced at B=128.
+      bound at B=1024, bf16; one forward traced at B=128;
+  (m) n=64 training kernels at hqavit_proc_tin's geometry, bf16, B=256,
+      dropout 0.1 and drop-path 0.1 masks on: each unit's train-mode
+      forward (outputs and bank partials) against its plain version and
+      its backward kernel's gradients against autograd through the plain
+      version, every launch through its n=64 C entry (qv_unit_*_mma_train64,
+      qv_unit_*_bwd_mma64); the same with the NaN guard tripped in one
+      sample, with 12 bank rows, and at B=255 (a short last pass); the
+      eight kernels' registers, spills and shared memory;
+  (n) the n=64 train path: ``qavit_tpu_torch.cli.bench --preset
+      hqavit_proc_tin --train --batch-sizes 128`` with every launch count
+      set to 0 just before and read just after (each of the eight kernels
+      12 times per step through its n=64 entry, the bank count +36 per
+      step); a float32 step refused before any launch; the bf16 kernel
+      step against the float32 and bf16 plain steps on the card (phase
+      (g)'s rule) and bf16 losses over 5 steps; the step's time at B=128
+      and at the largest of 1024, 512 and 256 that fits, with its peak
+      memory; each unit through the autograd wrapper at B=128 against the
+      plain version, and each n=64 train kernel's time on the device and
+      per call against its plain version and bound.
 
 Prints the kernels' JSON record and the card's name and power limit
 before the last line, and ends with
@@ -158,6 +177,7 @@ TIN_PRESET = "hqavit_proc_tin"
 TIN_BATCH = 128          # phase (l): the preset's batch
 TIN_BIG_BATCH = 1024     # phase (l): timing
 TIN_BATCHES = 2          # evaluated batches in phase (l)
+TIN_TRAIN_BIG = (1024, 512, 256)   # phase (n): the largest that fits
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"torch.float32": 67e12, "torch.bfloat16": 989e12}
 REPLACES = {
@@ -420,6 +440,17 @@ def backward_checks(K, cfg, g, p, dev):
 MMA_BWD = ("unit_swa", "unit_msda", "unit_cga", "unit_cross_tail")
 
 
+def twelve_bank_rows(K, g, rows, train):
+    """The geometry, bank rows and write projections of a 12-row bank
+    (the first 12 rows and gate columns)."""
+    bank12 = dict(train.bankp)
+    bank12["write_gate_kernel"] = bank12["write_gate_kernel"][:, :12].clone()
+    bank12["write_gate_bias"] = bank12["write_gate_bias"][:12].clone()
+    return (g._replace(bank_s=12),
+            tuple(t[:, :12].contiguous() for t in rows),
+            K.UnitTrain(train.rng, bank12))
+
+
 def mma_backward_checks(K, g, p, dev, lib, stream, grid, train, rows, gen):
     """Phase (f), the bf16 tensor-core forward and backward kernels: the
     NaN guard tripped in one sample, and 12 bank rows (the keys past them
@@ -433,12 +464,7 @@ def mma_backward_checks(K, g, p, dev, lib, stream, grid, train, rows, gen):
     dtype, failed = torch.bfloat16, []
     x = (torch.randn(CHECK_BATCH, g.n, g.c, generator=gen) * 2).to(dev,
                                                                    dtype)
-    g12 = g._replace(bank_s=12)
-    rows12 = tuple(t[:, :12].contiguous() for t in rows)
-    bank12 = dict(train.bankp)
-    bank12["write_gate_kernel"] = bank12["write_gate_kernel"][:, :12].clone()
-    bank12["write_gate_bias"] = bank12["write_gate_bias"][:12].clone()
-    train12 = K.UnitTrain(train.rng, bank12)
+    g12, rows12, train12 = twelve_bank_rows(K, g, rows, train)
     for case in ("NaN guard", "12 bank rows"):
         twelve = case == "12 bank rows"
         gc, rc = (g12, rows12) if twelve else (g, rows)
@@ -533,27 +559,34 @@ def grad_errors(got, ref, norm: str = "max"):
     return sorted(errs, reverse=True)
 
 
-def kernel_vs_plain_step(K, cfg, dev):
+def kernel_vs_plain_step(K, cfg, dev, preset="hqavit_c100", batch=BATCH):
     """The kernel train step against the plain step on the same weights,
-    batch and seeds, at the main path's batch: the gradients of one step
-    in float32 and in bf16, then bf16 losses over BF16_STEPS steps."""
+    batch and seeds: the gradients of one step in float32 (where the
+    kernels train in float32: n=16) and in bf16, then bf16 losses over
+    BF16_STEPS steps."""
     import torch
     from unittest import mock
 
     from qavit_tpu_torch.configs import get_preset
+    from qavit_tpu_torch.kernels.fused_ref import make_geom
     from qavit_tpu_torch.nn.models import build_model
     from qavit_tpu_torch.train.optim import make_schedule
     from qavit_tpu_torch.train.state import create_train_state
     from qavit_tpu_torch.train.steps import loss_and_grads, make_train_step
 
-    tc = get_preset("hqavit_c100").train
+    tc = get_preset(preset).train
+    f32_kernels = K.kernel_geometry_error(make_geom(cfg), True,
+                                          torch.float32) is None
     gen = torch.Generator().manual_seed(11)
-    imgs = torch.randn(BATCH, 32, 32, 3, generator=gen).to(dev)
-    tgts = torch.randint(0, cfg.num_classes, (BATCH,), generator=gen).to(dev)
+    imgs = torch.randn(batch, cfg.img_size, cfg.img_size, 3,
+                       generator=gen).to(dev)
+    tgts = torch.randint(0, cfg.num_classes, (batch,), generator=gen).to(dev)
     grads = {}
     for dtype_name in ("float32", "bfloat16"):
         mc = cfg.replace(dtype=dtype_name)
         for mode in ("kernel", "plain"):
+            if mode == "kernel" and dtype_name == "float32" and not f32_kernels:
+                continue
             model = build_model(mc, dev, seed=0)
             names = [n for n, _ in model.named_parameters()]
             with (mock.patch.multiple(K, **K.PLAIN) if mode == "plain"
@@ -563,8 +596,7 @@ def kernel_vs_plain_step(K, cfg, dev):
             grads[dtype_name, mode] = (float(loss.detach()),
                                        dict(zip(names, gr)))
             del model, gr
-    (l32, g32), (lp32, gp32) = grads["float32", "kernel"], grads[
-        "float32", "plain"]
+    lp32, gp32 = grads["float32", "plain"]
     (l16, g16), (lp16, gp16) = grads["bfloat16", "kernel"], grads[
         "bfloat16", "plain"]
     top = max(t.abs().max().item() for t in gp32.values())
@@ -576,22 +608,26 @@ def kernel_vs_plain_step(K, cfg, dev):
           flush=True)
     for name in zero:
         del g16[name], gp16[name]
-    errs = grad_errors(g32, gp32)
-    ok = errs[0][0] <= MODEL_GRAD_TOLERANCE and math.isfinite(l32)
-    print(f"train step float32 kernels vs plain, B={BATCH}: loss {l32:.6f} "
-          f"vs {lp32:.6f}; worst gradient errors relative to their scale "
-          f"{[(n, '%.2e' % r, '%.2e' % e) for r, e, n in errs[:3]]}, "
-          f"tolerance {MODEL_GRAD_TOLERANCE:.0e}  {'ok' if ok else 'FAIL'}",
-          flush=True)
-    if not ok:
-        raise AssertionError("float32 train-step gradients disagree")
+    if f32_kernels:
+        l32, g32 = grads["float32", "kernel"]
+        errs = grad_errors(g32, gp32)
+        ok = errs[0][0] <= MODEL_GRAD_TOLERANCE and math.isfinite(l32)
+        print(f"train step float32 kernels vs plain, B={batch}: loss "
+              f"{l32:.6f} vs {lp32:.6f}; worst gradient errors relative to "
+              f"their scale "
+              f"{[(n, '%.2e' % r, '%.2e' % e) for r, e, n in errs[:3]]}, "
+              f"tolerance {MODEL_GRAD_TOLERANCE:.0e}  "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError("float32 train-step gradients disagree")
+        del g32
     ref32 = {n: gp32[n] for n in gp16}
     d_k = {n: r for r, _, n in grad_errors(g16, ref32, "l2")}
     d_p = {n: r for r, _, n in grad_errors(gp16, ref32, "l2")}
     margin = sorted(((d_k[n] / (BF16_GRAD_FACTOR * d_p[n] + BF16_GRAD_SLACK),
                       n) for n in d_k), reverse=True)
     ok = margin[0][0] <= 1.0 and math.isfinite(l16)
-    print(f"train step bf16, B={BATCH}: loss kernels {l16:.6f}, plain "
+    print(f"train step bf16, B={batch}: loss kernels {l16:.6f}, plain "
           f"{lp16:.6f}, float32 plain {lp32:.6f}; per parameter, l2 distance "
           f"from the float32 plain gradient relative to its scale, kernels "
           f"vs plain bf16, worst against the limit "
@@ -603,7 +639,7 @@ def kernel_vs_plain_step(K, cfg, dev):
           flush=True)
     if not ok:
         raise AssertionError("bf16 train-step gradients disagree")
-    del grads, g32, gp32, g16, gp16
+    del grads, gp32, g16, gp16
     # bf16: the preset's train step for BF16_STEPS steps, both ways
     losses = {}
     for mode in ("kernel", "plain"):
@@ -624,7 +660,7 @@ def kernel_vs_plain_step(K, cfg, dev):
     ok = err <= BF16_LOSS_TOLERANCE and all(map(math.isfinite,
                                                 losses["kernel"]))
     print(f"train step bf16 kernels vs plain, {BF16_STEPS} steps at "
-          f"B={BATCH}: losses {['%.5f' % v for v in losses['kernel']]} "
+          f"B={batch}: losses {['%.5f' % v for v in losses['kernel']]} "
           f"vs {['%.5f' % v for v in losses['plain']]}, worst relative "
           f"{err:.2e}, tolerance {BF16_LOSS_TOLERANCE:.2e}  "
           f"{'ok' if ok else 'FAIL'}", flush=True)
@@ -674,13 +710,15 @@ def kernel_row(name, source, replaces, launches, err, ms, plain_ms, work,
     return row
 
 
-def train_unit_checks_and_timing(K, cfg, g, p, dev, launches):
-    """Phase (h): at B=1024 in bf16 with masks on, each unit through the
-    autograd wrapper the train path calls (``_FusedUnit``): its outputs
-    and bank partials against the plain version, its gradients (the
-    backward kernel, launched by autograd) against autograd through the
-    plain version.  Then each train-mode forward kernel and each backward
-    kernel (with its reduction pass) timed against its plain version."""
+def train_unit_checks_and_timing(K, cfg, g, p, dev, launches, bsz=BATCH,
+                                 suffix=""):
+    """Phases (h), (n): at batch ``bsz`` in bf16 with masks on, each unit
+    through the autograd wrapper the train path calls (``_FusedUnit``):
+    its outputs and bank partials against the plain version, its gradients
+    (the backward kernel, launched by autograd) against autograd through
+    the plain version.  Then each train-mode forward kernel and each
+    backward kernel (with its reduction pass) timed against its plain
+    version (record names + ``suffix``)."""
     import torch
 
     from qavit_tpu_torch.kernels import build
@@ -694,9 +732,9 @@ def train_unit_checks_and_timing(K, cfg, g, p, dev, launches):
                  for _ in range(2))
     lib = K.bind(build.load().lib)
     stream = torch.cuda.current_stream().cuda_stream
-    grid = K.train_grid(dev, BATCH)
+    grid = K.train_grid(dev, bsz)
     train = K.UnitTrain(R.block_rng(8, cfg.dropout, cfg.drop_path), bankp)
-    x = torch.randn(BATCH, g.n, g.c, generator=gen).to(dev, dtype)
+    x = torch.randn(bsz, g.n, g.c, generator=gen).to(dev, dtype)
     inputs = UC.unit_inputs(p, g, dtype, x, rows)
     fwd_rows, bwd_rows = [], []
     for unit in K.UNITS:
@@ -722,14 +760,16 @@ def train_unit_checks_and_timing(K, cfg, g, p, dev, launches):
         grad_abs, grad_rel, grads_ok = K.compare_grads(pairs, dtype)
         ok = (grads_ok and out_err <= K.TOLERANCE[dtype]
               and part_err <= UC.PARTIAL_TOLERANCE)
-        print(f"check {unit} wrapper B={BATCH} {dtype}: outputs {out_err:.2e}"
+        print(f"check {unit} wrapper n={g.n} B={bsz} {dtype}: outputs "
+              f"{out_err:.2e}"
               f" (tolerance {K.TOLERANCE[dtype]:.2e}), partials "
               f"{part_err:.2e} ({UC.PARTIAL_TOLERANCE:.0e}), gradients "
               f"relative {grad_rel:.2e} (tolerance "
               f"{K.GRAD_TOLERANCE[dtype]:.2e})  {'ok' if ok else 'FAIL'}",
               flush=True)
         if not ok:
-            raise AssertionError(f"{unit} wrapper disagrees at B={BATCH}")
+            raise AssertionError(f"{unit} wrapper disagrees at n={g.n} "
+                                 f"B={bsz}")
         del got, gk
 
         def fwd():
@@ -748,18 +788,18 @@ def train_unit_checks_and_timing(K, cfg, g, p, dev, launches):
 
         src = f"qavit_tpu_torch/csrc/{unit}.cu"
         fwd_rows.append(kernel_row(
-            f"{record_name(K, unit, g, dtype)}_train", src,
+            f"{record_name(K, unit, g, dtype)}_train{suffix}", src,
             REPLACES[unit], launches[unit], out_abs,
             cuda_ms(fwd, iters=10), cuda_ms(plain_fwd, iters=10),
-            unit_train_work(unit, g, BATCH, 2, p), dtype,
+            unit_train_work(unit, g, bsz, 2, p), dtype,
             device_ms(fwd, 10, csrc_kernel(K, unit, g, dtype))))
         name = f"{unit}_bwd"
         bwd_rows.append(kernel_row(
-            record_name(K, unit, g, dtype, True),
+            record_name(K, unit, g, dtype, True) + suffix,
             f"qavit_tpu_torch/csrc/{name}.cu", REPLACES[name],
             launches[name], grad_abs, cuda_ms(bwd, iters=10),
             cuda_ms(plain_bwd, iters=10),
-            unit_bwd_work(unit, g, BATCH, 2, p), dtype,
+            unit_bwd_work(unit, g, bsz, 2, p), dtype,
             device_ms(bwd, 10, csrc_kernel(K, unit, g, dtype, True))))
         del ref, leaves
     fwd_ms = sum(r["ms"] for r in fwd_rows)
@@ -777,7 +817,10 @@ def csrc_kernel(K, unit, g, dtype, backward=False):
     """The csrc kernel a launch of ``unit`` (its backward) runs at
     geometry ``g``: the tensor-core one where the route takes it."""
     if backward:
-        mma = K.bwd_entry(unit, g, dtype).endswith("_mma")
+        entry = K.bwd_entry(unit, g, dtype)
+        if entry == "unit_msda_bwd_mma64":
+            return "msda_bwd_mma64_kernel"
+        mma = entry != f"{unit}_bwd"
         return f"{unit[5:]}_bwd{'_mma' if mma else ''}_kernel"
     route = {"unit_swa": K.swa_route, "unit_msda": K.msda_route,
              "unit_cga": K.cga_route,
@@ -1423,6 +1466,169 @@ def multiwindow_path(K, dev, g, p, bank):
     return rows
 
 
+N64_TRAIN_KERNELS = (
+    # (ptxas name, its C entry for the shared memory)
+    ("swa_mma_kernel<1,1>", "unit_swa_mma_train64"),
+    ("msda_mma_kernel<1>", "unit_msda_mma_train64"),
+    ("cga_mma_kernel<1,1>", "unit_cga_mma_train64"),
+    ("cross_tail_mma_kernel<8,1>", "unit_cross_tail_mma_train64"),
+    ("swa_bwd_mma_kernel<4>", "unit_swa_bwd_mma64"),
+    ("msda_bwd_mma64_kernel", "unit_msda_bwd_mma64"),
+    ("cga_bwd_mma_kernel<1>", "unit_cga_bwd_mma64"),
+    ("cross_tail_bwd_mma_kernel<8>", "unit_cross_tail_bwd_mma64"),
+)
+
+
+def n64_train_checks(K, dev, g, p):
+    """Phase (m): at hqavit_proc_tin's geometry in bf16 with masks on,
+    each unit's train-mode forward kernel and backward kernel against the
+    plain version and autograd through it (unit_checks.check_unit), each
+    launch through its n=64 entry: at B=CHECK_BATCH, with the NaN guard
+    tripped in one sample, with 12 bank rows, and at B=CHECK_BATCH - 1;
+    then the eight kernels' ptxas lines and shared memory."""
+    import torch
+
+    from qavit_tpu_torch.configs import get_preset
+    from qavit_tpu_torch.kernels import build
+    from qavit_tpu_torch.kernels import fused_ref as R
+    from qavit_tpu_torch.kernels import unit_checks as UC
+
+    cfg = get_preset(TIN_PRESET).model
+    dtype, failed = torch.bfloat16, []
+    gen = torch.Generator().manual_seed(13)
+    bankp = bank_write_params(cfg, g, gen, dev)
+    rows = tuple((torch.randn(1, g.bank_s, g.c, generator=gen) * 0.5).to(dev)
+                 for _ in range(2))
+    lib = K.bind(build.load().lib)
+    stream = torch.cuda.current_stream().cuda_stream
+    train = K.UnitTrain(R.block_rng(14, 0.1, 0.1), bankp)
+    g12, rows12, train12 = twelve_bank_rows(K, g, rows, train)
+    for case in ("masks", "NaN guard", "12 bank rows",
+                 f"B={CHECK_BATCH - 1}"):
+        b = CHECK_BATCH - 1 if case.startswith("B=") else CHECK_BATCH
+        twelve, guard = case == "12 bank rows", case == "NaN guard"
+        gc, rc, tr = (g12, rows12, train12) if twelve else (g, rows, train)
+        x = (torch.randn(b, g.n, g.c, generator=gen) * 2).to(dev, dtype)
+        inputs = UC.unit_inputs(p, gc, dtype, x, rc)
+        for unit in K.UNITS:
+            batch = list(inputs[unit])
+            if guard:
+                lead = 1 if unit == "unit_cross_tail" else 0
+                batch[lead] = batch[lead].clone()
+                batch[lead][b // 2, 3, 5] = float("nan")
+            cots = UC.random_cotangents(unit, batch, dtype, gen)
+            K.reset_launches()
+            r = UC.check_unit(lib, unit, p, tr, batch, gc, dtype,
+                              K.train_grid(dev, b), cots, stream,
+                              guard_tripped=guard)
+            routed = (K.ROUTES[f"{unit}_mma_train64"] == 1
+                      and K.ROUTES[f"{unit}_bwd_mma64"] == 1
+                      and sum(K.ROUTES.values()) == 2)
+            ok = r.ok and routed
+            print(f"check {unit} n={g.n} train bf16 {case} B={b} (n=64 "
+                  f"entries {routed}): flag {r.flag}, outputs "
+                  f"{r.out_err:.2e} (tolerance {K.TOLERANCE[dtype]:.2e}), "
+                  f"partials {r.part_err:.2e} "
+                  f"({UC.PARTIAL_TOLERANCE:.0e}), gradients max_abs_err "
+                  f"{r.grad_abs:.3e}, relative {r.grad_err:.2e} (tolerance "
+                  f"{K.GRAD_TOLERANCE[dtype]:.2e})  {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            if not ok:
+                failed.append((unit, case))
+    for kern, entry in N64_TRAIN_KERNELS:
+        print_ptxas(kern)
+        smem = getattr(lib, f"qv_{entry}_smem")(None)
+        print(f"{kern}: {smem} B of dynamic shared memory per block",
+              flush=True)
+    if failed:
+        raise AssertionError(f"n=64 training kernels disagree: {failed}")
+
+
+def n64_train_path(K, dev, g, p):
+    """Phase (n): the hqavit_proc_tin train step through the bench CLI with
+    the counts reset just before; a float32 step refused before any
+    launch; the kernel step against the plain steps on the card; the
+    step's time at two batches; each unit's wrapper check and timing at
+    the path's batch (the record's @n64 train rows)."""
+    import torch
+
+    from qavit_tpu_torch.cli import bench
+    from qavit_tpu_torch.configs import get_preset
+    from qavit_tpu_torch.nn.models import build_model
+    from qavit_tpu_torch.train.steps import loss_and_grads
+
+    preset = get_preset(TIN_PRESET)
+    cfg = preset.model
+    reset_launches()
+    row = bench.main(["--preset", TIN_PRESET, "--train", "--batch-sizes",
+                      str(TIN_BATCH), "--steps", str(TRAIN_STEPS)])[0]
+    launches = launch_counts()
+    routes = dict(K.ROUTES)
+    steps = TRAIN_STEPS + 1
+    per = cfg.depth * steps
+    print(f"n=64 train path ({TIN_PRESET}, {cfg.depth} blocks): {steps} "
+          f"steps at B={TIN_BATCH}, losses {row['first_loss']:.4f} -> "
+          f"{row['last_loss']:.4f}, bank count {row['bank_count']}, "
+          f"launches {launches}", flush=True)
+    print(f"n=64 train path: launches per C entry {routes}", flush=True)
+    want = {n: 0 if n == "flash_attention" else per for n in launches}
+    if launches != want:
+        raise AssertionError(f"n=64 train path launches {launches}, "
+                             f"expected {want}")
+    want = {n: per if n.endswith(("_mma_train64", "_bwd_mma64")) else 0
+            for n in routes}
+    if routes != want:
+        raise AssertionError(f"n=64 train path routes {routes}, expected "
+                             f"{want} (every launch through its n=64 entry)")
+    if row["bank_count"] != 3 * cfg.depth * steps:
+        raise AssertionError(f"bank count {row['bank_count']} after {steps} "
+                             f"steps, expected {3 * cfg.depth} per step")
+    if not all(map(math.isfinite, (row["first_loss"], row["last_loss"]))):
+        raise AssertionError(f"n=64 train losses not finite: {row}")
+    # float32 on the card: refused with its reason before any launch
+    mc32 = cfg.replace(dtype="float32")
+    model = build_model(mc32, dev, seed=0)
+    imgs = torch.randn(2, cfg.img_size, cfg.img_size, 3).to(dev)
+    names = [n for n, _ in model.named_parameters()]
+    K.reset_launches()
+    try:
+        loss_and_grads(model, names, imgs, torch.zeros(2, dtype=torch.long,
+                                                       device=dev),
+                       0, 0, mc32, preset.train)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    ok = "float32 at n=64 in training" in refused and not any(
+        K.ROUTES.values())
+    print(f"n=64 train step float32: refused before any launch {ok} "
+          f"({refused[:120]})", flush=True)
+    if not ok:
+        raise AssertionError("a float32 n=64 train step was not refused")
+    del model
+    kernel_vs_plain_step(K, cfg, dev, TIN_PRESET, TIN_BATCH)
+    torch.cuda.empty_cache()
+    big_row = None
+    for big in TIN_TRAIN_BIG:
+        try:
+            big_row = bench.main(["--preset", TIN_PRESET, "--train",
+                                  "--batch-sizes", str(big), "--steps",
+                                  str(TRAIN_STEPS)])[0]
+            break
+        except torch.cuda.OutOfMemoryError:
+            print(f"n=64 train step at B={big}: out of memory", flush=True)
+            torch.cuda.empty_cache()
+    if big_row is None:
+        raise AssertionError(f"no n=64 train step fits at {TIN_TRAIN_BIG}")
+    for r in (row, big_row):
+        print(f"n=64 train step: {r['ms_per_step']:.3f} ms per step of "
+              f"{r['batch']}, {r['img_per_s']:.1f} img/s (CUDA events, "
+              f"bf16, {r['steps']} steps after one warm-up), peak memory "
+              f"{r['max_memory_allocated'] / 2 ** 30:.2f} GiB; card "
+              f"{card_line()}", flush=True)
+    return train_unit_checks_and_timing(K, cfg, g, p, dev, launches,
+                                        TIN_BATCH, "@n64")
+
+
 def main() -> int:
     import torch
 
@@ -1636,6 +1842,14 @@ def main() -> int:
     say("phase (l) multi-window path: start")
     record += multiwindow_path(K, dev, g64, p64, bank64)
     say("phase (l) multi-window path: done")
+
+    say("phase (m) n=64 training kernels: start")
+    n64_train_checks(K, dev, g64, p64)
+    say("phase (m) n=64 training kernels: done")
+
+    say("phase (n) n=64 train path: start")
+    record += n64_train_path(K, dev, g64, p64)
+    say("phase (n) n=64 train path: done")
 
     print(card_line(), flush=True)
     print(json.dumps({"kernels": record}), flush=True)

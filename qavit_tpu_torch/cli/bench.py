@@ -16,10 +16,11 @@ timed loss and ``torch.cuda.max_memory_allocated``.  The train-time data
 augmentation stays out, as in the JAX bench.  ``print_analysis`` (FLOPs
 and parameter breakdown) waits for the port of ``obs/analyzer``
 (ROADMAP.md queue 1 item 11).  The flat 224 presets run the eval forward
-only: their train step waits for ROADMAP.md queue 1 item 1; so do
-``hqavit_tiny_in`` and ``hqavit_proc_tin``, whose n=64 backward kernels
-wait for ROADMAP.md queue 2 item 2.  Runs on the card unless ``--device
-cpu``.
+only: their train step waits for ROADMAP.md queue 1 item 1.  The depth-12
+``hqavit_tiny_in`` and ``hqavit_proc_tin`` train at n=64 (four SWA
+windows) in bf16 on the card (``--preset hqavit_proc_tin --train
+--batch-sizes 128``); float32 there raises before the first launch.  Runs
+on the card unless ``--device cpu``.
 """
 
 from __future__ import annotations

@@ -29,11 +29,12 @@
 // attention_core round, every product summed in float32 (mma.sync
 // m16n8k16, bf16 operands).  The batch-wide NaN guard checks q, k, v, the
 // projected bank and the attention output; the last block redoes the
-// batch with a zero attention output, every row proj(0).  Training (n =
-// 16 only, a compile-time instance) replays the CGA_ATTN and CGA_PROJ
-// masks at each element's flat index in its own sample, as cga_body
-// indexes them, and keeps the bank-write partials (mma_ops.cuh
-// bank_tile_partials) per thread over the block's tiles.
+// batch with a zero attention output, every row proj(0).  Training (a
+// compile-time instance at either geometry) replays the CGA_ATTN and
+// CGA_PROJ masks at each element's flat index in its own sample, as
+// cga_body indexes them, and keeps the bank-write partials (mma_ops.cuh
+// bank_tile_partials, the gate's softmax over the sample's n tokens) per
+// thread over the block's tiles.
 #pragma once
 #include "mma_ops.cuh"
 
@@ -277,14 +278,13 @@ __device__ __forceinline__ bool cga_attend(const bf16* q, const bf16* k,
 }
 
 // The forward kernel's body: NS samples a tile (1: n = 64, 4: n = 16),
-// TRAIN the training instance (n = 16).  It declares the dynamic shared
+// TRAIN the training instances.  It declares the dynamic shared
 // memory itself, as window_mma does.
 template <int NS, bool TRAIN>
 __device__ __forceinline__ void cga_mma(const CgaMmaArgs& m) {
   constexpr int SN = CG_ROWS / NS;         // rows of a sample
   constexpr int NKT = SN / 16 + 1;         // key tiles: own, then the bank
   static_assert(NS == 1 || NS == 4, "one sample of 64 or four of 16");
-  static_assert(!TRAIN || NS == 4, "only n = 16 trains");
   QV_SMEM_DECL
   __shared__ int bad;
   const CgaArgs& a = m.f;
@@ -370,10 +370,15 @@ __device__ __forceinline__ void cga_mma(const CgaMmaArgs& m) {
         const int mt = u / CG_G, grp = u - mt * CG_G;
         const int kr = NS == 1 ? 0 : 16 * mt;    // the sample's first row
         AttnMask am{no_drop(), 0u, grp * CG_H, NT + S};
-        if constexpr (TRAIN)      // the sample NS tl + mt's mask
+        if constexpr (TRAIN) {
+          // the sample's mask [G H, SN, SN + S]: sample NS tl + mt (n = 16)
+          // or tl, whose query rows 16 mt.. the warp holds (n = 64)
+          const int smp = NS == 1 ? tl : NS * tl + mt;
           am = AttnMask{attn_drop(d, CGA_ATTN),
-                        (unsigned)(NS * tl + mt) * CG_G * CG_H * NT * (NT + S),
-                        grp * CG_H, NT + S};
+                        (unsigned)(smp * CG_G * CG_H * SN + 16 * mt - kr) *
+                            (SN + S),
+                        grp * CG_H, SN + S, SN};
+        }
         const int c0 = CG_CPERG * grp;
         nan_seen |= cga_attend<NKT, TRAIN>(
             q + 16 * mt * CG_LDQ + c0, k + kr * CG_LDQ + c0,
@@ -419,7 +424,7 @@ __device__ __forceinline__ void cga_mma(const CgaMmaArgs& m) {
     store_rows(static_cast<bf16*>(a.out) + (size_t)tl * CG_ROWS * C, out,
                valid);
     if constexpr (TRAIN)
-      bank_tile_partials(out, CG_LDX, valid, a.bw, S, scratch, sums);
+      bank_tile_partials<SN>(out, CG_LDX, valid, a.bw, S, scratch, sums);
   }
   if constexpr (TRAIN)
     bank_store_partials(sums, a.bw, S, scratch,
@@ -447,7 +452,8 @@ __device__ __forceinline__ void cga_mma(const CgaMmaArgs& m) {
           }
           __syncthreads();
           store_rows(dst + (size_t)tl * CG_ROWS * C, out, valid);
-          bank_tile_partials(out, CG_LDX, valid, a.bw, S, scratch, sums);
+          bank_tile_partials<SN>(out, CG_LDX, valid, a.bw, S, scratch,
+                                 sums);
         }
         bank_store_partials(sums, a.bw, S, scratch,
                             a.bw.part + (size_t)blockIdx.x * 2 * S * C);

@@ -8,7 +8,8 @@
 // value (Dims): n = 16 tokens in one SWA window (hqavit_c100), or, in
 // eval, n = 64 on an 8x8 grid in four 16-token windows (hqavit_tiny_in),
 // where the MSDA, CGA and cross/tail kernels loop over row tiles of NT
-// tokens.  The backward kernels take n = 16 only.  A block loops over the
+// tokens.  The CUDA-core backward kernels take n = 16 only (the bf16
+// tensor-core ones, on mma_ops.cuh, also n = 64).  A block loops over the
 // samples b = blockIdx.x, blockIdx.x + gridDim.x, ... (d.grid blocks in
 // all), so
 // sums across samples (the bank-write partials, the weight gradients) are
@@ -304,7 +305,7 @@ __device__ __forceinline__ Drop attn_drop(const Dims& d, int key) {
   return Drop{d.train && d.drop_on, d.salt[key], d.thr, d.keep};
 }
 
-// no dropout: the kernels of n > NT run in eval only
+// no dropout: the eval kernels, and the CUDA-core ones of n > NT
 __device__ __forceinline__ Drop no_drop() { return Drop{0, 0u, 0u, 1.f}; }
 
 // ---------------------------------------------------------------------------

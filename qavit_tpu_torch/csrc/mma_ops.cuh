@@ -6,9 +6,11 @@
 // 16 queries with its scores in registers, a warp-per-row LayerNorm of
 // bf16 rows, and the bank-write partials of the train-mode forwards.
 // Then the pieces of the backward kernels (swa_bwd_mma_kernel,
-// msda_bwd_mma_kernel, cross_tail_bwd_mma_kernel, cga_bwd_mma_kernel),
-// which walk the batch in passes of two samples of 16 tokens (the CGA
-// backward: four): products over a pass's rows with an epilogue per pair
+// msda_bwd_mma_kernel, msda_bwd_mma64_kernel, cross_tail_bwd_mma_kernel,
+// cga_bwd_mma_kernel), which walk the batch in passes of 32 rows (two
+// samples or windows of 16 tokens, half an n = 64 sample, MSDA's n = 64
+// queries) or 64 (CGA: four samples of 16, or one of 64): products over
+// a pass's rows with an epilogue per pair
 // of columns, weight gradients in^T @ dy over every row of the block,
 // stored once into its float32 slice from operand rows the passes saved,
 // the LayerNorm backward, and the attention with its dropout and its
@@ -310,9 +312,12 @@ __device__ __forceinline__ void bank_sums_zero(BankSums& acc) {
 }
 
 // The partials of the samples in a tile's first `rows` rows (a multiple
-// of 16; a short last tile's rows past its samples are left out), from
-// their bf16 branch outputs `out` (leading dim ld), added to acc.
-// scratch: BP_SCRATCH floats.  Block-wide; ends with a barrier.
+// of SN; a short last tile's rows past its samples are left out), from
+// their bf16 branch outputs `out` (leading dim ld), added to acc; SN the
+// rows of a sample, over which its gate's softmax runs (16, or 64: the
+// tile is one sample).  scratch: BP_SCRATCH floats.  Block-wide; ends
+// with a barrier.
+template <int SN = NT>
 __device__ __forceinline__ void bank_tile_partials(const bf16* out, int ld,
                                                    int rows,
                                                    const BankWrite& bw, int S,
@@ -392,19 +397,20 @@ __device__ __forceinline__ void bank_tile_partials(const bf16* out, int ld,
       gate[r * BP_S + m0 + j] = m0 + j < S ? a[j] + bw.gate_b[m0 + j] : 0.f;
   }
   __syncthreads();
-  if ((int)threadIdx.x < (BP_ROWS / NT) * BP_S) {  // (sample, bank row)
+  static_assert(BP_ROWS % SN == 0, "whole samples in a tile");
+  if ((int)threadIdx.x < (BP_ROWS / SN) * BP_S) {  // (sample, bank row)
     const int m = threadIdx.x % BP_S;
-    float* gp = gate + (threadIdx.x / BP_S) * NT * BP_S + m;
+    float* gp = gate + (threadIdx.x / BP_S) * SN * BP_S + m;
     if (m < S) {
       float mx = -INFINITY;
-      for (int n = 0; n < NT; ++n) mx = fmaxf(mx, gp[n * BP_S]);
+      for (int n = 0; n < SN; ++n) mx = fmaxf(mx, gp[n * BP_S]);
       float sum = 0.f;
-      for (int n = 0; n < NT; ++n) {
+      for (int n = 0; n < SN; ++n) {
         const float e = expf(gp[n * BP_S] - mx);
         gp[n * BP_S] = e;
         sum += e;
       }
-      for (int n = 0; n < NT; ++n) gp[n * BP_S] = gp[n * BP_S] / sum;
+      for (int n = 0; n < SN; ++n) gp[n * BP_S] = gp[n * BP_S] / sum;
     }
   }
   __syncthreads();
@@ -474,13 +480,6 @@ __device__ __forceinline__ void bank_store_partials(const BankSums& acc,
 // --- the backward kernels' pieces ------------------------------------------
 
 constexpr int PASS_ROWS = 2 * NT;   // rows of a pass: two samples of n = 16
-
-// the operand rows a block saves for wgrad_block: its samples b =
-// blockIdx.x, blockIdx.x + grid, ... in passes of two (at most)
-__host__ __device__ inline int block_rows(const Dims& d) {
-  const int nb = (d.B + d.grid - 1) / d.grid;
-  return PASS_ROWS * ((nb + 1) / 2);
-}
 
 // A fragment of A^T for the 16 x 16 tile whose rows are the 16 columns of
 // `a` from its pointer and whose columns are its 16 rows (row-major,
@@ -774,19 +773,22 @@ __device__ __forceinline__ void ln_bwd_rows(const bf16* x, const bf16* dy,
 
 // The attention dropout of one warp's probabilities in head vh of one
 // sample (identity unless dr.on): element (query row, key) has the flat
-// index base + (vh * NT + row) * kv + key, as common.cuh's attention
-// numbers it, and keeps rnd(p / keep) or 0.
+// index base + (vh * nq + row) * kv + key, as common.cuh's attention
+// numbers it (nq: the queries of a head, the sample's tokens; at n = 64
+// base also holds the warp's first query row times kv), and keeps
+// rnd(p / keep) or 0.
 struct AttnMask {
   Drop dr;
   unsigned base;
   int vh, kv;
+  int nq = NT;
 };
 
 __device__ __forceinline__ float attn_mask(const AttnMask& m, int row,
                                            int key, float p) {
   if (!m.dr.on) return p;
   return kept(m.dr.salt, m.dr.thr,
-              m.base + (unsigned)((m.vh * NT + row) * m.kv + key))
+              m.base + (unsigned)((m.vh * m.nq + row) * m.kv + key))
              ? p / m.dr.keep
              : 0.f;
 }

@@ -167,8 +167,8 @@ __global__ void __launch_bounds__(NTHREADS, 1) cga_tiled_kernel(CgaArgs a) {
 
 // --- bf16: the tensor-core kernel (cga_mma.cuh) ---------------------------
 
-// NS samples a tile: 1 at n = 64 (eval), 4 at n = 16 (eval; TRAIN: the
-// training instance)
+// NS samples a tile: 1 at n = 64, 4 at n = 16; TRAIN the training
+// instances
 template <int NS, bool TRAIN>
 __global__ void __launch_bounds__(NTHREADS, 1) cga_mma_kernel(CgaMmaArgs m) {
   cga_mma<NS, TRAIN>(m);
@@ -233,4 +233,31 @@ extern "C" int qv_unit_cga_mma(const qv::CgaArgs* a, const void* qkv_w16,
 
 extern "C" int qv_unit_cga_mma_smem(const qv::Dims* d) {
   return d->train ? qv::CG_TRAIN_BYTES : qv::CG_EVAL_BYTES;
+}
+
+// The bf16 tensor-core kernel in training at n = 64 (cga_mma_kernel<1,
+// true>, a tile a sample), then the reduction pass of the bank partials:
+// `a` and the weights as for qv_unit_cga_mma; ERR_ARGS for any other
+// geometry or type (the wrapper checks them first, cga_mma_error).
+extern "C" int qv_unit_cga_mma_train64(const qv::CgaArgs* a,
+                                       const void* qkv_w16,
+                                       const void* proj_w16, int is_bf16,
+                                       void* stream) {
+  const qv::Dims& d = a->d;
+  if (!is_bf16 || !d.train || d.n != qv::CG_ROWS || d.nw != 4 ||
+      d.side != 8 || d.c != qv::CG_C || d.groups != qv::CG_G ||
+      d.cperg != qv::CG_CPERG || d.heads != qv::CG_H ||
+      d.bank_s > qv::CG_S || d.grid > d.B)
+    return qv::ERR_ARGS;
+  const qv::CgaMmaArgs m{*a, static_cast<const qv::bf16*>(qkv_w16),
+                         static_cast<const qv::bf16*>(proj_w16)};
+  const int rc = qv_launch(qv::cga_mma_kernel<1, true>, m,
+                           qv::CG_TRAIN_BYTES, stream, d.grid);
+  if (rc != 0) return rc;
+  return qv_reduce(a->bw.part, a->bw.part_out, d.grid, 2 * d.bank_s * d.c,
+                   d.rgrid, stream);
+}
+
+extern "C" int qv_unit_cga_mma_train64_smem(const qv::Dims*) {
+  return qv::CG_TRAIN_BYTES;
 }

@@ -38,6 +38,14 @@
 // and the bank rows' gradients from the sums once.  Every field of the
 // block's slice is stored once, without reading it, so the caller's
 // workspace needs no zeroing.  Time: PERF.md section 6 row 7.
+//
+// bf16 at hqavit_tiny_in's widths, n = 64, cga_bwd_mma_kernel<1>: a pass
+// is one sample of 64 rows, its 64 keys and the bank's 16 a group-head
+// (the forward's cga_mma_kernel<1, ...> layout); the attention backward
+// runs a warp per group over the sample's four query tiles
+// (cga_attend_bwd64), summing each head's key gradients over them in
+// registers.  Bound at B=128 on the H100: 9.7 MB against 2.1 GFLOP (~2.9
+// us): the bytes bound it.  Time: PERF.md section 6 row 7 @n64.
 #include "cga_mma.cuh"
 #include "unit_cga.cuh"
 
@@ -189,11 +197,13 @@ constexpr int CB_SMEM_BYTES = 2 * (CB_W + CG_BANK + 2 * CG_XS + 4 * CG_QB);
 static_assert(8 * 2 * NT * CB_LDT <= CG_XS, "the warps' dS and P");
 static_assert(8 * 2 * 2 * 256 + 2 * 256 <= 4 * CG_QB, "the bank sums");
 
-// per block: the operand rows of its passes (bf16; one pass: 64 rows of
-// proj's, 6 x 64 of the q/k/v kernel's)
+// per block: the operand rows of its passes (bf16; one pass, four
+// samples at n = 16 or one at n = 64: 64 rows of proj's, 6 x 64 of the
+// q/k/v kernel's)
 __host__ __device__ inline int cga_bwd_mma_scratch_floats(const Dims& d) {
   const int nb = (d.B + d.grid - 1) / d.grid;
-  return CG_ROWS * ((nb + 3) / 4) * (CB_OPP + CG_G * CB_OPQ) / 2;
+  const int passes = (nb * (d.n / NT) + 3) / 4;
+  return CG_ROWS * passes * (CB_OPP + CG_G * CB_OPQ) / 2;
 }
 
 // The backward of cga_attend (training, n = 16: the sample's 16 keys and
@@ -324,14 +334,176 @@ __device__ __forceinline__ void cga_attend_bwd(bf16* q, bf16* k, bf16* v,
   }
 }
 
+// n = 64: the sample's 64 keys and the bank's 16 a group-head
+constexpr int CB_NKT64 = 5;                   // key tiles
+constexpr int CB_LDT64 = 16 * CB_NKT64 + 8;   // the warps' dS's, P's rows
+static_assert(8 * 2 * NT * CB_LDT64 <= 2 * CG_XS, "the warps' dS and P");
+
+// The backward of cga_attend<5, true> (training, n = 64) for one group of
+// one sample, its 64 queries and four heads, by one warp: per head h and
+// 16-query tile mt, P recomputed, dP = dA V^T through the mask am (am.base
+// the sample's, am.vh the group's first virtual head), dS as
+// cga_attend_bwd; dq = dS K written over q's head-h channels of the tile
+// once the tile's reads are done; the sample's keys' dK = dS^T q and dV =
+// P^T dA summed over the four tiles in registers and written over k's and
+// v's head-h channels after the last (a product over keys or queries
+// gives each channel from its own column, and head_a, head_b select the
+// head's channels, so what a head writes is never read as another
+// head's); the bank keys' and values' cotangents added to gkb, gvb.  ws:
+// the warp's dS, then P, 16 x CB_LDT64 each.
+__device__ __forceinline__ void cga_attend_bwd64(bf16* q, bf16* k, bf16* v,
+                                                 const bf16* dA, int ld,
+                                                 const bf16* kb,
+                                                 const bf16* vb, int nkeys,
+                                                 AttnMask am, bf16* ws,
+                                                 float (&gkb)[2][4],
+                                                 float (&gvb)[2][4]) {
+  constexpr int NKT = CB_NKT64;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float sqrt_d = sqrtf((float)CG_HD);
+  bf16* ds = ws;
+  bf16* pu = ws + NT * CB_LDT64;
+  const int vh0 = am.vh;
+  const unsigned base0 = am.base;
+  // key tile kt's rows: the sample's k or v, then the bank's
+  auto krow = [&](const bf16* own, const bf16* bank, int kt) {
+    return kt < NKT - 1 ? own + 16 * kt * ld : bank;
+  };
+#pragma unroll 1
+  for (int h = 0; h < CG_H; ++h) {
+    am.vh = vh0 + h;
+    float ok[NKT][4], ov[NKT][4];
+#pragma unroll
+    for (int kt = 0; kt < NKT; ++kt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ok[kt][e] = ov[kt][e] = 0.f;
+#pragma unroll 1
+    for (int mt = 0; mt < 4; ++mt) {
+      am.base = base0 + (unsigned)(16 * mt * am.kv);  // the tile's rows
+      bf16* qm = q + 16 * mt * ld;
+      const bf16* dm = dA + 16 * mt * ld;
+      unsigned qa[4], da[4], kf[NKT][4];
+      load_a(qa, qm, ld, lane);
+      load_a(da, dm, ld, lane);
+#pragma unroll
+      for (int kt = 0; kt < NKT; ++kt)
+        load_b_nk(kf[kt], krow(k, kb, kt), kt < NKT - 1 ? ld : CG_LDB, lane);
+      float s[2 * NKT][4], dp[2 * NKT][4];
+      cga_probs<NKT>(qa, kf, h, nkeys, s);
+      unsigned a[4];
+      head_a(da, h, a);
+#pragma unroll
+      for (int j = 0; j < 2 * NKT; ++j)
+        dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+#pragma unroll
+      for (int np = 0; np < NKT; ++np) {
+        unsigned vf[4], b[4];
+        load_b_nk(vf, krow(v, vb, np), np < NKT - 1 ? ld : CG_LDB, lane);
+        head_b(vf, h, b);
+        mma_bf16_16816(dp[2 * np], a, b);
+        mma_bf16_16816(dp[2 * np + 1], a, b + 2);
+      }
+      float dot0 = 0.f, dot1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 2 * NKT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = 8 * j + 2 * t + (e & 1), row = g + 8 * (e >> 1);
+          dp[j][e] = attn_mask(am, row, key, dp[j][e]);
+          if (e & 1)         // the probabilities PV used, for dV
+            store_bf16x2(pu + row * CB_LDT64 + key - 1,
+                         pack_bf16x2(attn_mask(am, row, key - 1, s[j][e - 1]),
+                                     attn_mask(am, row, key, s[j][e])));
+          if (e >> 1)
+            dot1 = fmaf(dp[j][e], s[j][e], dot1);
+          else
+            dot0 = fmaf(dp[j][e], s[j][e], dot0);
+        }
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        dot0 += __shfl_xor_sync(0xffffffffu, dot0, o);
+        dot1 += __shfl_xor_sync(0xffffffffu, dot1, o);
+      }
+#pragma unroll
+      for (int j = 0; j < 2 * NKT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][e] = s[j][e] * (dp[j][e] - (e >> 1 ? dot1 : dot0)) / sqrt_d;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          store_bf16x2(ds + (g + 8 * hf) * CB_LDT64 + 8 * j + 2 * t,
+                       pack_bf16x2(s[j][2 * hf], s[j][2 * hf + 1]));
+      }
+      __syncwarp();
+      // dq = dS K over the 80 keys; dK, dV of every key tile from this
+      // query tile
+      float oq[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < NKT; ++kk) {
+        unsigned pa[4], kn[4];
+        c_to_a<NKT>(s, kk, [](int, int, float x) { return x; }, pa);
+        load_b_kn(kn, krow(k, kb, kk), kk < NKT - 1 ? ld : CG_LDB, lane);
+        mma_bf16_16816(oq, pa, head_tile(kn, h).r);
+      }
+      unsigned bq[4], bd[4];
+      load_b_kn(bq, qm, ld, lane);
+      load_b_kn(bd, dm, ld, lane);
+#pragma unroll
+      for (int kt = 0; kt < NKT; ++kt) {
+        unsigned at[4];
+        load_a_t(at, ds + 16 * kt, CB_LDT64, lane);
+        mma_bf16_16816(ok[kt], at, head_tile(bq, h).r);
+        load_a_t(at, pu + 16 * kt, CB_LDT64, lane);
+        mma_bf16_16816(ov[kt], at, head_tile(bd, h).r);
+      }
+      __syncwarp();        // every lane's reads of the tile are done
+      if (head_lane(h)) {
+        const int c = 8 * (h >> 1) + 2 * t;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          store_bf16x2(qm + (g + 8 * hf) * ld + c,
+                       pack_bf16x2(oq[2 * hf], oq[2 * hf + 1]));
+      }
+      __syncwarp();        // the next tile's dS, P after these reads
+    }
+    if (head_lane(h)) {
+      const int c = 8 * (h >> 1) + 2 * t;
+#pragma unroll
+      for (int kt = 0; kt < NKT - 1; ++kt)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int r = (16 * kt + g + 8 * hf) * ld + c;
+          store_bf16x2(k + r, pack_bf16x2(ok[kt][2 * hf], ok[kt][2 * hf + 1]));
+          store_bf16x2(v + r, pack_bf16x2(ov[kt][2 * hf], ov[kt][2 * hf + 1]));
+        }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (h >> 1) {
+          gkb[1][e] += ok[NKT - 1][e];
+          gvb[1][e] += ov[NKT - 1][e];
+        } else {
+          gkb[0][e] += ok[NKT - 1][e];
+          gvb[0][e] += ov[NKT - 1][e];
+        }
+      }
+    }
+    __syncwarp();          // the next head's reads after these writes
+  }
+}
+
 // One block per SM walks its samples b = blockIdx.x, blockIdx.x + grid,
-// ... in passes of four (a short last pass runs samples of zeros with a
-// zero cotangent, which add nothing).  The [64, C] buffers of a pass: xs
-// (xn), dO (d(out) through the proj dropout; then the warps' dS and P;
-// then d(xn)); the [64, 96] ones: q, k, v, then d(q), d(k), d(v); att,
-// then d(att).
+// ... in passes of 64 rows: NS = 4 samples of n = 16 (a short last pass
+// runs samples of zeros with a zero cotangent, which add nothing), or
+// one of n = 64 (NS = 1: its 64 keys and the bank's a group-head, the
+// attention backward a warp per group, cga_attend_bwd64).  The [64, C]
+// buffers of a pass: xs (xn; at n = 64 then the warps' dS and P, with
+// dO's space), dO (d(out) through the proj dropout; then the warps' dS
+// and P at n = 16; then d(xn)); the [64, 96] ones: q, k, v, then d(q),
+// d(k), d(v); att, then d(att).
+template <int NS>
 __global__ void __launch_bounds__(NTHREADS, 1)
     cga_bwd_mma_kernel(CgaBwdMmaArgs m) {
+  constexpr int SN = CG_ROWS / NS;         // rows of a sample
   QV_SMEM_DECL
   const CgaBwdArgs& a = m.a;
   const CgaArgs& f = a.f;
@@ -351,10 +523,12 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   bf16* k = q + CG_QB;
   bf16* v = k + CG_QB;
   bf16* att = v + CG_QB;
-  bf16* wsc = dO + warp * 2 * NT * CB_LDT;         // this warp's dS, P
+  // this warp's dS, P
+  bf16* wsc = NS == 1 ? xs + warp * 2 * NT * CB_LDT64
+                      : dO + warp * 2 * NT * CB_LDT;
   const bool zero_attn = d.guard && a.c.flag[1] != 0;
   const int nb = (d.B - (int)blockIdx.x + (int)gridDim.x - 1) / gridDim.x;
-  const int passes = (nb + 3) / 4;
+  const int passes = (nb + NS - 1) / NS;
   const int rows_max = cga_bwd_mma_scratch_floats(d) * 2 /
                        (CB_OPP + CG_G * CB_OPQ);
   bf16* opp = reinterpret_cast<bf16*>(
@@ -373,24 +547,26 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   float gkb[2][4] = {}, gvb[2][4] = {};
 
   for (int p = 0; p < passes; ++p) {
-    const int ns = nb - 4 * p < 4 ? nb - 4 * p : 4;
+    const int ns = nb - NS * p < NS ? nb - NS * p : NS;
+    const int valid = ns * SN;             // the pass's rows of samples
     int bs[4];
 #pragma unroll
     for (int s = 0; s < 4; ++s)
-      bs[s] = (int)blockIdx.x + (4 * p + s) * (int)gridDim.x;
+      bs[s] = (int)blockIdx.x + (NS * p + s) * (int)gridDim.x;
     // the flat token index of the pass's row r (the samples by selects:
     // an index into bs would go to memory)
     auto tok = [&](int r) {
+      if constexpr (NS == 1) return bs[0] * SN + r;
       const int s = r >> 4;
       const int b = s == 0 ? bs[0] : s == 1 ? bs[1] : s == 2 ? bs[2] : bs[3];
       return b * NT + (r & 15);
     };
-    // rows of sample slot s (< ns) from src, zeros past ns
+    // rows of the pass's samples from src, zeros past them
     auto stage = [&](bf16* dst, const void* src) {
       for (int i = threadIdx.x; i < CG_ROWS * (C / 8); i += blockDim.x) {
         const int r = i / (C / 8), c = (i - r * (C / 8)) * 8;
         bf16* to = dst + r * CG_LDX + c;
-        if ((r >> 4) < ns)
+        if (r < valid)
           cp_async_16(to, static_cast<const bf16*>(src) +
                               (size_t)tok(r) * C + c);
         else
@@ -399,7 +575,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     };
     // rows r of dO to d(xn) in device memory, the pass's samples only
     auto store_dxn = [&] {
-      for (int i = threadIdx.x; i < ns * NT * (C / 8); i += blockDim.x) {
+      for (int i = threadIdx.x; i < valid * (C / 8); i += blockDim.x) {
         const int r = i / (C / 8), c = (i - r * (C / 8)) * 8;
         *reinterpret_cast<uint4*>(static_cast<bf16*>(a.d_xn) +
                                   (size_t)tok(r) * C + c) =
@@ -442,18 +618,37 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     __syncthreads();
     for (int u = warp; u < 4 * CG_G; u += NTHREADS / 32) {
       const int mt = u / CG_G, grp = u - mt * CG_G, c0 = CG_CPERG * grp;
-      const int b = mt == 0 ? bs[0] : mt == 1 ? bs[1] : mt == 2 ? bs[2] : bs[3];
-      const AttnMask am{attn_drop(d, CGA_ATTN),
-                        (unsigned)b * CG_G * CG_H * NT * (NT + S),
-                        grp * CG_H, NT + S};
       const int r0 = 16 * mt * CG_LDQ + c0;
-      cga_attend<2, true>(q + r0, k + r0, v + r0, CG_LDQ, kbp, vbp, NT + S,
-                          am, att + r0);
+      if constexpr (NS == 1) {   // the sample's rows 16 mt.. of its mask
+        const AttnMask am{attn_drop(d, CGA_ATTN),
+                          (unsigned)(bs[0] * CG_G * CG_H * SN + 16 * mt) *
+                              (SN + S),
+                          grp * CG_H, SN + S, SN};
+        cga_attend<CB_NKT64, true>(q + r0, k + c0, v + c0, CG_LDQ, kbp, vbp,
+                                   SN + S, am, att + r0);
+      } else {
+        const int b =
+            mt == 0 ? bs[0] : mt == 1 ? bs[1] : mt == 2 ? bs[2] : bs[3];
+        const AttnMask am{attn_drop(d, CGA_ATTN),
+                          (unsigned)b * CG_G * CG_H * NT * (NT + S),
+                          grp * CG_H, NT + S};
+        cga_attend<2, true>(q + r0, k + r0, v + r0, CG_LDQ, kbp, vbp, NT + S,
+                            am, att + r0);
+      }
     }
     __syncthreads();
-    // ---- proj: its operand rows, then d(att) = d(out) @ W_p^T over att --
+    // ---- proj: its operand rows, then d(att) = d(out) @ W_p^T over att;
+    // the q | k | v kernel's input columns (xn) of its operand rows (row,
+    // group), before the n = 64 attention backward takes xs's space ----
     save_rows(pp, CB_OPP, att, CG_LDQ, CG_GW, CG_ROWS);
     save_rows(pp + CG_GW, CB_OPP, dO, CG_LDX, C, CG_ROWS);
+    for (int i = threadIdx.x; i < CG_ROWS * CG_G * (CG_CPG / 8);
+         i += blockDim.x) {
+      const int rg = i / (CG_CPG / 8), c = (i - rg * (CG_CPG / 8)) * 8;
+      const int r = rg / CG_G, grp = rg - r * CG_G;
+      *reinterpret_cast<uint4*>(pq + (size_t)rg * CB_OPQ + c) =
+          *reinterpret_cast<const uint4*>(xs + r * CG_LDX + CG_CPG * grp + c);
+    }
     __syncthreads();
     {  // warp w: rows 16 (w % 4).., columns 48 (w / 4)..
       const int mt = warp & 3, n0 = 48 * (warp >> 2);
@@ -484,29 +679,39 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     }
     __syncthreads();
     // ---- the attention: d(q), d(k), d(v) over q, k, v; the bank's sums --
-    for (int u = warp; u < 4 * CG_G; u += NTHREADS / 32) {
-      const int mt = u / CG_G, grp = u - mt * CG_G, c0 = CG_CPERG * grp;
-      const int b = mt == 0 ? bs[0] : mt == 1 ? bs[1] : mt == 2 ? bs[2] : bs[3];
-      const AttnMask am{attn_drop(d, CGA_ATTN),
-                        (unsigned)b * CG_G * CG_H * NT * (NT + S),
-                        grp * CG_H, NT + S};
-      const int r0 = 16 * mt * CG_LDQ + c0;
-      cga_attend_bwd(q + r0, k + r0, v + r0, att + r0, CG_LDQ, kbp, vbp,
-                     NT + S, am, wsc, gkb, gvb);
+    if constexpr (NS == 1) {
+      for (int grp = warp; grp < CG_G; grp += NTHREADS / 32) {
+        const int c0 = CG_CPERG * grp;
+        const AttnMask am{attn_drop(d, CGA_ATTN),
+                          (unsigned)(bs[0] * CG_G * CG_H * SN) * (SN + S),
+                          grp * CG_H, SN + S, SN};
+        cga_attend_bwd64(q + c0, k + c0, v + c0, att + c0, CG_LDQ, kbp, vbp,
+                         SN + S, am, wsc, gkb, gvb);
+      }
+    } else {
+      for (int u = warp; u < 4 * CG_G; u += NTHREADS / 32) {
+        const int mt = u / CG_G, grp = u - mt * CG_G, c0 = CG_CPERG * grp;
+        const int b =
+            mt == 0 ? bs[0] : mt == 1 ? bs[1] : mt == 2 ? bs[2] : bs[3];
+        const AttnMask am{attn_drop(d, CGA_ATTN),
+                          (unsigned)b * CG_G * CG_H * NT * (NT + S),
+                          grp * CG_H, NT + S};
+        const int r0 = 16 * mt * CG_LDQ + c0;
+        cga_attend_bwd(q + r0, k + r0, v + r0, att + r0, CG_LDQ, kbp, vbp,
+                       NT + S, am, wsc, gkb, gvb);
+      }
     }
     __syncthreads();
-    // ---- the q | k | v kernel: its operand rows (row, group), then d(xn)
-    // = d(q | k | v) @ W_qkv^T per group into dO's space ------------------
-    for (int i = threadIdx.x; i < CG_ROWS * CG_G * (CB_OPQ / 8);
+    // ---- the q | k | v kernel: its operand rows' cotangent columns (row,
+    // group), then d(xn) = d(q | k | v) @ W_qkv^T per group into dO's
+    // space -------------------------------------------------------------
+    for (int i = threadIdx.x; i < CG_ROWS * CG_G * (CG_QKV / 8);
          i += blockDim.x) {
-      const int rg = i / (CB_OPQ / 8), c = (i - rg * (CB_OPQ / 8)) * 8;
+      const int rg = i / (CG_QKV / 8), c = (i - rg * (CG_QKV / 8)) * 8;
       const int r = rg / CG_G, grp = rg - r * CG_G;
-      const bf16* src =
-          c < CG_CPG ? xs + r * CG_LDX + CG_CPG * grp + c
-                     : (c < CG_CPG + CG_CPERG ? q
-                        : c < CG_CPG + 2 * CG_CPERG ? k : v) +
-                           r * CG_LDQ + CG_CPERG * grp + (c - CG_CPG) % CG_CPERG;
-      *reinterpret_cast<uint4*>(pq + (size_t)rg * CB_OPQ + c) =
+      const bf16* src = (c < CG_CPERG ? q : c < 2 * CG_CPERG ? k : v) +
+                        r * CG_LDQ + CG_CPERG * grp + c % CG_CPERG;
+      *reinterpret_cast<uint4*>(pq + (size_t)rg * CB_OPQ + CG_CPG + c) =
           *reinterpret_cast<const uint4*>(src);
     }
     for (int u = warp; u < 4 * CG_G; u += NTHREADS / 32) {
@@ -628,10 +833,35 @@ extern "C" int qv_unit_cga_bwd_mma(const qv::CgaBwdArgs* a, const void* w,
       d.heads != qv::CG_H || d.bank_s > qv::CG_S || d.grid > d.B)
     return qv::ERR_ARGS;
   const qv::CgaBwdMmaArgs m{*a, static_cast<const qv::bf16*>(w)};
-  const int rc = qv_launch(qv::cga_bwd_mma_kernel, m, qv::CB_SMEM_BYTES,
+  const int rc = qv_launch(qv::cga_bwd_mma_kernel<4>, m, qv::CB_SMEM_BYTES,
                            stream, d.grid);
   if (rc != 0) return rc;
   return qv_reduce(a->c.gws, a->c.grad, d.grid, a->c.wstride, d.rgrid, stream);
+}
+
+// bf16 at hqavit_tiny_in's widths, n = 64 (cga_bwd_mma_kernel<1>, a pass
+// a sample): as qv_unit_cga_bwd_mma, whose workspace rules it keeps.
+extern "C" int qv_unit_cga_bwd_mma64(const qv::CgaBwdArgs* a, const void* w,
+                                     int is_bf16, void* stream) {
+  const qv::Dims& d = a->f.d;
+  if (!is_bf16 || !d.train || d.n != qv::CG_ROWS || d.nw != 4 ||
+      d.side != 8 || d.c != qv::CG_C || d.groups != qv::CG_G ||
+      d.cperg != qv::CG_CPERG || d.heads != qv::CG_H ||
+      d.bank_s > qv::CG_S || d.grid > d.B)
+    return qv::ERR_ARGS;
+  const qv::CgaBwdMmaArgs m{*a, static_cast<const qv::bf16*>(w)};
+  const int rc = qv_launch(qv::cga_bwd_mma_kernel<1>, m, qv::CB_SMEM_BYTES,
+                           stream, d.grid);
+  if (rc != 0) return rc;
+  return qv_reduce(a->c.gws, a->c.grad, d.grid, a->c.wstride, d.rgrid, stream);
+}
+
+extern "C" int qv_unit_cga_bwd_mma64_smem(const qv::Dims*) {
+  return qv::CB_SMEM_BYTES;
+}
+
+extern "C" int qv_unit_cga_bwd_mma64_scratch(const qv::Dims* d) {
+  return qv::cga_bwd_mma_scratch_floats(*d);
 }
 
 extern "C" int qv_unit_cga_bwd_mma_smem(const qv::Dims*) {

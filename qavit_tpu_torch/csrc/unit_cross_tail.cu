@@ -37,7 +37,7 @@
 //
 // bf16 at hqavit_tiny_in's and hqavit_c100's widths,
 // cross_tail_mma_kernel, over tiles of 64 token rows: one sample at
-// n = 64 (eval), four at n = 16 (eval and training).  Bound at n = 64 on
+// n = 64, four at n = 16, in eval and in training.  Bound at n = 64 on
 // the H100 at B=1024:
 // five [1024, 64, 192] bf16 inputs, the output and the float32 weights,
 // 152 MB (~45 us at 3.35 TB/s), against 25.1 GFLOP (~25 us): the bytes
@@ -56,7 +56,7 @@
 // 3x3 dwconv on the CUDA cores over each sample's whole grid (8x8, or
 // four 4x4 grids padded apart), so no second pass; the output staged in
 // place of x1 and stored as 16-byte copies.  While the dwconv runs,
-// cp.async brings the next tile's five inputs.  In training (n = 16) the
+// cp.async brings the next tile's five inputs.  In training the
 // dropout masks of the attention (warp_attention_train), the cross
 // proj, the bottleneck and the CCF-FFN output, and both drop-paths, come
 // from the same counter hash at the same flat indices as in
@@ -245,11 +245,13 @@ static_assert(2 * RING_KS * CT_LDKV <= 2 * CT_ROWS, "the bank's kv ring");
 // drop-path acts on each row alone, so the samples of a tile only meet
 // in the dwconv, which pads each sample's grid with zeros at its own
 // edge.  A short last tile (B n not a multiple of 64) computes rows of
-// zeros and stores only its samples' rows.  In training (n = 16) every
-// dropout mask is indexed by the element's flat index in its sample's
-// [B, n, width] layout, which a tile's row r gives as (64 tile + r)
-// width + column, and the drop-path factors by the row's sample.  The
-// buffers of one tile:
+// zeros and stores only its samples' rows.  In training every dropout
+// mask is indexed by the element's flat index in its sample's [B, n,
+// width] layout, which a tile's row r gives as (64 tile + r) width +
+// column, and the drop-path factors by the row's sample.  TRAIN compiles
+// the masks: the n = 16 instance (eval and training, by d.train) and the
+// n = 64 training one, so that the n = 64 eval instance carries none.
+// The buffers of one tile:
 //   xa   xn; then the cross attention rows; then the weighted concat
 //   x1   x; then x1 = x + bottleneck; then the block output
 //   br   the branch outputs swa, msda, cga, cross, each normed in place
@@ -258,16 +260,13 @@ static_assert(2 * RING_KS * CT_LDKV <= 2 * CT_ROWS, "the bank's kv ring");
 //   h    bottleneck hidden; then CCF-FFN hidden, normed in place
 //   h2   the dwconv's output, normed in place
 // While the dwconv runs, cp.async brings the next tile's five inputs.
-template <int SIDE>
+template <int SIDE, bool TRAINS = SIDE == WS>
 __global__ void __launch_bounds__(NTHREADS, 1)
     cross_tail_mma_kernel(CrossTailMmaArgs m) {
   QV_SMEM_DECL
   __shared__ int bad;
   constexpr int SN = SIDE * SIDE;          // tokens of a sample
   static_assert(CT_N % SN == 0, "whole samples in a tile");
-  // only n = 16 trains (the entry refuses n = 64 in training), so the
-  // n = 64 instance compiles no mask
-  constexpr bool TRAINS = SN == NT;
   const CrossTailArgs& a = m.f;
   const Dims& d = a.d;
   const bool train = TRAINS && d.train;
@@ -382,8 +381,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     }
     {  // xn is read: the attention rows of heads 2 half, 2 half + 1 go
        // to xa, over the S projected bank keys (past S: -inf); in
-       // training the warp's 16 rows are one sample's (n = 16), whose
-       // attention dropout the mask replays
+       // training the warp's 16 rows are one sample's, whose attention
+       // dropout the mask replays
       const bf16* const kt[1] = {kb};
       const bf16* const vt[1] = {vb};
       bf16* out = xa + mt * 16 * CT_LDX;
@@ -398,8 +397,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
           }
         } else if (train) {
           const AttnMask am{attn_drop(d, CROSS_ATTN),
-                            (unsigned)wsample * CT_H * NT * S,
-                            2 * half + hh, S};
+                            (unsigned)(wsample * CT_H * SN + t0 + mt * 16 -
+                                       wsample * SN) * S,
+                            2 * half + hh, S, SN};
           nan_seen |= warp_attention_train<1>(qa[hh], kt, vt, CT_LDX, hc, S,
                                               am, out, CT_LDX);
         } else {
@@ -686,13 +686,36 @@ extern "C" int qv_unit_cross_tail_mma(const qv::CrossTailArgs* a,
     return qv::ERR_ARGS;
   const qv::CrossTailMmaArgs m{*a, static_cast<const qv::bf16*>(w1),
                                static_cast<const qv::bf16*>(w2)};
-  return n64 ? qv_launch(qv::cross_tail_mma_kernel<8>, m, qv::CT_SMEM_BYTES,
-                         stream, d.grid)
+  return n64 ? qv_launch(qv::cross_tail_mma_kernel<8, false>, m,
+                         qv::CT_SMEM_BYTES, stream, d.grid)
              : qv_launch(qv::cross_tail_mma_kernel<qv::WS>, m,
                          qv::CT_SMEM_BYTES, stream, d.grid);
 }
 
 extern "C" int qv_unit_cross_tail_mma_smem(const qv::Dims*) {
+  return qv::CT_SMEM_BYTES;
+}
+
+// The bf16 tensor-core kernel in training at n = 64 on an 8x8 grid
+// (cross_tail_mma_kernel<8, true>, a tile a sample): `a` and the packed
+// weights as for qv_unit_cross_tail_mma; ERR_ARGS for any other geometry
+// or type (the wrapper checks them first, cross_tail_mma_error).
+extern "C" int qv_unit_cross_tail_mma_train64(const qv::CrossTailArgs* a,
+                                              const void* w1, const void* w2,
+                                              int is_bf16, void* stream) {
+  const qv::Dims& d = a->d;
+  if (!is_bf16 || !d.train || d.n != qv::CT_N || d.side != 8 ||
+      d.c != qv::CT_C || d.heads != qv::CT_H || d.bank_s > qv::CT_S ||
+      d.ccf_hidden != qv::CT_HID || d.bottleneck_hidden != qv::CT_HID ||
+      d.d_c != qv::CT_DC || !d.stab_ccf || !d.stab_dw || d.grid > d.B)
+    return qv::ERR_ARGS;
+  const qv::CrossTailMmaArgs m{*a, static_cast<const qv::bf16*>(w1),
+                               static_cast<const qv::bf16*>(w2)};
+  return qv_launch(qv::cross_tail_mma_kernel<8, true>, m, qv::CT_SMEM_BYTES,
+                   stream, d.grid);
+}
+
+extern "C" int qv_unit_cross_tail_mma_train64_smem(const qv::Dims*) {
   return qv::CT_SMEM_BYTES;
 }
 

@@ -55,6 +55,15 @@
 // projections' cotangents are summed over the block's samples in the
 // scratch too, and the projections' gradients formed once a block at the
 // end.  Time: PERF.md section 6 row 8.
+//
+// bf16 at hqavit_tiny_in's widths, n = 64 on an 8x8 grid,
+// cross_tail_bwd_mma_kernel<8>: a pass is half a sample (32 rows), and
+// the 3x3 dwconv that couples a grid row to its neighbours reads the
+// whole sample's input and output cotangent from a per-block scratch in
+// device memory (L2-resident, 24 KB a block), at the price of running
+// each half three times (the kernel's comment below).  Bound at B=128 on
+// the H100: 36.8 MB against 9.4 GFLOP (~11 us): the bytes bound it.
+// Time: PERF.md section 6 row 8 @n64.
 #include "mma_ops.cuh"
 #include "unit_cross_tail.cuh"
 
@@ -394,16 +403,32 @@ constexpr int CB_SMEM_BYTES = 2 * CB_BF16 + (4 * PASS_ROWS + 9 * 4) * 4;
 static_assert(2 * 2 * CB_S * CB_C * 4 <= 2 * 10 * CB_X,
               "the bank cotangents fit in the X buffers");
 
-// per block: the bank K/V projections' cotangents (float32), then the
-// operand rows (bf16)
+// per block: the bank K/V projections' cotangents (float32); at n = 64
+// the sample's dwconv input and the cotangent of its output ([64, HID]
+// bf16 each); the operand rows (bf16) of its passes of 32 rows
+constexpr int CB_SIDE_DW = 2 * 64 * CB_HID / 2;  // floats of the two
 __host__ __device__ inline int cross_tail_bwd_mma_scratch_floats(
     const Dims& d) {
-  return 2 * CB_S * CB_C + block_rows(d) * CB_OPW / 2;
+  const int nb = (d.B + d.grid - 1) / d.grid;
+  const int passes = (nb * (d.n / NT) + 1) / 2;
+  return 2 * CB_S * CB_C + (d.n == NT ? 0 : CB_SIDE_DW) +
+         PASS_ROWS * passes * CB_OPW / 2;
 }
 
-// One block per SM walks its samples in passes of two (an odd last pass
-// runs a sample of zeros with a zero cotangent, which adds nothing).  The
-// [32, C] buffers of a pass:
+// One block per SM walks its samples in passes of 32 rows.  n = 16
+// (SIDE 4): two samples a pass (an odd last pass runs a sample of zeros
+// with a zero cotangent, which adds nothing).  n = 64 (SIDE 8): half a
+// sample a pass (four rows of its 8x8 grid), and since the dwconv couples
+// a grid row to its neighbours, each half runs three times, every time
+// recomputing the row-wise forward up to the dwconv's input: phase 0
+// stores that input to the block's scratch; phase 1 runs the dwconv over
+// the whole sample's from there, through the post-norm, fc2 and gamma,
+// and back to the cotangent of the dwconv's output, which it stores;
+// phase 2 takes the dwconv's backward from both (the halo rows of the
+// other half included) and the rest of the unit's backward.  The
+// per-block sums of phases 1 (gamma, fc2, the post-norm, the scale and
+// bias) and 2 (the others) each see every row once.  The [32, C] buffers
+// of a pass:
 //   q     cross q                     att  cross attention; then P used
 //   x3    cross output (branch 3)     cc   compressed branches; cga LN
 //   fu    fused concat; cross LN      x1   x, x1; then LN cotangents
@@ -414,8 +439,10 @@ __host__ __device__ inline int cross_tail_bwd_mma_scratch_floats(
 // before GELU, dwb the dwconv output before its scale, ha hb hc in turn.
 // The operand rows of the weight gradients go to the block's scratch
 // (CB_OP_*).
+template <int SIDE>
 __global__ void __launch_bounds__(NTHREADS, 1)
     cross_tail_bwd_mma_kernel(CrossTailBwdMmaArgs m) {
+  constexpr int SN = SIDE * SIDE;          // tokens of a sample
   QV_SMEM_DECL
   const CrossTailBwdArgs& a = m.a;
   const CrossTailArgs& f = a.f;
@@ -452,7 +479,11 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   const bool zero_attn = d.guard && a.c.flag[1] != 0;
   float* dkv = a.c.scratch + (size_t)blockIdx.x *
                                  cross_tail_bwd_mma_scratch_floats(d);
-  bf16* ops = reinterpret_cast<bf16*>(dkv + 2 * CB_S * C);
+  // n = 64: the sample's dwconv input and its output's cotangent
+  bf16* hbuf = reinterpret_cast<bf16*>(dkv + 2 * CB_S * C);
+  bf16* abuf = hbuf + SN * HID;
+  bf16* ops = reinterpret_cast<bf16*>(
+      dkv + 2 * CB_S * C + (SIDE == WS ? 0 : CB_SIDE_DW));
   float fw[4];
   fusion_weights(f.fusion, fw);
   const float gamma = f.gamma[0];
@@ -485,44 +516,60 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                             in ? dense_out(v1, b[c + 1]) : 0.f);
                       });
 
-  // rows of sample slot s (< ns) from src, zeros past ns
-  auto stage = [&](bf16* dst, const void* src, const int (&bs)[2], int ns) {
-    for (int i = threadIdx.x; i < PASS_ROWS * (C / 8); i += blockDim.x) {
-      const int r = i / (C / 8), c = (i - r * (C / 8)) * 8, s = r >> 4;
-      bf16* to = dst + r * CB_LDX + c;
-      if (s < ns)
-        cp_async_16(to, static_cast<const bf16*>(src) +
-                            ((size_t)bs[s] * NT + (r & 15)) * C + c);
-      else
-        *reinterpret_cast<uint4*>(to) = uint4{0u, 0u, 0u, 0u};
-    }
-  };
-  // the first ns samples' rows of src (zeros if src is null) to dst, 16
-  // bytes a copy
-  auto store_rows = [&](void* dst, const bf16* src, const int (&bs)[2],
-                        int ns) {
-    for (int i = threadIdx.x; i < ns * NT * (C / 8); i += blockDim.x) {
-      const int r = i / (C / 8), c = (i - r * (C / 8)) * 8;
-      const int b = r >> 4 ? bs[1] : bs[0];
-      *reinterpret_cast<uint4*>(static_cast<bf16*>(dst) +
-                                ((size_t)b * NT + (r & 15)) * C + c) =
-          src ? *reinterpret_cast<const uint4*>(src + r * CB_LDX + c)
-              : uint4{0u, 0u, 0u, 0u};
-    }
-  };
-
-  const int nb = (d.B - (int)blockIdx.x + (int)gridDim.x - 1) / gridDim.x;
-  for (int k0 = 0; k0 < nb; k0 += 2) {
-    const int ns = nb - k0 < 2 ? nb - k0 : 2;
-    const int bs[2] = {(int)blockIdx.x + k0 * (int)gridDim.x,
-                       (int)blockIdx.x + (k0 + 1) * (int)gridDim.x};
-    bf16* op = ops + (size_t)(k0 / 2) * PASS_ROWS * CB_OPW;  // pass's rows
+  // Pass pi of the block (its operand rows): at n = 16 the samples bs[0],
+  // bs[1] (the first ns of them), at n = 64 half `half` of sample bs[0] (=
+  // bs[1]) in phase `phase` (at n = 16 every phase at once: 2).
+  auto pass = [&](int pi, const int (&bs)[2], int ns, int half, int phase) {
+    bf16* op = ops + (size_t)pi * PASS_ROWS * CB_OPW;  // pass's rows
     // the flat token index of the pass's row r (the samples by a select:
     // an index into bs would go to memory), and of (r, column c) in a
-    // [B, 16, width] mask
-    auto tok = [&](int r) { return (r >> 4 ? bs[1] : bs[0]) * NT + (r & 15); };
+    // [B, n, width] mask; whether row r holds a sample's
+    auto tok = [&](int r) {
+      if constexpr (SIDE != WS) return bs[0] * SN + PASS_ROWS * half + r;
+      return (r >> 4 ? bs[1] : bs[0]) * NT + (r & 15);
+    };
     auto idx = [&](int r, int c, int width) {
       return (unsigned)(tok(r) * width + c);
+    };
+    auto valid = [&](int r) { return SIDE != WS || (r >> 4) < ns; };
+    // the pass's rows of src, zeros past its samples
+    auto stage = [&](bf16* dst, const void* src) {
+      for (int i = threadIdx.x; i < PASS_ROWS * (C / 8); i += blockDim.x) {
+        const int r = i / (C / 8), c = (i - r * (C / 8)) * 8;
+        bf16* to = dst + r * CB_LDX + c;
+        if (valid(r))
+          cp_async_16(to, static_cast<const bf16*>(src) + (size_t)tok(r) * C +
+                              c);
+        else
+          *reinterpret_cast<uint4*>(to) = uint4{0u, 0u, 0u, 0u};
+      }
+    };
+    // the pass's sample rows of src (zeros if src is null) to dst, 16
+    // bytes a copy
+    auto store_rows = [&](void* dst, const bf16* src) {
+      for (int i = threadIdx.x; i < PASS_ROWS * (C / 8); i += blockDim.x) {
+        const int r = i / (C / 8), c = (i - r * (C / 8)) * 8;
+        if (!valid(r)) continue;
+        *reinterpret_cast<uint4*>(static_cast<bf16*>(dst) +
+                                  (size_t)tok(r) * C + c) =
+            src ? *reinterpret_cast<const uint4*>(src + r * CB_LDX + c)
+                : uint4{0u, 0u, 0u, 0u};
+      }
+    };
+    // the grid position of row r in its sample; the dwconv's input and
+    // its output's cotangent at (si, sj) of row r's sample, and the
+    // latter at row r (n = 64: from the block's scratch, every row of the
+    // sample there)
+    auto grid_pos = [&](int r) {
+      return SIDE == WS ? (r & 15) : PASS_ROWS * half + r;
+    };
+    auto hb_at = [&](int r, int si, int sj, int ch) {
+      if constexpr (SIDE != WS) return to_f<bf16>(hbuf[(si * SIDE + sj) * HID + ch]);
+      return to_f<bf16>(hb[((r & ~15) + si * WS + sj) * CB_LDH + ch]);
+    };
+    auto ha_at = [&](int r, int si, int sj, int ch) {
+      if constexpr (SIDE != WS) return to_f<bf16>(abuf[(si * SIDE + sj) * HID + ch]);
+      return to_f<bf16>(ha[((r & ~15) + si * WS + sj) * CB_LDH + ch]);
     };
     const float m1a = drop_path_mul(d, DP1, bs[0]);
     const float m1b = drop_path_mul(d, DP1, bs[1]);
@@ -530,12 +577,12 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     const float m2b = drop_path_mul(d, DP2, bs[1]);
     auto m1 = [&](int r) { return r >> 4 ? m1b : m1a; };
     auto m2 = [&](int r) { return r >> 4 ? m2b : m2a; };
-    stage(w1b, f.xn, bs, ns);
-    stage(x1, f.x, bs, ns);
-    stage(w2b, f.swa, bs, ns);
-    stage(w3b, f.msda, bs, ns);
-    stage(cc, f.cga, bs, ns);
-    stage(dy, a.d_y, bs, ns);
+    stage(w1b, f.xn);
+    stage(x1, f.x);
+    stage(w2b, f.swa);
+    stage(w3b, f.msda);
+    stage(cc, f.cga);
+    stage(dy, a.d_y);
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
@@ -548,8 +595,11 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                       });
     __syncthreads();
     const int s = warp >> 2, h = warp & 3, hcol = h * ATT_D;
+    // the mask of the warp's sample [H, SN, S] from its rows' first
+    const int bw = s ? bs[1] : bs[0];
     const AttnMask am{attn_drop(d, CROSS_ATTN),
-                      (unsigned)bs[s] * CB_H * NT * S, h, S};
+                      (unsigned)(bw * CB_H * SN + tok(16 * s) - bw * SN) * S,
+                      h, S, SN};
     const bf16* const kt[1] = {kb};
     const bf16* const vt[1] = {vb};
     unsigned qa[3][4];
@@ -645,18 +695,29 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     __syncthreads();
     ln_rows<PASS_ROWS, CB_HID>(ha, hb, CB_LDH, f.dwn_s, f.dwn_b);
     __syncthreads();
-    // the 3x3 depthwise correlation on each sample's 4x4 grid (zero halo,
+    if constexpr (SIDE != WS) {
+      if (phase == 0) {       // the dwconv's input of the pass's rows
+        for (int i = threadIdx.x; i < PASS_ROWS * (HID / 8); i += blockDim.x) {
+          const int r = i / (HID / 8), c = (i - r * (HID / 8)) * 8;
+          *reinterpret_cast<uint4*>(hbuf + grid_pos(r) * HID + c) =
+              *reinterpret_cast<const uint4*>(hb + r * CB_LDH + c);
+        }
+        __syncthreads();
+        return;
+      }
+    }
+    if (SIDE == WS || phase == 1) {
+    // the 3x3 depthwise correlation on each sample's grid (zero halo,
     // bias before the scale), as ccf_dwconv
     for (int i = threadIdx.x; i < PASS_ROWS * HID; i += blockDim.x) {
-      const int r = i / HID, ch = i - r * HID, base = r & ~15, n = r & 15;
-      const int gi = n >> 2, gj = n & 3;
+      const int r = i / HID, ch = i - r * HID, n = grid_pos(r);
+      const int gi = n / SIDE, gj = n % SIDE;
       float acc = 0.f;
       for (int ki = 0; ki < 3; ++ki)
         for (int kj = 0; kj < 3; ++kj) {
           const int si = gi + ki - 1, sj = gj + kj - 1;
-          const float v = (si >= 0 && si < WS && sj >= 0 && sj < WS)
-                              ? to_f<bf16>(hb[(base + si * WS + sj) * CB_LDH +
-                                              ch])
+          const float v = (si >= 0 && si < SIDE && sj >= 0 && sj < SIDE)
+                              ? hb_at(r, si, sj, ch)
                               : 0.f;
           acc = fmaf(v, f.dw_w[ch * 9 + ki * 3 + kj], acc);
         }
@@ -731,32 +792,39 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       if (d.dw_bias) slice(gr.dw_b, a.c)[ch] += gbias;
     }
     __syncthreads();
-    {  // the dwconv's weights (from its input hb) and its input
+    if constexpr (SIDE != WS) {   // the cotangent of the pass's rows
+      for (int i = threadIdx.x; i < PASS_ROWS * (HID / 8); i += blockDim.x) {
+        const int r = i / (HID / 8), c = (i - r * (HID / 8)) * 8;
+        *reinterpret_cast<uint4*>(abuf + grid_pos(r) * HID + c) =
+            *reinterpret_cast<const uint4*>(ha + r * CB_LDH + c);
+      }
+      __syncthreads();
+      return;
+    }
+    }
+    {  // the dwconv's weights (from its input) and its input
       float* gw = slice(gr.dw_w, a.c);
       for (int i = threadIdx.x; i < HID * 9; i += blockDim.x) {
         const int ch = i / 9, tap = i - ch * 9, ki = tap / 3, kj = tap % 3;
         float acc = 0.f;
         for (int r = 0; r < PASS_ROWS; ++r) {
-          const int n = r & 15, si = (n >> 2) + ki - 1, sj = (n & 3) + kj - 1;
-          if (si >= 0 && si < WS && sj >= 0 && sj < WS)
-            acc = fmaf(to_f<bf16>(ha[r * CB_LDH + ch]),
-                       to_f<bf16>(hb[((r & ~15) + si * WS + sj) * CB_LDH +
-                                     ch]),
-                       acc);
+          const int n = grid_pos(r), si = n / SIDE + ki - 1;
+          const int sj = n % SIDE + kj - 1;
+          if (si >= 0 && si < SIDE && sj >= 0 && sj < SIDE)
+            acc = fmaf(ha_at(r, n / SIDE, n % SIDE, ch),
+                       hb_at(r, si, sj, ch), acc);
         }
         gw[i] += acc;
       }
       for (int i = threadIdx.x; i < PASS_ROWS * HID; i += blockDim.x) {
-        const int r = i / HID, ch = i - r * HID, n = r & 15;
-        const int si = n >> 2, sj = n & 3;
+        const int r = i / HID, ch = i - r * HID, n = grid_pos(r);
+        const int si = n / SIDE, sj = n % SIDE;
         float acc = 0.f;
         for (int ki = 0; ki < 3; ++ki)
           for (int kj = 0; kj < 3; ++kj) {
             const int gi = si - ki + 1, gj = sj - kj + 1;
-            if (gi >= 0 && gi < WS && gj >= 0 && gj < WS)
-              acc = fmaf(f.dw_w[ch * 9 + ki * 3 + kj],
-                         to_f<bf16>(ha[((r & ~15) + gi * WS + gj) * CB_LDH +
-                                       ch]),
+            if (gi >= 0 && gi < SIDE && gj >= 0 && gj < SIDE)
+              acc = fmaf(f.dw_w[ch * 9 + ki * 3 + kj], ha_at(r, gi, gj, ch),
                          acc);
           }
         hc[r * CB_LDH + ch] = from_f<bf16>(acc);
@@ -790,7 +858,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     ln_bwd_rows<PASS_ROWS, CB_C>(x1, w3b, w3b, dy, CB_LDX, f.norm2_s,
                                  slice(gr.norm2_s, a.c),
                                  slice(gr.norm2_b, a.c), stats);
-    store_rows(a.d_x, w3b, bs, ns);
+    store_rows(a.d_x, w3b);
     // ---- drop-path, bottleneck bn2 and bn1 --------------------------------
     for (int i = threadIdx.x; i < PASS_ROWS * C / 2; i += blockDim.x) {
       const int r = i / (C / 2), c = 2 * (i - r * (C / 2));
@@ -850,7 +918,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     const void* branch[3] = {f.swa, f.msda, f.cga};
     for (int i = 0; i < 4; ++i) {
       const bf16* src = i < 3 ? w1b : x3;
-      if (i < 3) stage(w1b, branch[i], bs, ns);
+      if (i < 3) stage(w1b, branch[i]);
       // compress_i^T [48, C] into the ring
       for (int k = threadIdx.x; k < CB_DC * (C / 8); k += blockDim.x) {
         const int r = k / (C / 8), c = (k - r * (C / 8)) * 8;
@@ -873,7 +941,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                                    f.norm_s[i], slice(gr.norm_s[i], a.c),
                                    slice(gr.norm_b[i], a.c), stats);
       if (i < 3) {
-        store_rows(d_out3[i], x1, bs, ns);
+        store_rows(d_out3[i], x1);
         __syncthreads();
       }
     }
@@ -889,9 +957,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     if (zero_attn) {
       // a guarded branch passes zero gradient through its attention, so
       // nothing before it gets any
-      store_rows(a.d_xn, nullptr, bs, ns);
+      store_rows(a.d_xn, nullptr);
       __syncthreads();
-      continue;
+      return;
     }
     gemm_pass<192, 3>(x1, CB_LDX, w1t + CB_CP * C, C, C, ring,
                       [&](int r, int c, float v0, float v1) {
@@ -908,7 +976,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                           w3b + 16 * s * CB_LDX + 16 * h,
                           att + 16 * s * CB_LDX + 16 * h, CB_LDX);
     __syncthreads();
-    stage(x1, f.xn, bs, ns);
+    stage(x1, f.xn);
     cp_async_commit();
     {  // the projected bank keys: warp (k or v, head), summed over the
        // pass's rows into the scratch
@@ -934,18 +1002,36 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     save_rows(op + CB_OP_DQ, CB_OPW, w1b, CB_LDX, C);
     gemm_pass<192, 3>(w1b, CB_LDX, w1t + CB_CQ * C, C, C, ring,
                       [&](int r, int c, float v0, float v1) {
-                        if ((r >> 4) < ns)
+                        if (valid(r))
                           put(static_cast<bf16*>(a.d_xn) +
                                   (size_t)tok(r) * C + c,
                               v0, v1);
                       });
     __syncthreads();
+  };
+  const int nb = (d.B - (int)blockIdx.x + (int)gridDim.x - 1) / gridDim.x;
+  if constexpr (SIDE == WS) {
+    for (int k0 = 0; k0 < nb; k0 += 2) {
+      const int ns = nb - k0 < 2 ? nb - k0 : 2;
+      const int bs[2] = {(int)blockIdx.x + k0 * (int)gridDim.x,
+                         (int)blockIdx.x + (k0 + 1) * (int)gridDim.x};
+      pass(k0 / 2, bs, ns, 0, 2);
+    }
+  } else {
+    for (int k0 = 0; k0 < nb; ++k0) {
+      const int b = (int)blockIdx.x + k0 * (int)gridDim.x;
+      const int bs[2] = {b, b};
+      for (int phase = 0; phase < 3; ++phase)
+        for (int half = 0; half < 2; ++half)
+          pass(2 * k0 + half, bs, 1, half, phase);
+    }
   }
   // the dense layers' weight gradients over every row of the block, each
   // stored once into the slice (the guarded cross q's stay zero)
   auto wgrad = [&](int ao, int K, int bo, int N, float* w, int ldg,
                    float* bias) {
-    wgrad_block(ops + ao, ops + bo, CB_OPW, PASS_ROWS * ((nb + 1) / 2), K,
+    wgrad_block(ops + ao, ops + bo, CB_OPW,
+                PASS_ROWS * ((nb * (SN / NT) + 1) / 2), K,
                 N, slice(w, a.c), ldg, slice(bias, a.c),
                 reinterpret_cast<bf16*>(qv_smem), CB_BF16);
   };
@@ -992,7 +1078,26 @@ extern "C" int qv_unit_cross_tail_bwd_mma(const qv::CrossTailBwdArgs* a,
       d.d_c != qv::CB_DC || !d.stab_ccf || !d.stab_dw || d.grid > d.B)
     return qv::ERR_ARGS;
   const qv::CrossTailBwdMmaArgs m{*a, static_cast<const qv::bf16*>(w)};
-  const int rc = qv_launch(qv::cross_tail_bwd_mma_kernel, m,
+  const int rc = qv_launch(qv::cross_tail_bwd_mma_kernel<qv::WS>, m,
+                           qv::CB_SMEM_BYTES, stream, d.grid);
+  if (rc != 0) return rc;
+  return qv_reduce(a->c.gws, a->c.grad, d.grid, a->c.wstride, d.rgrid, stream);
+}
+
+// bf16 at hqavit_tiny_in's widths, n = 64 on an 8x8 grid
+// (cross_tail_bwd_mma_kernel<8>): as qv_unit_cross_tail_bwd_mma, with the
+// per-block scratch of cross_tail_bwd_mma_scratch_floats(d).
+extern "C" int qv_unit_cross_tail_bwd_mma64(const qv::CrossTailBwdArgs* a,
+                                            const void* w, int is_bf16,
+                                            void* stream) {
+  const qv::Dims& d = a->f.d;
+  if (!is_bf16 || !d.train || d.n != 64 || d.side != 8 ||
+      d.c != qv::CB_C || d.heads != qv::CB_H || d.bank_s > qv::CB_S ||
+      d.ccf_hidden != qv::CB_HID || d.bottleneck_hidden != qv::CB_HID ||
+      d.d_c != qv::CB_DC || !d.stab_ccf || !d.stab_dw || d.grid > d.B)
+    return qv::ERR_ARGS;
+  const qv::CrossTailBwdMmaArgs m{*a, static_cast<const qv::bf16*>(w)};
+  const int rc = qv_launch(qv::cross_tail_bwd_mma_kernel<8>, m,
                            qv::CB_SMEM_BYTES, stream, d.grid);
   if (rc != 0) return rc;
   return qv_reduce(a->c.gws, a->c.grad, d.grid, a->c.wstride, d.rgrid, stream);
@@ -1003,5 +1108,13 @@ extern "C" int qv_unit_cross_tail_bwd_mma_smem(const qv::Dims*) {
 }
 
 extern "C" int qv_unit_cross_tail_bwd_mma_scratch(const qv::Dims* d) {
+  return qv::cross_tail_bwd_mma_scratch_floats(*d);
+}
+
+extern "C" int qv_unit_cross_tail_bwd_mma64_smem(const qv::Dims*) {
+  return qv::CB_SMEM_BYTES;
+}
+
+extern "C" int qv_unit_cross_tail_bwd_mma64_scratch(const qv::Dims* d) {
   return qv::cross_tail_bwd_mma_scratch_floats(*d);
 }

@@ -109,8 +109,8 @@ __global__ void __launch_bounds__(NTHREADS, 1) swa_kernel(SwaArgs a) {
 
 // --- bf16: the tensor-core kernel (window_mma.cuh) ------------------------
 
-// NS samples a tile: 1 at n = 64 (eval), 4 at n = 16 (eval; TRAIN: the
-// training instance)
+// NS samples a tile: 1 at n = 64, 4 at n = 16; TRAIN the training
+// instances
 template <int NS, bool TRAIN>
 __global__ void __launch_bounds__(NTHREADS, 1) swa_mma_kernel(SwaMmaArgs m) {
   window_mma<WIN_SWA, NS, TRAIN>(m);
@@ -167,5 +167,32 @@ extern "C" int qv_unit_swa_mma(const qv::SwaArgs* a, const void* qkv_w16,
 }
 
 extern "C" int qv_unit_swa_mma_smem(const qv::Dims*) {
+  return qv::SM_SMEM_BYTES;
+}
+
+// The bf16 tensor-core kernel in training at n = 64 (swa_mma_kernel<1,
+// true>, a tile a sample's four windows), then the reduction pass of the
+// bank partials: `a` and the weights as for qv_unit_swa_mma; ERR_ARGS for
+// any other geometry or type (the wrapper checks them first,
+// swa_mma_error).
+extern "C" int qv_unit_swa_mma_train64(const qv::SwaArgs* a,
+                                       const void* qkv_w16,
+                                       const void* proj_w16, int is_bf16,
+                                       void* stream) {
+  const qv::Dims& d = a->d;
+  if (!is_bf16 || !d.train || d.n != qv::SM_N || d.nw != qv::SM_NW ||
+      d.side != qv::SM_SIDE || d.c != qv::SM_C || d.heads != qv::SM_H ||
+      d.lin_k != qv::SM_LK || d.bank_s > qv::SM_S || d.grid > d.B)
+    return qv::ERR_ARGS;
+  const qv::SwaMmaArgs m{*a, static_cast<const qv::bf16*>(qkv_w16),
+                         static_cast<const qv::bf16*>(proj_w16)};
+  const int rc = qv_launch(qv::swa_mma_kernel<1, true>, m,
+                           qv::SM_SMEM_BYTES, stream, d.grid);
+  if (rc != 0) return rc;
+  return qv_reduce(a->bw.part, a->bw.part_out, d.grid, 2 * d.bank_s * d.c,
+                   d.rgrid, stream);
+}
+
+extern "C" int qv_unit_swa_mma_train64_smem(const qv::Dims*) {
   return qv::SM_SMEM_BYTES;
 }

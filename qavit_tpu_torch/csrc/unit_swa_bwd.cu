@@ -45,6 +45,15 @@
 // shared memory) and stores every field of its slice once, without
 // reading it, so the caller's workspace needs no zeroing.  Time: PERF.md
 // section 6 row 5.
+//
+// bf16 at hqavit_tiny_in's widths, n = 64 in four 4x4 windows on an 8x8
+// grid, swa_bwd_mma_kernel<4>: the windows are independent but for
+// norm1's and the weights' sums, and the bank partials lie outside
+// autograd, so the same kernel walks the B x 4 windows as the n = 16 one
+// walks samples, a window's rows gathered from the grid and its d(x)
+// scattered back (the masks are the [B nw, 16, ...] layouts' own).  Bound
+// at B=128 on the H100: 13.8 MB against 8.8 GFLOP (~8.9 us): the
+// operations bound it.  Time: PERF.md section 6 row 5 @n64.
 #include "mma_ops.cuh"
 #include "unit_swa.cuh"
 
@@ -188,14 +197,21 @@ constexpr int SB_BF16 = 2 * SB_S * SB_LDX      // bank k, v
 // norm1's scale and bias gradients, then ln_bwd_rows' statistics
 constexpr int SB_SMEM_BYTES = 2 * SB_BF16 + (2 * SB_C + 4 * PASS_ROWS) * 4;
 
-// per block: the operand rows (bf16)
+// per block: the operand rows (bf16) of its windows in passes of two
 __host__ __device__ inline int swa_bwd_mma_scratch_floats(const Dims& d) {
-  return block_rows(d) * SB_OPW / 2;
+  const int nb = (d.B * d.nw + d.grid - 1) / d.grid;
+  return PASS_ROWS * ((nb + 1) / 2) * SB_OPW / 2;
 }
 
-// One block per SM walks its samples in passes of two (an odd last pass
-// runs a sample of zeros with a zero cotangent, which adds nothing).  The
-// [32, C] buffers of a pass:
+// One block per SM walks its windows u = b nw + w = blockIdx.x,
+// blockIdx.x + grid, ... in passes of two (an odd last pass runs a window
+// of zeros with a zero cotangent, which adds nothing).  NW windows a
+// sample: 1 at n = 16 (a window is a sample), 4 at n = 64, where the
+// windows are independent but for norm1's and the weights' sums: a
+// window's 16 rows are gathered from the 8x8 grid and its cotangent
+// scattered back (fused_ref.window_partition), and its masks are those
+// of window u in the [B nw, 16, ...] layouts, as at n = 16 of sample u.
+// The [32, C] buffers of a pass:
 //   xs    x
 //   kc    [sample][k, v] the compressed keys [32, C]; then d(kc), d(vc)
 //   att   the attention rows; then d(att)
@@ -205,6 +221,7 @@ __host__ __device__ inline int swa_bwd_mma_scratch_floats(const Dims& d) {
 //   pu    the probabilities PV used
 // and qkv [32, 3C]: q | k | v, then d(q) | d(k) | d(v).  The operand rows
 // of the weight gradients go to the block's scratch (SB_OP_*).
+template <int NW>
 __global__ void __launch_bounds__(NTHREADS, 1)
     swa_bwd_mma_kernel(SwaBwdMmaArgs m) {
   QV_SMEM_DECL
@@ -257,27 +274,36 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   float gbank[3][2][4] = {};
   float ge[2][4] = {};
 
-  // rows of sample slot s (< ns) from src, zeros past ns
+  // the token (row of the [B n, C] activations) of row i of window u
+  auto row_of = [&](int u, int i) {
+    if constexpr (NW == 1) return u * NT + i;
+    const int b = u / NW, w = u - b * NW;
+    return b * NW * NT + window_base(d, w) + (i / WS) * d.side + i % WS;
+  };
+  // rows of window slot s (< ns) from src, zeros past ns
   auto stage = [&](bf16* dst, const void* src, const int (&bs)[2], int ns) {
     for (int i = threadIdx.x; i < PASS_ROWS * (C / 8); i += blockDim.x) {
       const int r = i / (C / 8), c = (i - r * (C / 8)) * 8, s = r >> 4;
       bf16* to = dst + r * SB_LDX + c;
       if (s < ns)
         cp_async_16(to, static_cast<const bf16*>(src) +
-                            ((size_t)bs[s] * NT + (r & 15)) * C + c);
+                            (size_t)row_of(bs[s], r & 15) * C + c);
       else
         *reinterpret_cast<uint4*>(to) = uint4{0u, 0u, 0u, 0u};
     }
   };
-  const int nb = (d.B - (int)blockIdx.x + (int)gridDim.x - 1) / gridDim.x;
+  const int units = d.B * NW;            // windows
+  const int nb = (units - (int)blockIdx.x + (int)gridDim.x - 1) / gridDim.x;
   for (int k0 = 0; k0 < nb; k0 += 2) {
     const int ns = nb - k0 < 2 ? nb - k0 : 2;
     const int bs[2] = {(int)blockIdx.x + k0 * (int)gridDim.x,
                        (int)blockIdx.x + (k0 + 1) * (int)gridDim.x};
     bf16* op = ops + (size_t)(k0 / 2) * PASS_ROWS * SB_OPW;  // pass's rows
-    // the flat token index of the pass's row r (the samples by a select:
-    // an index into bs would go to memory)
+    // the flat index of the pass's row r in the window-major [B nw, 16]
+    // layout (the windows by a select: an index into bs would go to
+    // memory), and its token
     auto tok = [&](int r) { return (r >> 4 ? bs[1] : bs[0]) * NT + (r & 15); };
+    auto row = [&](int r) { return row_of(r >> 4 ? bs[1] : bs[0], r & 15); };
     // norm1's backward from d(xn) in dq, then d(x) to device memory
     auto norm1_bwd = [&] {
       ln_bwd_rows<PASS_ROWS, SB_C>(xs, dq, dq, nullptr, SB_LDX, f.norm1_s,
@@ -285,7 +311,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       for (int i = threadIdx.x; i < ns * NT * (C / 8); i += blockDim.x) {
         const int r = i / (C / 8), c = (i - r * (C / 8)) * 8;
         *reinterpret_cast<uint4*>(static_cast<bf16*>(a.d_x) +
-                                  (size_t)tok(r) * C + c) =
+                                  (size_t)row(r) * C + c) =
             *reinterpret_cast<const uint4*>(dq + r * SB_LDX + c);
       }
       __syncthreads();
@@ -481,7 +507,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                         if ((r >> 4) < ns) {
                           const unsigned u = *reinterpret_cast<const unsigned*>(
                               static_cast<const bf16*>(a.d_xn) +
-                              (size_t)tok(r) * C + c);
+                              (size_t)row(r) * C + c);
                           v0 += bf16x2_lo(u);
                           v1 += bf16x2_hi(u);
                         }
@@ -556,7 +582,24 @@ extern "C" int qv_unit_swa_bwd_mma(const qv::SwaBwdArgs* a, const void* w,
       d.bank_s > qv::SB_S || d.grid > d.B)
     return qv::ERR_ARGS;
   const qv::SwaBwdMmaArgs m{*a, static_cast<const qv::bf16*>(w)};
-  const int rc = qv_launch(qv::swa_bwd_mma_kernel, m, qv::SB_SMEM_BYTES,
+  const int rc = qv_launch(qv::swa_bwd_mma_kernel<1>, m, qv::SB_SMEM_BYTES,
+                           stream, d.grid);
+  if (rc != 0) return rc;
+  return qv_reduce(a->c.gws, a->c.grad, d.grid, a->c.wstride, d.rgrid, stream);
+}
+
+// bf16 at hqavit_tiny_in's widths, n = 64 in four 4x4 windows on an 8x8
+// grid (swa_bwd_mma_kernel<4>): as qv_unit_swa_bwd_mma, whose workspace
+// rules it keeps.
+extern "C" int qv_unit_swa_bwd_mma64(const qv::SwaBwdArgs* a, const void* w,
+                                     int is_bf16, void* stream) {
+  const qv::Dims& d = a->f.d;
+  if (!is_bf16 || !d.train || d.n != 4 * qv::NT || d.nw != 4 ||
+      d.side != 8 || d.c != qv::SB_C || d.heads != qv::SB_H ||
+      d.lin_k != qv::SB_LK || d.bank_s > qv::SB_S || d.grid > 4 * d.B)
+    return qv::ERR_ARGS;
+  const qv::SwaBwdMmaArgs m{*a, static_cast<const qv::bf16*>(w)};
+  const int rc = qv_launch(qv::swa_bwd_mma_kernel<4>, m, qv::SB_SMEM_BYTES,
                            stream, d.grid);
   if (rc != 0) return rc;
   return qv_reduce(a->c.gws, a->c.grad, d.grid, a->c.wstride, d.rgrid, stream);
@@ -567,5 +610,13 @@ extern "C" int qv_unit_swa_bwd_mma_smem(const qv::Dims*) {
 }
 
 extern "C" int qv_unit_swa_bwd_mma_scratch(const qv::Dims* d) {
+  return qv::swa_bwd_mma_scratch_floats(*d);
+}
+
+extern "C" int qv_unit_swa_bwd_mma64_smem(const qv::Dims*) {
+  return qv::SB_SMEM_BYTES;
+}
+
+extern "C" int qv_unit_swa_bwd_mma64_scratch(const qv::Dims* d) {
   return qv::swa_bwd_mma_scratch_floats(*d);
 }

@@ -27,16 +27,20 @@
 // vc, the bank and the attention output are checked, and the redo writes
 // proj(0) (through the proj dropout in training) to every sample.
 //
-// Training (n = 16 only) is a compile-time property of its own instance
-// (TRAIN), so the eval instances carry no mask: the attention-probability
-// and proj dropout masks are the counter hash at each element's flat
-// index in the JAX layout of its own sample (the tile and the warp give
-// the sample, never a tile-local row), the attention's replayed by
-// warp_attention_train as in the backward kernels; the bank-write
-// partials of each tile's samples (mma_ops.cuh bank_tile_partials, float32
-// FMAs in kc | vc's space once proj is done) are kept per thread over the
-// block's tiles, and the block's slice is stored once at the end, for the
-// reduction pass to sum.
+// Training is a compile-time property of its own instance (TRAIN), so
+// the eval instances carry no mask: the attention-probability and proj
+// dropout masks are the counter hash at each element's flat index in the
+// JAX layout of its own window ([B nw, 16, ...]: the tile and the warp
+// give the window, 4 tl + win at either NS, never a tile-local row), the
+// attention's replayed by warp_attention_train as in the backward
+// kernels; the bank-write partials of each tile's samples (mma_ops.cuh
+// bank_tile_partials, float32 FMAs in kc | vc's space once proj is done;
+// at n = 64 the gate's softmax runs over the sample's 64 tokens, which
+// the window-major rows of a tile hold in another order that its sums
+// do not see) are kept per thread over the block's tiles, and the
+// block's slice is stored once at the end, for the reduction pass to
+// sum.  SWA trains at both geometries (swa_mma_kernel<1, true> at n =
+// 64), MSDA at n = 16 (at n = 64 it is msda_mma_kernel<true>).
 #pragma once
 #include "mma_ops.cuh"
 
@@ -96,8 +100,7 @@ __device__ __forceinline__ void window_mma(const M& m) {
   constexpr bool MSDA = UNIT == WIN_MSDA;
   constexpr int SN = SM_N / NS;            // rows of a sample
   static_assert(NS == 1 || NS == 4, "one sample of 64 or four of 16");
-  static_assert(!(TRAIN || MSDA) || NS == 4,
-                "only n = 16 trains; MSDA at n = 64 is msda_mma_kernel");
+  static_assert(!MSDA || NS == 4, "MSDA at n = 64 is msda_mma_kernel");
   constexpr int ATTN_KEY = MSDA ? MSDA_ATTN : SWA_ATTN;
   constexpr int PROJ_KEY = MSDA ? MSDA_PROJ : SWA_PROJ;
   QV_SMEM_DECL
@@ -338,9 +341,10 @@ __device__ __forceinline__ void window_mma(const M& m) {
       for (int hh = 0; hh < 2; ++hh) {
         const int hc = (2 * half + hh) * ATT_D;
         if constexpr (TRAIN) {
-          // the window is sample NS tl + win, whose mask the dropout replays
+          // the window is 4 tl + win of the [B nw] windows (NS = 4: the
+          // sample; NS = 1: b nw + w), whose mask the dropout replays
           const AttnMask am{attn_drop(d, ATTN_KEY),
-                            (unsigned)(NS * tl + win) * SM_H * NT *
+                            (unsigned)(4 * tl + win) * SM_H * NT *
                                 (SM_LK + S),
                             2 * half + hh, SM_LK + S};
           nan_seen |= warp_attention_train<3>(qa[hh], kt, vt, SM_LDX, hc,
@@ -380,7 +384,7 @@ __device__ __forceinline__ void window_mma(const M& m) {
     store_rows(static_cast<bf16*>(a.out) + (size_t)tl * SM_N * C, att,
                valid);
     if constexpr (TRAIN)
-      bank_tile_partials(att, SM_LDX, valid, a.bw, S, scratch, sums);
+      bank_tile_partials<SN>(att, SM_LDX, valid, a.bw, S, scratch, sums);
   }
   if constexpr (TRAIN)
     bank_store_partials(sums, a.bw, S, scratch,
@@ -408,7 +412,8 @@ __device__ __forceinline__ void window_mma(const M& m) {
           }
           __syncthreads();
           store_rows(out + (size_t)tl * SM_N * C, att, valid);
-          bank_tile_partials(att, SM_LDX, valid, a.bw, S, scratch, sums);
+          bank_tile_partials<SN>(att, SM_LDX, valid, a.bw, S, scratch,
+                                 sums);
         }
         bank_store_partials(sums, a.bw, S, scratch,
                             a.bw.part + (size_t)blockIdx.x * 2 * S * C);

@@ -20,11 +20,16 @@ the forward kernel saves only the unit's inputs, and the backward kernel
 launch adds one to ``LAUNCHES[name]``.  The kernels take the geometries of
 :data:`EVAL_GEOMETRIES` (training: :data:`TRAIN_GEOMETRIES`); any other
 raises, naming the reason (:func:`kernel_geometry_error`).  At n=64 in
-bf16 (eval) the SWA, MSDA, CGA and cross/tail units run on the tensor
-cores (``swa_mma_kernel``, ``msda_mma_kernel``, ``cga_mma_kernel``,
-``cross_tail_mma_kernel``), for the widths :func:`swa_mma_error`,
-:func:`msda_mma_error`, :func:`cga_mma_error` and
-:func:`cross_tail_mma_error` name; other widths raise.  At n=16 in bf16
+bf16 the SWA, MSDA, CGA and cross/tail units run on the tensor cores, in
+eval and in training (``swa_mma_kernel``, ``msda_mma_kernel``,
+``cga_mma_kernel``, ``cross_tail_mma_kernel``; training through their
+own C entries ``qv_unit_*_mma_train64``), and so do their backward
+kernels (``swa_bwd_mma_kernel<4>``, ``msda_bwd_mma64_kernel``,
+``cga_bwd_mma_kernel<1>``, ``cross_tail_bwd_mma_kernel<8>``, entries
+``qv_unit_*_bwd_mma64``), for the widths :func:`swa_mma_error`,
+:func:`msda_mma_error`, :func:`cga_mma_error`,
+:func:`cross_tail_mma_error` and the ``*_bwd_mma_error`` functions name;
+other widths, and float32 in training, raise.  At n=16 in bf16
 at hqavit_c100's widths the four forwards run on the tensor cores in eval
 and in training (``swa_mma_kernel``, ``msda_mma16_kernel``,
 ``cga_mma_kernel``, ``cross_tail_mma_kernel``, four samples to a tile;
@@ -58,13 +63,16 @@ UNITS = ("unit_swa", "unit_msda", "unit_cga", "unit_cross_tail")
 # launches of each kernel since the last reset (plain runs do not count)
 LAUNCHES = {n: 0 for n in UNITS + tuple(f"{u}_bwd" for u in UNITS)}
 # launches of each C entry qv_{name} since the last reset, which shows the
-# route a launch took (the units' CUDA-core entries, the bf16 forward
-# tensor-core ones, and the n=16 train backward tensor-core ones)
-ROUTES = {n: 0 for n in
-          UNITS + tuple(f"{u}_bwd" for u in UNITS)
-          + ("unit_swa_mma", "unit_msda_mma", "unit_cga_mma",
-             "unit_cross_tail_mma", "unit_swa_bwd_mma", "unit_msda_bwd_mma",
-             "unit_cga_bwd_mma", "unit_cross_tail_bwd_mma")}
+# route a launch took: the units' CUDA-core entries, the bf16 forward
+# tensor-core ones (n=64 eval and n=16: _mma; n=64 training:
+# _mma_train64), and the train backward tensor-core ones (n=16: _bwd_mma;
+# n=64: _bwd_mma64)
+_MMA_FWD = tuple(f"{u}_mma" for u in UNITS) + tuple(
+    f"{u}_mma_train64" for u in UNITS)
+_MMA_BWD = tuple(f"{u}_bwd_mma" for u in UNITS) + tuple(
+    f"{u}_bwd_mma64" for u in UNITS)
+ROUTES = {n: 0 for n in UNITS + tuple(f"{u}_bwd" for u in UNITS)
+          + _MMA_FWD + _MMA_BWD}
 
 
 # stated tolerance of a kernel against its plain version, as a fraction of
@@ -367,13 +375,9 @@ _ENTRY = {"unit_swa": SwaArgs, "unit_msda": MsdaArgs, "unit_cga": CgaArgs,
           "unit_cross_tail": CrossTailArgs, "unit_swa_bwd": SwaBwdArgs,
           "unit_msda_bwd": MsdaBwdArgs, "unit_cga_bwd": CgaBwdArgs,
           "unit_cross_tail_bwd": CrossTailBwdArgs}
-# units with a bf16 forward kernel on the tensor cores (n=64 eval, n=16
-# eval and training), entry
-# qv_{unit}_mma(args, bf16 weight, bf16 weight, is_bf16, stream)
-_MMA_ENTRY = ("unit_swa", "unit_msda", "unit_cga", "unit_cross_tail")
-# backward kernels with an n=16 bf16 tensor-core kernel, entry
-# qv_{unit}_bwd_mma(args, bf16 weights, is_bf16, stream)
-_BWD_MMA_ENTRY = ("unit_swa", "unit_msda", "unit_cga", "unit_cross_tail")
+# the bf16 tensor-core forward entries take
+# qv_{entry}(args, bf16 weight, bf16 weight, is_bf16, stream), the
+# backward ones qv_{entry}(args, bf16 weights, is_bf16, stream)
 _BOUND: Dict[int, bool] = {}
 SMEM_LIMIT = 232448          # bytes of shared memory a block may opt in to
 
@@ -397,23 +401,23 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         smem = getattr(lib, f"qv_{name}_smem")
         smem.argtypes = [ctypes.POINTER(Dims)]
         smem.restype = ctypes.c_int
-    for name in _MMA_ENTRY:       # the bf16 tensor-core forwards
-        fn = getattr(lib, f"qv_{name}_mma")
-        fn.argtypes = [ctypes.POINTER(_ENTRY[name]), _P, _P, ctypes.c_int, _P]
+    for name in _MMA_FWD:         # the bf16 tensor-core forwards
+        unit = name[:name.index("_mma")]
+        fn = getattr(lib, f"qv_{name}")
+        fn.argtypes = [ctypes.POINTER(_ENTRY[unit]), _P, _P, ctypes.c_int, _P]
         fn.restype = ctypes.c_int
-        smem = getattr(lib, f"qv_{name}_mma_smem")
+        smem = getattr(lib, f"qv_{name}_smem")
         smem.argtypes = [ctypes.POINTER(Dims)]
         smem.restype = ctypes.c_int
-    for name in _BWD_MMA_ENTRY:   # the n=16 bf16 tensor-core backwards
-        fn = getattr(lib, f"qv_{name}_bwd_mma")
-        fn.argtypes = [ctypes.POINTER(_ENTRY[f"{name}_bwd"]), _P,
-                       ctypes.c_int, _P]
+    for name in _MMA_BWD:         # the bf16 tensor-core backwards
+        unit = name[:name.index("_mma")]
+        fn = getattr(lib, f"qv_{name}")
+        fn.argtypes = [ctypes.POINTER(_ENTRY[unit]), _P, ctypes.c_int, _P]
         fn.restype = ctypes.c_int
-        smem = getattr(lib, f"qv_{name}_bwd_mma_smem")
+        smem = getattr(lib, f"qv_{name}_smem")
         smem.argtypes = [ctypes.POINTER(Dims)]
         smem.restype = ctypes.c_int
-    for name in ("unit_cross_tail_bwd",) + tuple(
-            f"{u}_bwd_mma" for u in _BWD_MMA_ENTRY):   # per-block scratch
+    for name in ("unit_cross_tail_bwd",) + _MMA_BWD:   # per-block scratch
         fn = getattr(lib, f"qv_{name}_scratch")
         fn.argtypes = [ctypes.POINTER(Dims)]
         fn.restype = ctypes.c_int
@@ -427,16 +431,18 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 # token geometries the kernels take: (tokens, SWA windows) -> the most
-# pooled MSDA rows.  n = 16 in one window (hqavit_c100) in eval and in
-# training; n = 64 in four 16-token windows (hqavit_tiny_in) in eval only
+# pooled MSDA rows.  n = 16 in one window (hqavit_c100) and n = 64 in four
+# 16-token windows (hqavit_tiny_in), in eval and in training (n = 64 in
+# training: bf16 only, kernel_geometry_error with the dtype)
 EVAL_GEOMETRIES = {(16, 1): 16, (64, 4): 40}
-TRAIN_GEOMETRIES = {(16, 1): 16}
+TRAIN_GEOMETRIES = {(16, 1): 16, (64, 4): 40}
 
 
-def kernel_geometry_error(g: FusedGeom, train: bool = False
-                          ) -> Optional[str]:
+def kernel_geometry_error(g: FusedGeom, train: bool = False,
+                          dtype=None) -> Optional[str]:
     """Why the kernels cannot run geometry ``g`` (None if they can); with
-    ``train``, in train mode and for the backward kernels."""
+    ``train``, in train mode and for the backward kernels, and with
+    ``dtype``, in that working dtype (float32 trains at n=16 only)."""
     cpg = g.c // g.groups
     table = TRAIN_GEOMETRIES if train else EVAL_GEOMETRIES
     keep = table.get((g.n, g.nw))
@@ -446,7 +452,11 @@ def kernel_geometry_error(g: FusedGeom, train: bool = False
         shapes = " or ".join(f"{n} tokens in {w} SWA window(s) of 16"
                              for n, w in table)
         return (f"the CUDA units take {shapes} {mode} (ROADMAP queue 2 item "
-                f"2); got n={g.n} in {g.nw} window(s) of {g.ws2}")
+                f"2c); got n={g.n} in {g.nw} window(s) of {g.ws2}")
+    if train and g.n != 16 and dtype == torch.float32:
+        return ("the CUDA units train at n=64 in bf16 only (tensor-core "
+                "kernels); float32 at n=64 in training is not ported "
+                "(ROADMAP queue 2 item 2d): train in bf16, the default")
     checks = (
         (g.bank_s <= 16, "at most 16 bank rows"),
         (g.msda_keep <= keep, f"at most {keep} pooled MSDA rows at n={g.n}"),
@@ -466,7 +476,8 @@ def msda_mma_error(g: FusedGeom) -> Optional[str]:
     """Why the bf16 MSDA kernels (``msda_mma_kernel`` at n=64, written for
     hqavit_tiny_in's widths; ``msda_mma16_kernel`` at n=16, for
     hqavit_c100's, four samples of 16 pooled rows at most to a tile)
-    cannot run geometry ``g`` (None if they can)."""
+    cannot run geometry ``g`` (None if they can), in eval and in
+    training."""
     checks = (
         ((g.n, g.nw) in ((64, 4), (16, 1)),
          "n=64 in four SWA windows or n=16 in one"),
@@ -486,8 +497,7 @@ def msda_mma_error(g: FusedGeom) -> Optional[str]:
 def swa_mma_error(g: FusedGeom) -> Optional[str]:
     """Why the bf16 SWA kernel (``swa_mma_kernel``, written for
     hqavit_tiny_in's and hqavit_c100's widths) cannot run geometry ``g``
-    (None if it can): n=64 in eval, n=16 in eval and in training
-    (:func:`kernel_geometry_error` refuses n=64 in training)."""
+    (None if it can), in eval and in training."""
     checks = (
         ((g.n, g.nw, g.ws2) in ((64, 4, 16), (16, 1, 16)),
          "n=64 on an 8x8 grid in four 4x4 windows, or n=16 in one"),
@@ -504,9 +514,8 @@ def swa_mma_error(g: FusedGeom) -> Optional[str]:
 def cga_mma_error(g: FusedGeom) -> Optional[str]:
     """Why the bf16 CGA kernel (``cga_mma_kernel``, written for
     hqavit_c100's and hqavit_tiny_in's widths) cannot run geometry ``g``
-    (None if it can): n=16 in eval and in training, n=64 in four SWA
-    windows in eval (:func:`kernel_geometry_error` refuses n=64 in
-    training)."""
+    (None if it can), n=16 in one SWA window or n=64 in four, in eval and
+    in training."""
     checks = (
         ((g.n, g.nw) in ((16, 1), (64, 4)),
          "n=16 in one SWA window or n=64 in four"),
@@ -523,8 +532,7 @@ def cga_mma_error(g: FusedGeom) -> Optional[str]:
 def cross_tail_mma_error(g: FusedGeom) -> Optional[str]:
     """Why the bf16 cross/tail kernel (``cross_tail_mma_kernel``, written
     for hqavit_tiny_in's and hqavit_c100's widths) cannot run geometry
-    ``g`` (None if it can): n=64 in eval, n=16 in eval and in training
-    (:func:`kernel_geometry_error` refuses n=64 in training)."""
+    ``g`` (None if it can), in eval and in training."""
     checks = (
         (g.n in (16, 64), "n=16 on a 4x4 grid or n=64 on an 8x8 grid"),
         ((g.c, g.heads) == (192, 4), "C=192 and 4 heads of 48"),
@@ -541,44 +549,49 @@ def cross_tail_mma_error(g: FusedGeom) -> Optional[str]:
 
 
 def swa_bwd_mma_error(g: FusedGeom) -> Optional[str]:
-    """Why the n=16 bf16 SWA backward kernel (``swa_bwd_mma_kernel``,
-    written for hqavit_c100's widths) cannot run geometry ``g`` (None if
-    it can)."""
+    """Why the bf16 SWA backward kernel (``swa_bwd_mma_kernel``, written
+    for hqavit_c100's and hqavit_tiny_in's widths) cannot run geometry
+    ``g`` (None if it can)."""
     checks = (
-        ((g.n, g.nw, g.ws2) == (16, 1, 16), "n=16 in one SWA window"),
+        ((g.n, g.nw, g.ws2) in ((16, 1, 16), (64, 4, 16)),
+         "n=16 in one SWA window or n=64 on an 8x8 grid in four"),
         ((g.c, g.heads, g.lin_k) == (192, 4, 32),
          "C=192, 4 heads of 48 and linformer_k=32"),
         (g.bank_s <= 16, "at most 16 bank rows"),
     )
     for ok, need in checks:
         if not ok:
-            return f"the n=16 bf16 SWA backward kernel needs {need}; got {g}"
+            return f"the bf16 SWA backward kernel needs {need}; got {g}"
     return None
 
 
 def msda_bwd_mma_error(g: FusedGeom) -> Optional[str]:
-    """Why the n=16 bf16 MSDA backward kernel (``msda_bwd_mma_kernel``,
-    written for hqavit_c100's widths) cannot run geometry ``g`` (None if
-    it can)."""
+    """Why the bf16 MSDA backward kernels (``msda_bwd_mma_kernel`` at
+    n=16, ``msda_bwd_mma64_kernel`` at n=64, written for hqavit_c100's and
+    hqavit_tiny_in's widths) cannot run geometry ``g`` (None if they
+    can)."""
     checks = (
-        ((g.n, g.nw) == (16, 1), "n=16 in one SWA window"),
+        ((g.n, g.nw) in ((16, 1), (64, 4)),
+         "n=16 in one SWA window or n=64 in four"),
         ((g.c, g.heads, g.lin_k) == (192, 4, 32),
          "C=192, 4 heads of 48 and linformer_k=32"),
-        (g.msda_keep <= 16, "at most 16 pooled rows"),
+        (g.msda_keep <= (16 if g.n == 16 else 48),
+         "at most 16 pooled rows at n=16 and 48 at n=64"),
         (g.bank_s <= 16, "at most 16 bank rows"),
     )
     for ok, need in checks:
         if not ok:
-            return f"the n=16 bf16 MSDA backward kernel needs {need}; got {g}"
+            return f"the bf16 MSDA backward kernel needs {need}; got {g}"
     return None
 
 
 def cross_tail_bwd_mma_error(g: FusedGeom) -> Optional[str]:
-    """Why the n=16 bf16 cross/tail backward kernel
-    (``cross_tail_bwd_mma_kernel``, written for hqavit_c100's widths)
-    cannot run geometry ``g`` (None if it can)."""
+    """Why the bf16 cross/tail backward kernel
+    (``cross_tail_bwd_mma_kernel``, written for hqavit_c100's and
+    hqavit_tiny_in's widths) cannot run geometry ``g`` (None if it
+    can)."""
     checks = (
-        ((g.n, g.nw) == (16, 1), "n=16 on a 4x4 grid in one SWA window"),
+        (g.n in (16, 64), "n=16 on a 4x4 grid or n=64 on an 8x8 grid"),
         ((g.c, g.heads) == (192, 4), "C=192 and 4 heads of 48"),
         ((g.ccf_hidden, g.bottleneck_hidden, g.d_c) == (96, 96, 48),
          "CCF-FFN and bottleneck hidden widths of 96 and d_c=48"),
@@ -588,24 +601,25 @@ def cross_tail_bwd_mma_error(g: FusedGeom) -> Optional[str]:
     )
     for ok, need in checks:
         if not ok:
-            return (f"the n=16 bf16 cross/tail backward kernel needs {need}; "
+            return (f"the bf16 cross/tail backward kernel needs {need}; "
                     f"got {g}")
     return None
 
 
 def cga_bwd_mma_error(g: FusedGeom) -> Optional[str]:
-    """Why the n=16 bf16 CGA backward kernel (``cga_bwd_mma_kernel``,
-    written for hqavit_c100's widths) cannot run geometry ``g`` (None if
-    it can)."""
+    """Why the bf16 CGA backward kernel (``cga_bwd_mma_kernel``, written
+    for hqavit_c100's and hqavit_tiny_in's widths) cannot run geometry
+    ``g`` (None if it can)."""
     checks = (
-        ((g.n, g.nw) == (16, 1), "n=16 in one SWA window"),
+        ((g.n, g.nw) in ((16, 1), (64, 4)),
+         "n=16 in one SWA window or n=64 in four"),
         ((g.c, g.groups, g.cperg, g.heads) == (192, 6, 16, 4),
          "C=192 in 6 channel groups of 32, cperg 16 and 4 heads"),
         (g.bank_s <= 16, "at most 16 bank rows"),
     )
     for ok, need in checks:
         if not ok:
-            return f"the n=16 bf16 CGA backward kernel needs {need}; got {g}"
+            return f"the bf16 CGA backward kernel needs {need}; got {g}"
     return None
 
 
@@ -617,13 +631,19 @@ _BWD_MMA_ERROR = {"unit_swa": swa_bwd_mma_error,
 
 def bwd_entry(unit: str, g: FusedGeom, dtype) -> str:
     """The C entry (``qv_{entry}``) a backward launch of ``unit`` takes:
-    the tensor-core kernel in bf16 at the widths it is written for, else
-    the unit's CUDA-core kernel.  A route chosen by dtype and widths
-    before the launch, never a retry."""
-    err = _BWD_MMA_ERROR.get(unit)
-    if dtype == torch.bfloat16 and err is not None and err(g) is None:
-        return f"{unit}_bwd_mma"
-    return f"{unit}_bwd"
+    at n=16 the tensor-core kernel in bf16 at the widths it is written
+    for, else the unit's CUDA-core kernel; at n=64 the n=64 tensor-core
+    kernel, or ValueError with the reason (float32, other widths).  A
+    route chosen by dtype and widths before the launch, never a retry."""
+    err = _BWD_MMA_ERROR[unit](g)
+    if g.n == 16:
+        if dtype == torch.bfloat16 and err is None:
+            return f"{unit}_bwd_mma"
+        return f"{unit}_bwd"
+    err = kernel_geometry_error(g, True, dtype) or err
+    if err is not None:
+        raise ValueError(f"{unit}_bwd: {err}")
+    return f"{unit}_bwd_mma64"
 
 
 def _dims(g: FusedGeom, b: int, p: Params, grid: int, rgrid: int,
@@ -677,7 +697,7 @@ class _Launch:
         if dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"{name}: working dtype must be float32 or "
                             f"bfloat16, got {dtype}")
-        err = kernel_geometry_error(g, train)
+        err = kernel_geometry_error(g, train, dtype)
         if err is not None:
             raise ValueError(f"{name}: {err}")
         self.lib, self.name, self.g, self.dtype = lib, name, g, dtype
@@ -810,10 +830,12 @@ def launch_swa(lib, p: Params, x, bank_k, bank_v, g: FusedGeom, dtype,
     a.e_v = lc.w(ps["linformer"]["E_v"], g.ws2, g.lin_k)
     a.bank_k, a.bank_v = _bank(lc, bank_k, bank_v)
     a.proj_w, a.proj_b = lc.dense(ps["proj"], c, c)
-    if swa_route(g, dtype) == "unit_swa_mma":
+    route = swa_route(g, dtype, train is not None)
+    if route != "unit_swa":
         ws, part = _run_mma(lc, a, p, stream, swa_mma_error,
                             ps["qkv"]["kernel"], ps["proj"]["kernel"],
-                            train=train, grid=grid, branch="swa")
+                            train=train, grid=grid, branch="swa",
+                            entry=route)
         return (out, xn) if train is None else (out, xn, part, ws)
     if train is None:     # eval: one block per (sample, window)
         lc.run(a, _dims(g, lc.b, p, lc.b * g.nw, 1, None), stream)
@@ -840,10 +862,12 @@ def launch_msda(lib, p: Params, xn, bank_k, bank_v, g: FusedGeom, dtype,
     a.e_v = lc.w(pm["linformer"]["E_v"], pad, g.lin_k)
     a.bank_k, a.bank_v = _bank(lc, bank_k, bank_v)
     a.proj_w, a.proj_b = lc.dense(pm["proj"], c, c)
-    if msda_route(g, dtype) == "unit_msda_mma":
+    route = msda_route(g, dtype, train is not None)
+    if route != "unit_msda":
         ws, part = _run_mma(lc, a, p, stream, msda_mma_error,
                             pm["qkv_kernel"], pm["proj"]["kernel"],
-                            train=train, grid=grid, branch="msda")
+                            train=train, grid=grid, branch="msda",
+                            entry=route)
         return out if train is None else (out, part, ws)
     if train is None:
         lc.run(a, _fwd_dims(lc, p, None, None), stream)
@@ -855,17 +879,18 @@ def launch_msda(lib, p: Params, xn, bank_k, bank_v, g: FusedGeom, dtype,
 
 def _run_mma(lc: _Launch, a, p: Params, stream, error,
              *weights: torch.Tensor, train: Optional[UnitTrain] = None,
-             grid: Optional[Grid] = None, branch: Optional[str] = None
-             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The unit's bf16 launch on the tensor cores (C entry
-    ``qv_{unit}_mma``), or ValueError with the reason ``error(g)`` gives
-    for widths its kernel does not take: ``weights`` cast to bf16 once per
-    call, which is the kernel's own rounding of them (cp.async copies them
-    as they are).  One block per SM walks the tiles of 64 token rows (on
-    the host, one block walks them all); in training (``train``, n=16) at
-    most ``grid.blocks``, and a unit that writes the bank (``branch``)
-    gets the partial workspace of those blocks.  Returns the guard
-    workspace and, in training with ``branch``, the bank partials' sum."""
+             grid: Optional[Grid] = None, branch: Optional[str] = None,
+             entry: str = "") -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The unit's bf16 launch on the tensor cores through C entry
+    ``qv_{entry}`` (its route), or ValueError with the reason ``error(g)``
+    gives for widths its kernel does not take: ``weights`` cast to bf16
+    once per call, which is the kernel's own rounding of them (cp.async
+    copies them as they are).  One block per SM walks the tiles of 64
+    token rows (on the host, one block walks them all); in training
+    (``train``) at most ``grid.blocks``, and a unit that writes the bank
+    (``branch``) gets the partial workspace of those blocks.  Returns the
+    guard workspace and, in training with ``branch``, the bank partials'
+    sum."""
     err = error(lc.g)
     if err is not None:
         raise ValueError(f"{lc.name}: {err}")
@@ -884,8 +909,7 @@ def _run_mma(lc: _Launch, a, p: Params, stream, error,
     ws = lc.run(a, _dims(lc.g, lc.b, p, blocks,
                          1 if grid is None else grid.reduce,
                          None if train is None else train.rng), stream,
-                entry=f"{lc.name}_mma",
-                extra=tuple(w.data_ptr() for w in w16))
+                entry=entry, extra=tuple(w.data_ptr() for w in w16))
     return ws, part
 
 
@@ -905,10 +929,12 @@ def launch_cga(lib, p: Params, xn, bank_k, bank_v, g: FusedGeom, dtype,
     a.bv_w, a.bv_b = lc.dense(pc["bank_v_proj"], c, g.cperg)
     a.bank_k, a.bank_v = _bank(lc, bank_k, bank_v)
     a.proj_w, a.proj_b = lc.dense(pc["proj"], g.groups * g.cperg, c)
-    if cga_route(g, dtype) == "unit_cga_mma":
+    route = cga_route(g, dtype, train is not None)
+    if route != "unit_cga":
         ws, part = _run_mma(lc, a, p, stream, cga_mma_error,
                             _cga_qkv_packed(p), pc["proj"]["kernel"],
-                            train=train, grid=grid, branch="cga")
+                            train=train, grid=grid, branch="cga",
+                            entry=route)
         return out if train is None else (out, part, ws)
     if train is None:
         lc.run(a, _fwd_dims(lc, p, None, None), stream)
@@ -959,39 +985,47 @@ def launch_cross_tail(lib, p: Params, x, xn, out_swa, out_msda, out_cga,
     a.swa, a.msda, a.cga = lc.act(out_swa), lc.act(out_msda), lc.act(out_cga)
     a.bank_k, a.bank_v = _bank(lc, bank_k, bank_v)
     _cross_tail_args(lc, p, a)
-    if cross_tail_route(g, dtype) == "unit_cross_tail_mma":
+    route = cross_tail_route(g, dtype, train is not None)
+    if route != "unit_cross_tail":
         ws, _ = _run_mma(lc, a, p, stream, cross_tail_mma_error,
-                         *_cross_tail_packed(p), train=train, grid=grid)
+                         *_cross_tail_packed(p), train=train, grid=grid,
+                         entry=route)
     else:
         ws = lc.run(a, _fwd_dims(lc, p, train, grid), stream)
     return y if train is None else (y, ws)
 
 
-def _mma_route(unit: str, error, g: FusedGeom, dtype) -> str:
+def _mma_route(unit: str, error, g: FusedGeom, dtype,
+               train: bool = False) -> str:
     """The C entry (``qv_{entry}``) a forward launch of ``unit`` takes, by
-    dtype and widths before the launch: bf16 on the tensor cores at n=64
-    (where other widths raise, with ``error``'s reason) and at n=16 where
-    ``error`` admits the widths, in eval and in training; float32, and
-    bf16 at other n=16 widths, on the CUDA cores."""
+    dtype, widths and mode before the launch: bf16 on the tensor cores at
+    n=64 (where other widths raise, with ``error``'s reason; training
+    through its own entry) and at n=16 where ``error`` admits the widths,
+    in eval and in training; float32, and bf16 at other n=16 widths, on
+    the CUDA cores (float32 at n=64 in eval; in training it raises before
+    this, kernel_geometry_error)."""
+    if dtype == torch.bfloat16 and g.n != 16 and train:
+        return f"{unit}_mma_train64"
     if dtype == torch.bfloat16 and (g.n != 16 or error(g) is None):
         return f"{unit}_mma"
     return unit
 
 
-def swa_route(g: FusedGeom, dtype) -> str:
-    return _mma_route("unit_swa", swa_mma_error, g, dtype)
+def swa_route(g: FusedGeom, dtype, train: bool = False) -> str:
+    return _mma_route("unit_swa", swa_mma_error, g, dtype, train)
 
 
-def msda_route(g: FusedGeom, dtype) -> str:
-    return _mma_route("unit_msda", msda_mma_error, g, dtype)
+def msda_route(g: FusedGeom, dtype, train: bool = False) -> str:
+    return _mma_route("unit_msda", msda_mma_error, g, dtype, train)
 
 
-def cga_route(g: FusedGeom, dtype) -> str:
-    return _mma_route("unit_cga", cga_mma_error, g, dtype)
+def cga_route(g: FusedGeom, dtype, train: bool = False) -> str:
+    return _mma_route("unit_cga", cga_mma_error, g, dtype, train)
 
 
-def cross_tail_route(g: FusedGeom, dtype) -> str:
-    return _mma_route("unit_cross_tail", cross_tail_mma_error, g, dtype)
+def cross_tail_route(g: FusedGeom, dtype, train: bool = False) -> str:
+    return _mma_route("unit_cross_tail", cross_tail_mma_error, g, dtype,
+                      train)
 
 
 def _cga_qkv_packed(p: Params) -> torch.Tensor:
@@ -1130,13 +1164,13 @@ def launch_swa_bwd(lib, p: Params, x, bank_k, bank_v, g: FusedGeom, dtype,
     f.proj_w, f.proj_b = lc.dense(ps["proj"], c, c)
     f.d = _dims(g, lc.b, p, grid.blocks, grid.reduce, train.rng)
     entry = bwd_entry("unit_swa", g, dtype)
-    mma = entry == "unit_swa_bwd_mma"
+    mma = entry != "unit_swa_bwd"
     grads = _Grads(lc, "unit_swa", p, grid, zero=not mma)
     grads.fill(a.g)
     w16 = scratch = None
     if mma:                          # qkv, proj, then both transposed
         w16 = _bwd_weights(lc, ps["qkv"]["kernel"], ps["proj"]["kernel"])
-        per = lib.qv_unit_swa_bwd_mma_scratch(ctypes.byref(f.d))
+        per = getattr(lib, f"qv_{entry}_scratch")(ctypes.byref(f.d))
         scratch = torch.empty(grid.blocks * per, device=lc.device)
     _bwd_common(lc, a.c, bank_k, bank_v, ws, grads, scratch)
     d_x = torch.empty_like(x)
@@ -1167,9 +1201,9 @@ def launch_msda_bwd(lib, p: Params, xn, bank_k, bank_v, g: FusedGeom, dtype,
     grads.fill(a.g)
     entry = bwd_entry("unit_msda", g, dtype)
     w16 = scratch = None
-    if entry == "unit_msda_bwd_mma":     # qkv, proj, then both transposed
+    if entry != "unit_msda_bwd":         # qkv, proj, then both transposed
         w16 = _bwd_weights(lc, pm["qkv_kernel"], pm["proj"]["kernel"])
-        per = lib.qv_unit_msda_bwd_mma_scratch(ctypes.byref(f.d))
+        per = getattr(lib, f"qv_{entry}_scratch")(ctypes.byref(f.d))
         scratch = torch.empty(grid.blocks * per, device=lc.device)
     _bwd_common(lc, a.c, bank_k, bank_v, ws, grads, scratch)
     d_xn = torch.empty_like(xn)
@@ -1197,13 +1231,13 @@ def launch_cga_bwd(lib, p: Params, xn, bank_k, bank_v, g: FusedGeom, dtype,
     f.proj_w, f.proj_b = lc.dense(pc["proj"], g.groups * g.cperg, c)
     f.d = _dims(g, lc.b, p, grid.blocks, grid.reduce, train.rng)
     entry = bwd_entry("unit_cga", g, dtype)
-    mma = entry == "unit_cga_bwd_mma"
+    mma = entry != "unit_cga_bwd"
     grads = _Grads(lc, "unit_cga", p, grid, zero=not mma)
     grads.fill(a.g)
     w16 = scratch = None
     if mma:                 # q | k | v, proj, then both transposed
         w16 = _bwd_weights(lc, _cga_qkv_packed(p), pc["proj"]["kernel"])
-        per = lib.qv_unit_cga_bwd_mma_scratch(ctypes.byref(f.d))
+        per = getattr(lib, f"qv_{entry}_scratch")(ctypes.byref(f.d))
         scratch = torch.empty(grid.blocks * per, device=lc.device)
     _bwd_common(lc, a.c, bank_k, bank_v, ws, grads, scratch)
     d_xn = torch.empty_like(xn)
@@ -1236,7 +1270,7 @@ def launch_cross_tail_bwd(lib, p: Params, x, xn, out_swa, out_msda, out_cga,
     a.d_y = lc.act(d_y)
     a.d_x, a.d_xn, a.d_swa, a.d_msda, a.d_cga = (lc.act(t) for t in outs)
     w16 = None
-    if entry == "unit_cross_tail_bwd_mma":   # w1, w2, then both transposed
+    if entry != "unit_cross_tail_bwd":       # w1, w2, then both transposed
         w16 = _bwd_weights(lc, *_cross_tail_packed(p))
     _run_bwd(lc, a, f.d, stream, entry, w16)
     r = grads.result()

@@ -21,9 +21,10 @@ fused form, whatever ``attn_impl`` says: the JAX package would take the
 branch path there for ``attn_impl != "fused_block"``.  This is a known
 divergence (ROADMAP queue 3); the JAX package holds its fused units to the
 flax path's function (``tests/test_fused_block.py:128``).  The unit
-kernels take the learned-token geometries of both HQAViT families: n=16
-in one SWA window (``hqavit_c100``, eval and training) and n=64 in four
-(``hqavit_tiny_in``, eval; its training raises, ROADMAP queue 2 item 2).
+kernels take the learned-token geometries of both HQAViT families, in
+eval and in training: n=16 in one SWA window (``hqavit_c100``) and n=64
+in four (``hqavit_tiny_in``; on the card it trains in bf16, float32
+raising before the launch, ROADMAP queue 2 item 2d).
 """
 
 from __future__ import annotations

@@ -38,8 +38,10 @@ def _not_ported(what: str, item: str):
 def check_train_geometry(mc: ModelConfig) -> None:
     """Raise unless the fused units' backward kernels take ``mc``'s block
     geometry (HQAViT; the flat QAViT's train step raises on its own, queue
-    1 item 1): today n=16 in one SWA window.  The n=64 eval geometry of
-    ``hqavit_tiny_in`` trains in the next slice."""
+    1 item 1): n=16 in one SWA window (hqavit_c100) or n=64 in four
+    (hqavit_tiny_in, hqavit_proc_tin).  The working dtype is checked at
+    each launch: on the card n=64 trains in bf16 only, while the CPU's
+    plain units take both dtypes."""
     if not mc.hybrid:
         return
     geom = make_geom(mc)
@@ -47,7 +49,7 @@ def check_train_geometry(mc: ModelConfig) -> None:
            else kernel_geometry_error(geom, train=True))
     if err is not None:
         _not_ported(f"{mc.name}'s train step: {err}",
-                    "queue 2 item 2, the train slice at n=64")
+                    "queue 2 item 2c, n=196 and n=256")
 
 
 def step_seed(seed: int, step: int) -> int:

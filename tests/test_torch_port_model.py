@@ -147,20 +147,24 @@ def test_wrappers_never_fall_back_off_the_cpu(unit):
 
 
 def test_kernel_geometry_covers_the_flagship():
-    """n=16 in one window in eval and training; n=64 in four windows in
-    eval only; n=196 (the 224 presets under fused_block) and n=256 in 16
-    windows refused with a named reason, in both modes."""
+    """n=16 in one window and n=64 in four windows, in eval and training
+    (n=64 training in bf16: float32 refused with a named reason); n=196
+    (the 224 presets under fused_block) and n=256 in 16 windows refused
+    with a named reason, in both modes."""
     from qavit_tpu_torch.configs import get_preset
     from qavit_tpu_torch.kernels.fused_ref import make_geom
 
     cfg = get_preset("hqavit_c100").model
     assert K.kernel_geometry_error(make_geom(cfg)) is None
     assert K.kernel_geometry_error(make_geom(cfg), train=True) is None
+    assert K.kernel_geometry_error(make_geom(cfg), True, torch.float32) is None
     g64 = make_geom(cfg.replace(num_learned_tokens=64))
     assert (g64.n, g64.nw, g64.ws2) == (64, 4, 16)
     assert K.kernel_geometry_error(g64) is None
-    err = K.kernel_geometry_error(g64, train=True)
-    assert "train mode" in err and "queue 2 item 2" in err
+    assert K.kernel_geometry_error(g64, train=True) is None
+    assert K.kernel_geometry_error(g64, True, torch.bfloat16) is None
+    err = K.kernel_geometry_error(g64, True, torch.float32)
+    assert "float32 at n=64 in training" in err and "item 2d" in err, err
     g196 = make_geom(get_preset("qavit_224_v1_proc").model)
     g256 = make_geom(cfg.replace(img_size=128, num_learned_tokens=256))
     assert (g196.n, g256.n, g256.nw) == (196, 256, 16)
@@ -168,29 +172,35 @@ def test_kernel_geometry_covers_the_flagship():
         for train in (False, True):
             err = K.kernel_geometry_error(g, train=train)
             assert f"got n={g.n} in {g.nw} window(s)" in err, err
-            assert "queue 2 item 2" in err
+            assert "queue 2 item 2c" in err
 
 
 @pytest.mark.parametrize("unit", ["swa", "msda", "cga", "cross_tail"])
 def test_launches_refuse_an_uncovered_geometry(unit):
-    """Every launch checks the geometry before it touches the library or
-    a tensor: the 224 presets' n=196 raises in eval, and n=64 raises in
-    train mode (its backward kernels are not ported), naming the reason."""
+    """Every launch checks the geometry and dtype before it touches the
+    library or a tensor, naming the reason: the 224 presets' n=196 in
+    eval, n=256 in 16 windows in train mode, and hqavit_proc_tin's n=64
+    in train mode in float32 (its kernels train in bf16)."""
     from qavit_tpu_torch.configs import get_preset
     from qavit_tpu_torch.kernels import fused_ref as R
     from qavit_tpu_torch.kernels.fused_ref import make_geom
 
     launch = getattr(K, f"launch_{unit}")
     n_act = 5 if unit == "cross_tail" else 1
-    for preset, train in (("qavit_224_v1_proc", None),
-                          ("hqavit_proc_tin",
-                           K.UnitTrain(R.block_rng(1, 0.1, 0.1), {}))):
-        g = make_geom(get_preset(preset).model)
+    train = K.UnitTrain(R.block_rng(1, 0.1, 0.1), {})
+    c100 = get_preset("hqavit_c100").model
+    for cfg, mode, reason in (
+            (get_preset("qavit_224_v1_proc").model, None, "got n=196 in 4"),
+            (c100.replace(img_size=128, num_learned_tokens=256), train,
+             "got n=256 in 16"),
+            (get_preset("hqavit_proc_tin").model, train,
+             "float32 at n=64 in training")):
+        g = make_geom(cfg)
         x = torch.empty(2, g.n, g.c, device="meta")
         bank = torch.empty(1, g.bank_s, g.c, device="meta")
-        with pytest.raises(ValueError, match=f"got n={g.n} in {g.nw}"):
+        with pytest.raises(ValueError, match=reason):
             launch(None, {}, *([x] * n_act), bank, bank, g, torch.float32,
-                   None, train, K.Grid(1, 1))
+                   None, mode, K.Grid(1, 1))
 
 
 def test_port_imports_nothing_of_jax():

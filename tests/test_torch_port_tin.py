@@ -165,14 +165,18 @@ def test_cli_evaluate_on_cpu():
 
 @pytest.mark.parametrize("name", TIN_PRESETS)
 def test_train_step_refused_before_the_first_step(name):
-    """No backward kernel takes n=64 yet: the train step and bench
-    --train raise at construction, naming the ROADMAP item."""
+    """The n=64 train step is ported: make_train_step builds it and bench
+    --train runs it on the CPU at full depth through the plain units (no
+    kernel launch), with finite losses."""
     from qavit_tpu_torch.cli import bench
     from qavit_tpu_torch.train.steps import make_train_step
 
     preset = get_preset(name)
-    with pytest.raises(NotImplementedError, match="queue 2 item 2"):
-        make_train_step(preset.model, preset.train, lambda s: 0.0)
-    with pytest.raises(NotImplementedError, match="queue 2 item 2"):
-        bench.main(["--preset", name, "--train", "--batch-sizes", "2",
-                    "--device", "cpu"])
+    assert callable(make_train_step(preset.model, preset.train,
+                                    lambda s: 0.0))
+    before = dict(K.LAUNCHES)
+    rows = bench.main(["--preset", name, "--train", "--batch-sizes", "2",
+                       "--steps", "1", "--device", "cpu"])
+    assert K.LAUNCHES == before
+    assert len(rows) == 1 and rows[0]["batch"] == 2, rows
+    assert np.isfinite(rows[0]["first_loss"]), rows

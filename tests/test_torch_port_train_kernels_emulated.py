@@ -21,7 +21,16 @@ MSDA and CGA tensor-core forwards replay the plain version's masks.
 Tolerances: fused_kernels.TOLERANCE
 (outputs), unit_checks.PARTIAL_TOLERANCE (partials) and
 fused_kernels.GRAD_TOLERANCE (gradients), each stated with its reason
-where it is defined."""
+where it is defined.
+
+At hqavit_tiny_in's geometry (C=192, n=64 on an 8x8 grid, four SWA
+windows, 40 pooled MSDA rows) the bf16 train-mode forwards and backward
+kernels (their own C entries, qv_unit_*_mma_train64 and
+qv_unit_*_bwd_mma64) are held the same way over 5 samples and 3 blocks
+(the SWA backward's passes of two windows end short, the others' passes
+of a sample end on blocks of one and two samples), with the guard
+tripped, with 12 bank rows, with their masks at dropout 0.5, and their
+routes and ERR_ARGS are checked."""
 
 import ctypes
 import functools
@@ -52,8 +61,10 @@ B = 3
 # tensor cores' summation order against the CPU's (with the emulated mma
 # summing in the CPU's order they are bit-identical), and one such
 # element moves a partial by ~5e-4 while max|partial| grows with the batch
-SAMPLES = {"tiny": B, "flagship_width": 2 * B}
+SAMPLES = {"tiny": B, "flagship_width": 2 * B, "tin": 5}
 GRID = K.Grid(2, 2)
+# n=64: three blocks over 5 samples (20 windows: 7, 7 and 6 a block)
+GRID64 = K.Grid(3, 2)
 UNITS = list(K.UNITS)
 
 
@@ -71,6 +82,8 @@ def emu_lib(tmp_path_factory):
 
 
 def _cfg(width):
+    if width == "tin":
+        return get_preset("hqavit_tiny_in").model
     cfg = get_preset("hqavit_c100").model
     if width == "tiny":
         cfg = cfg.replace(embed_dim=48, linformer_k=8, msda_pad_len=32)
@@ -112,7 +125,7 @@ def tiny_case():
 
 
 def _check(emu_lib, case, unit, dtype, rate=0.1, dpr=0.1, nan_at=None,
-           bank_s=None):
+           bank_s=None, grid=GRID, batch=None):
     g, p, bankp, rows, x = case
     g = g._replace(dropout=rate)
     if bank_s is not None:         # the first bank_s rows (and gate columns)
@@ -123,6 +136,8 @@ def _check(emu_lib, case, unit, dtype, rate=0.1, dpr=0.1, nan_at=None,
                       ("write_gate_bias", (slice(bank_s),))):
             bankp[k] = bankp[k][sl].contiguous()
     train = K.UnitTrain(R.block_rng(1234, rate, dpr), bankp)
+    if batch is not None:
+        x = x[:batch]
     batch = C.unit_inputs(p, g, dtype, x.to(dtype), rows)[unit]
     if nan_at is not None:
         batch = list(batch)
@@ -131,7 +146,7 @@ def _check(emu_lib, case, unit, dtype, rate=0.1, dpr=0.1, nan_at=None,
         batch[lead][nan_at] = float("nan")
     cots = C.random_cotangents(unit, batch, dtype,
                                torch.Generator().manual_seed(5))
-    return C.check_unit(emu_lib, unit, p, train, batch, g, dtype, GRID, cots,
+    return C.check_unit(emu_lib, unit, p, train, batch, g, dtype, grid, cots,
                         guard_tripped=nan_at is not None)
 
 
@@ -206,16 +221,21 @@ def test_mma_backward_short_bank(emu_lib, flagship_case, unit):
 @pytest.mark.parametrize("unit", MMA_BWD)
 def test_mma_backward_route(emu_lib, unit):
     """bwd_entry takes the tensor-core entry exactly where the error
-    function admits the geometry: bf16 at hqavit_c100's widths; float32
-    and the tiny width (whose reason names C) take the CUDA-core entry.
-    The tensor-core C entry itself returns ERR_ARGS (1) for the tiny
-    width and for float32, before it touches an argument."""
+    function admits the geometry: at n=16 bf16 at hqavit_c100's widths
+    (float32 and the tiny width, whose reason names C, take the CUDA-core
+    entry); at n=64 the n=64 entry in bf16 at hqavit_tiny_in's widths,
+    and a named ValueError for float32 or other widths.  The tensor-core C
+    entries return ERR_ARGS (1) for a width, dtype or geometry they do not
+    take, before they touch an argument: the n=16 ones for the tiny width,
+    float32 and n=64; the n=64 ones for n=16 and float32; the n=64
+    training forward for n=16 and eval."""
     error = {"unit_swa": K.swa_bwd_mma_error,
              "unit_msda": K.msda_bwd_mma_error,
              "unit_cga": K.cga_bwd_mma_error,
              "unit_cross_tail": K.cross_tail_bwd_mma_error}[unit]
     flagship, tiny = make_geom(_cfg("flagship_width")), make_geom(_cfg("tiny"))
-    assert error(flagship) is None
+    tin = make_geom(_cfg("tin"))
+    assert error(flagship) is None and error(tin) is None
     reason = error(tiny)
     assert reason is not None and "C=192" in reason, reason
     assert error(flagship._replace(bank_s=17)) is not None
@@ -224,24 +244,82 @@ def test_mma_backward_route(emu_lib, unit):
         mma = dtype == torch.bfloat16 and error(g) is None
         assert K.bwd_entry(unit, g, dtype) == unit + ("_bwd_mma" if mma
                                                       else "_bwd")
+    assert K.bwd_entry(unit, tin, torch.bfloat16) == f"{unit}_bwd_mma64"
+    with pytest.raises(ValueError, match="float32 at n=64 in training"):
+        K.bwd_entry(unit, tin, torch.float32)
+    with pytest.raises(ValueError, match="C=192"):
+        K.bwd_entry(unit, make_geom(_cfg("tin").replace(embed_dim=96)),
+                    torch.bfloat16)
+    route = {"unit_swa": K.swa_route, "unit_msda": K.msda_route,
+             "unit_cga": K.cga_route,
+             "unit_cross_tail": K.cross_tail_route}[unit]
+    assert route(tin, torch.bfloat16, True) == f"{unit}_mma_train64"
+    assert route(tin, torch.bfloat16) == f"{unit}_mma"
+    assert route(flagship, torch.bfloat16, True) == f"{unit}_mma"
     p = _case("tiny")[1]
-    entry = getattr(emu_lib, f"qv_{unit}_bwd_mma")
-    for g, is_bf16 in ((tiny, 1), (flagship, 0)):
-        args = K._ENTRY[f"{unit}_bwd"]()
-        args.f.d = K._dims(g, B, p, GRID.blocks, GRID.reduce,
-                           R.block_rng(1, 0.1, 0.1))
-        assert entry(ctypes.byref(args), None, is_bf16, None) == 1
+    rng = R.block_rng(1, 0.1, 0.1)
+    for suffix, cases in (("_bwd_mma", ((tiny, 1), (flagship, 0), (tin, 1))),
+                          ("_bwd_mma64", ((flagship, 1), (tin, 0)))):
+        entry = getattr(emu_lib, f"qv_{unit}{suffix}")
+        for g, is_bf16 in cases:
+            args = K._ENTRY[f"{unit}_bwd"]()
+            args.f.d = K._dims(g, B, p, GRID.blocks, GRID.reduce, rng)
+            assert entry(ctypes.byref(args), None, is_bf16, None) == 1
+    entry = getattr(emu_lib, f"qv_{unit}_mma_train64")
+    for g, is_bf16, r in ((flagship, 1, rng), (tin, 0, rng), (tin, 1, None)):
+        args = K._ENTRY[unit]()
+        args.d = K._dims(g, B, p, GRID.blocks, GRID.reduce, r)
+        assert entry(ctypes.byref(args), None, None, is_bf16, None) == 1
 
 
-@pytest.mark.parametrize("unit", ["unit_swa", "unit_msda", "unit_cga"])
-def test_mma_forward_masks_are_the_plain_masks(emu_lib, flagship_case,
-                                               unit):
-    """The n=16 tensor-core forwards in training at dropout 0.5: outputs
-    and bank partials equal to the plain version fed fused_ref's hash
-    masks within the stated tolerances, and the outputs away from the
-    unmasked forward's: each element's mask is its own sample's, at its
-    flat index in the JAX layout."""
-    g, p, bankp, rows, x = flagship_case
+@pytest.fixture(scope="module")
+def tin_case():
+    return _case("tin")
+
+
+def _check_n64(emu_lib, case, unit, **kw):
+    """_check in bf16 at hqavit_tiny_in's geometry, through the unit's
+    n=64 training forward and backward entries."""
+    K.reset_launches()
+    r = _check(emu_lib, case, unit, torch.bfloat16, **kw)
+    assert K.ROUTES[f"{unit}_mma_train64"] == 1, K.ROUTES
+    assert K.ROUTES[f"{unit}_bwd_mma64"] == 1, K.ROUTES
+    assert sum(K.ROUTES.values()) == 2, K.ROUTES
+    return r
+
+
+@pytest.mark.parametrize("unit", MMA_BWD)
+def test_n64_train_kernels(emu_lib, tin_case, unit):
+    """The n=64 bf16 training forward (outputs, bank partials) and
+    backward kernel (every gradient) against the plain version and
+    autograd, masks on, 5 samples over 3 blocks."""
+    r = _check_n64(emu_lib, tin_case, unit, grid=GRID64)
+    assert r.ok, r
+
+
+@pytest.mark.parametrize("unit", MMA_BWD)
+def test_n64_train_nan_guard_and_short_bank(emu_lib, tin_case, unit):
+    """n=64: the guard tripped by a NaN in one of 2 samples (zero
+    gradient through the attention, zero for the bank), then 12 bank rows
+    (the keys past them masked in the forward and the recompute)."""
+    r = _check_n64(emu_lib, tin_case, unit, nan_at=(1, 3, 5), batch=2)
+    assert r.flag == 1 and r.ok, r
+    r = _check_n64(emu_lib, tin_case, unit, bank_s=12, batch=2)
+    assert r.ok, r
+
+
+@pytest.mark.parametrize("unit,width", [
+    ("unit_swa", "flagship_width"), ("unit_msda", "flagship_width"),
+    ("unit_cga", "flagship_width"), ("unit_swa", "tin"), ("unit_msda", "tin"),
+    ("unit_cga", "tin"), ("unit_cross_tail", "tin")])
+def test_mma_forward_masks_are_the_plain_masks(emu_lib, unit, width):
+    """The tensor-core forwards in training at dropout 0.5 (n=16 and, with
+    the cross/tail unit's six masks, n=64): outputs and bank partials
+    equal to the plain version fed fused_ref's hash masks within the
+    stated tolerances, and the outputs away from the unmasked forward's:
+    each element's mask is its own sample's, at its flat index in the JAX
+    layout."""
+    g, p, bankp, rows, x = _case(width)
     g = g._replace(dropout=0.5)
     dtype = torch.bfloat16
     train = K.UnitTrain(R.block_rng(99, 0.5, 0.1), bankp)
@@ -249,10 +327,12 @@ def test_mma_forward_masks_are_the_plain_masks(emu_lib, flagship_case,
     n = K._N_DIFF_OUT[unit]
     K.reset_launches()
     *outs, ws = K._FWD[unit](emu_lib, p, *batch, g, dtype, None, train, GRID)
-    assert K.ROUTES[f"{unit}_mma"] == 1 and int(ws[1]) == 0
+    entry = f"{unit}_mma" + ("_train64" if g.n == 64 else "")
+    assert K.ROUTES[entry] == 1 and int(ws[1]) == 0
     ref = K.PLAIN[unit](p, *batch, g, dtype, train)
-    out_err, part_err = C.forward_errors(list(outs[:n]) + list(outs[n]),
-                                         ref, n)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    parts = list(outs[n]) if len(outs) > n else []
+    out_err, part_err = C.forward_errors(list(outs[:n]) + parts, ref, n)
     assert out_err <= K.TOLERANCE[dtype] and part_err <= C.PARTIAL_TOLERANCE
     eval_out = K.PLAIN[unit](p, *batch, g, dtype)
     eval_out = eval_out[0] if isinstance(eval_out, tuple) else eval_out

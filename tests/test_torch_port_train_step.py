@@ -1,5 +1,7 @@
 """The port's train step against ``qavit_tpu.train.make_train_step`` on
-the ``tiny_cfg`` model with the same seed-made weights and batch: mixup
+the ``tiny_cfg`` model (n=16) and on the narrow hqavit_tiny_in
+(torch_port_common.narrow_tiny_in: 64 px, n=64 in four SWA windows, 40
+pooled MSDA rows, depth 4) with the same seed-made weights and batch: mixup
 and cutmix off and dropout and drop-path at 0 (the two frameworks' random
 streams cannot match), for 1 and for 3 steps.  Compared after the steps:
 the loss and ``grad_norm`` of each step, every parameter (the bank rows
@@ -20,8 +22,9 @@ gradient >= 7e-5).  For the same reason a moment's atol scale is at least
 1e-2 of the largest |moment| of the model.
 
 In bf16 (the default dtype users train in), one forward and backward of
-hqavit_c100 at full width and depth 2 (dropout, drop-path and mixing off)
-against ``jax.grad`` of the same loss in bf16 and in float32: the
+hqavit_c100 at full width and depth 2, and of the narrow hqavit_tiny_in
+(dropout, drop-path and mixing off) against ``jax.grad`` of the same loss
+in bf16 and in float32: the
 global l2 distance of the port's bf16 gradients from JAX's bf16
 gradients is held to BF16_VS_JAX x JAX's own bf16-vs-float32 distance,
 as the bf16 logits are (tests/torch_port_common.py).  This holds the
@@ -51,7 +54,7 @@ from qavit_tpu_torch.train.optim import make_schedule
 from qavit_tpu_torch.train.state import create_train_state
 from qavit_tpu_torch.train.steps import loss_and_grads, make_train_step
 from torch_port_common import (BF16_VS_JAX, flagship_width_depth2,
-                               jax_bundle, port_cfg, to_np)
+                               jax_bundle, narrow_tiny_in, port_cfg, to_np)
 
 STEPS_PER_EPOCH = 10
 B = 4
@@ -65,18 +68,20 @@ def _close(port, ref, what, extra_atol=0.0, floor=0.0):
     np.testing.assert_allclose(p, r, rtol=1e-4, atol=atol, err_msg=what)
 
 
-@pytest.fixture(scope="module")
-def runs(tiny_cfg):
+@pytest.fixture(scope="module", params=["tiny", "narrow_tin"])
+def runs(request, tiny_cfg):
     """(JAX states and metrics, port state and metrics) after 1 and 3
     steps from the same start."""
-    jcfg = tiny_cfg.replace(attn_impl="fused_block", dropout=0.0,
-                            drop_path=0.0)
+    jcfg = (tiny_cfg.replace(attn_impl="fused_block")
+            if request.param == "tiny" else narrow_tiny_in())
+    jcfg = jcfg.replace(dropout=0.0, drop_path=0.0)
     tcj = JaxTC(batch_size=B, epochs=2, warmup_epochs=1, use_mixup=False,
                 use_cutmix=False, use_ema=True)
     tct = TrainingConfig(**dataclasses.asdict(tcj))
     jmodel, variables = jax_bundle(jcfg, seed=3, batch=B)
     rs = np.random.RandomState(5)
-    images = rs.standard_normal((B, 16, 16, 3)).astype(np.float32)
+    images = rs.standard_normal(
+        (B, jcfg.img_size, jcfg.img_size, 3)).astype(np.float32)
     targets = rs.randint(0, jcfg.num_classes, B).astype(np.int32)
 
     sched = jax_schedule(tcj, STEPS_PER_EPOCH)
@@ -101,7 +106,7 @@ def runs(tiny_cfg):
         if i in (0, 2):
             out[i + 1] = (jax.device_get(jstate), list(jm), _snapshot(pstate),
                           list(pm))
-    return model, tcj, out
+    return model, tcj, jcfg, out
 
 
 def _snapshot(state):
@@ -116,7 +121,7 @@ def _snapshot(state):
 
 @pytest.mark.parametrize("steps", [1, 3])
 def test_train_step_matches_jax(runs, steps):
-    model, tcj, out = runs
+    model, tcj, jcfg, out = runs
     jstate, jm, snap, pm = out[steps]
     for i in range(steps):
         _close(pm[i]["loss"], jm[i]["loss"], f"loss step {i}")
@@ -146,7 +151,8 @@ def test_train_step_matches_jax(runs, steps):
     for name, t in snap["ema"].items():
         _close(t, ref[name].numpy(), f"ema {name}",
                lr_steps * 1e-3 if name in roundoff else 0.0)
-    assert snap["bank_count"] == int(jstate.bank_count) == 6 * steps
+    assert snap["bank_count"] == int(jstate.bank_count) == (
+        3 * jcfg.depth * steps)
 
 
 def _jax_grads(jcfg, variables, images, targets, tc):
@@ -166,12 +172,17 @@ def _jax_grads(jcfg, variables, images, targets, tc):
     return jax.jit(jax.value_and_grad(loss_fn))(variables["params"])
 
 
-def test_bf16_grads_within_jax_own_bf16_distance():
-    jcfg = flagship_width_depth2().replace(dropout=0.0, drop_path=0.0)
+@pytest.mark.parametrize("which", ["flagship_width_depth2",
+                                   "narrow_tiny_in"])
+def test_bf16_grads_within_jax_own_bf16_distance(which):
+    jcfg = {"flagship_width_depth2": flagship_width_depth2,
+            "narrow_tiny_in": narrow_tiny_in}[which]().replace(
+                dropout=0.0, drop_path=0.0)
     tcj = JaxTC(batch_size=8, use_mixup=False, use_cutmix=False)
     _, variables = jax_bundle(jcfg, seed=7, batch=8)
     rs = np.random.RandomState(9)
-    images = rs.standard_normal((8, 32, 32, 3)).astype(np.float32)
+    images = rs.standard_normal(
+        (8, jcfg.img_size, jcfg.img_size, 3)).astype(np.float32)
     targets = rs.randint(0, jcfg.num_classes, 8).astype(np.int32)
     jcfg16 = jcfg.replace(dtype="bfloat16")
     model = load_jax_params(HQAViT(port_cfg(jcfg16)), variables["params"],

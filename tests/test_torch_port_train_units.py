@@ -5,9 +5,11 @@ unit differentiates into, the bank rows and every batch input) against
 ``jax.vjp`` of the JAX unit twins (``qavit_tpu/kernels/fused_ref.py``), at
 the tiny width and the hqavit_c100 width, at dropout 0 and with dropout
 and drop-path on (both sides fed the arrays of the JAX package's
-``make_block_masks``); and one fused block in training (three bank
-writes) against the JAX package's Pallas units run in interpret mode,
-forward and gradients, at dropout 0.
+``make_block_masks``), and at n=64 in four SWA windows (the narrow
+hqavit_tiny_in geometry, torch_port_common.narrow_tiny_in); and one fused
+block in training (three bank writes) against the JAX package's Pallas
+units run in interpret mode, forward and gradients, at dropout 0, at the
+tiny width and at the narrow n=64 geometry.
 
 Tolerance: float32, rtol 1e-4 / atol 1e-5 against max|JAX| for outputs
 and gradients (torch_port_common.F32: the same algorithm, sums in another
@@ -29,7 +31,7 @@ from qavit_tpu_torch.kernels import fused_ref as RT
 from qavit_tpu_torch.kernels.fused_params import QuadBlockParams
 from qavit_tpu_torch.nn.layers import param_tree
 from torch_port_common import (block_tree, flagship_width_depth2, jax_bundle,
-                               port_cfg, to_np)
+                               narrow_tiny_in, port_cfg, to_np)
 
 B = 3
 
@@ -51,8 +53,9 @@ _CASES = {}
 def _make_case(which, tiny_cfg):
     if which in _CASES:
         return _CASES[which]
-    jcfg = (tiny_cfg.replace(attn_impl="fused_block") if which == "tiny"
-            else flagship_width_depth2())
+    jcfg = {"tiny": lambda: tiny_cfg.replace(attn_impl="fused_block"),
+            "flagship_width": flagship_width_depth2,
+            "narrow_tin": narrow_tiny_in}[which]()
     _, variables = jax_bundle(jcfg, seed=1)
     pj = block_tree(variables)
     bankp = {k: v for k, v in variables["params"]["global_bank"].items()
@@ -72,7 +75,8 @@ def _make_case(which, tiny_cfg):
     return _CASES[which]
 
 
-@pytest.fixture(scope="module", params=["tiny", "flagship_width"])
+@pytest.fixture(scope="module",
+                params=["tiny", "flagship_width", "narrow_tin"])
 def case(request, tiny_cfg):
     return _make_case(request.param, tiny_cfg)
 
@@ -234,12 +238,15 @@ def test_train_unit_matches_jax(case, unit, masks):
         _close(g_t, g_j, f"{unit} d {'/'.join(path)}", floor)
 
 
-def test_train_block_matches_jax_pallas_interpret(tiny_cfg, monkeypatch):
+@pytest.mark.parametrize("which", ["tiny", "narrow_tin"])
+def test_train_block_matches_jax_pallas_interpret(tiny_cfg, monkeypatch,
+                                                  which):
     """One fused block in training at dropout 0 (three bank writes, each
     unit reading the bank its predecessor wrote): the port's units against
     the JAX package's Pallas units in interpret mode (fused_pallas
     fwd_call / bwd_call), output, bank state and gradients, at the tiny
-    width (interpret mode takes minutes at full width)."""
+    width (n=16) and at the narrow n=64 geometry in four SWA windows
+    (interpret mode takes minutes at full width)."""
     import qavit_tpu.kernels.fused_block as FB
     from qavit_tpu.configs.model import BankConfig as JBankCfg
     from qavit_tpu.nn.bank import BankState as JState
@@ -247,7 +254,7 @@ def test_train_block_matches_jax_pallas_interpret(tiny_cfg, monkeypatch):
     from qavit_tpu_torch.kernels.fused_block import fused_quad_block
     from qavit_tpu_torch.nn.bank import BankState
 
-    jcfg, gj, gt, pj, pt, bankp, bank, x, cots = _make_case("tiny", tiny_cfg)
+    jcfg, gj, gt, pj, pt, bankp, bank, x, cots = _make_case(which, tiny_cfg)
     gj, gt = gj._replace(dropout=0.0), gt._replace(dropout=0.0)
     monkeypatch.setattr(FB, "FORCE_PALLAS_INTERPRET", True)
 
