@@ -107,7 +107,26 @@ it stopped:
       and at the largest of 1024, 512 and 256 that fits, with its peak
       memory; each unit through the autograd wrapper at B=128 against the
       plain version, and each n=64 train kernel's time on the device and
-      per call against its plain version and bound.
+      per call against its plain version and bound;
+  (o) the data path: ``load_dataset("proc100_hard")`` generated into a
+      temporary root (seconds, shapes, dtypes, label range, class counts,
+      the val arrays' sha256, not gated: numpy's vectorised cos may differ
+      by an ulp between CPUs); ``augment_batch`` under the
+      proc100_hard_hqa pipeline on the card at B=256 and B=1024 (finite,
+      [B, 32, 32, 3], the same generator seed twice bitwise equal, another
+      seed different, ``apply_augment`` on the card against the CPU with
+      the same drawn parameters within 2e-3; ms per batch by CUDA events
+      and the device's part of it by torch.profiler); the
+      hqavit_proc100_hard train step in bf16 on the device-resident train
+      split through ``IndexLoader`` + ``augment_batch`` at B=256 and
+      B=1024, with every launch count set to 0 just before (each unit's
+      forward and backward kernel 8 times per step through its tensor-core
+      entry, the bank count +24 per step, every loss finite; ms per step
+      with and without augmentation, augmentation's share, img/s, peak
+      memory; at B=1024 one step traced: the device's busy time and idle
+      share); ``qavit_tpu_torch.cli.evaluate --preset
+      hqavit_proc100_hard`` over the whole 10,000-image val split (seed
+      weights: ~1% top-1; each forward unit 8 launches per forward).
 
 Prints the kernels' JSON record and the card's name and power limit
 before the last line, and ends with
@@ -178,6 +197,12 @@ TIN_BATCH = 128          # phase (l): the preset's batch
 TIN_BIG_BATCH = 1024     # phase (l): timing
 TIN_BATCHES = 2          # evaluated batches in phase (l)
 TIN_TRAIN_BIG = (1024, 512, 256)   # phase (n): the largest that fits
+DATA_PRESET = "hqavit_proc100_hard"  # phase (o)
+DATA_BATCHES = (256, 1024)          # phase (o): the preset's batch, and 1024
+DATA_STEPS = 5                      # phase (o): timed steps after one warm-up
+DATA_SPLITS = (50000, 10000)        # phase (o): proc100_hard's train, val
+DATA_EVAL_BATCH = 1024              # phase (o): cli.evaluate's batch
+AUG_TOLERANCE = 2e-3                # phase (o): card vs CPU, normalised units
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"torch.float32": 67e12, "torch.bfloat16": 989e12}
 REPLACES = {
@@ -1114,8 +1139,8 @@ def flat_path(dev, flash_rows):
     from qavit_tpu_torch.cli import evaluate
     from qavit_tpu_torch.configs import get_preset
     from qavit_tpu_torch.data.augment import eval_batch
-    from qavit_tpu_torch.data.datasets import (PIPELINE_BASE, STATS,
-                                               synthetic_dataset)
+    from qavit_tpu_torch.data.datasets import synthetic_dataset
+    from qavit_tpu_torch.data.pipelines import get_pipeline
     from qavit_tpu_torch.kernels import flash_attention as FA
     from qavit_tpu_torch.nn.models import build_model
 
@@ -1143,7 +1168,7 @@ def flat_path(dev, flash_rows):
     ds = synthetic_dataset(preset.dataset, cfg.img_size, cfg.num_classes,
                            n_train=0, n_test=FLAT_BATCH, seed=0)
     images = eval_batch(torch.from_numpy(ds.test_images).to(dev),
-                        *STATS[PIPELINE_BASE[preset.dataset]])
+                        get_pipeline(preset.dataset).aug)
     model_tol = {"bfloat16": 2.0 ** -4, "float32": 1e-4}
     for dtype_name in ("bfloat16", "float32"):
         model = build_model(cfg.replace(dtype=dtype_name), dev, seed=0)
@@ -1364,8 +1389,8 @@ def multiwindow_path(K, dev, g, p, bank):
     from qavit_tpu_torch.cli import evaluate
     from qavit_tpu_torch.configs import get_preset
     from qavit_tpu_torch.data.augment import eval_batch
-    from qavit_tpu_torch.data.datasets import (PIPELINE_BASE, STATS,
-                                               synthetic_dataset)
+    from qavit_tpu_torch.data.datasets import synthetic_dataset
+    from qavit_tpu_torch.data.pipelines import get_pipeline
     from qavit_tpu_torch.nn.models import build_model
 
     preset = get_preset(TIN_PRESET)
@@ -1401,7 +1426,7 @@ def multiwindow_path(K, dev, g, p, bank):
     ds = synthetic_dataset(preset.dataset, cfg.img_size, cfg.num_classes,
                            n_train=0, n_test=TIN_BIG_BATCH, seed=0)
     big = eval_batch(torch.from_numpy(ds.test_images).to(dev),
-                     *STATS[PIPELINE_BASE[preset.dataset]])
+                     get_pipeline(preset.dataset).aug)
     images = big[:TIN_BATCH]
     model_tol = {"bfloat16": 2.0 ** -4, "float32": 1e-4}
     for dtype_name in ("bfloat16", "float32"):
@@ -1629,6 +1654,213 @@ def n64_train_path(K, dev, g, p):
                                         TIN_BATCH, "@n64")
 
 
+def augment_checks(A, aug, images, dev):
+    """Phase (o) step 2: ``augment_batch`` on the card at each of
+    DATA_BATCHES; returns {B: ms per batch}."""
+    import torch
+
+    def seeded(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    times = {}
+    for b in DATA_BATCHES:
+        x = images[:b]
+        runs = [A.augment_batch(x, aug, seeded(s)) for s in (0, 0, 1)]
+        out = runs[0]
+        params = A.draw_params(aug, b, seeded(0))
+        on_card = A.apply_augment(x, params, aug)
+        on_cpu = A.apply_augment(x.cpu(), {k: v.cpu() for k, v in
+                                           params.items()}, aug)
+        err = (on_card.cpu() - on_cpu).abs().max().item()
+        gen = seeded(2)
+        times[b] = cuda_ms(lambda: A.augment_batch(x, aug, gen), iters=20)
+        busy = device_ms(lambda: A.augment_batch(x, aug, gen), iters=3)
+        ok = {"finite": bool(torch.isfinite(out).all()),
+              "shape": tuple(out.shape) == (b, 32, 32, 3),
+              "same seed, same bits": torch.equal(runs[0], runs[1]),
+              "other seed differs": not torch.equal(runs[0], runs[2]),
+              "card vs CPU": err <= AUG_TOLERANCE,
+              "on the images' device": out.device == x.device}
+        print(f"augment proc100_hard_hqa B={b}: {times[b]:.3f} ms per batch "
+              f"(CUDA events, 20 after a warm-up), the device busy "
+              f"{busy if busy is None else round(busy, 3)} ms of it "
+              f"(torch.profiler), card vs CPU with the same "
+              f"parameters max_abs_err {err:.3e} (tolerance "
+              f"{AUG_TOLERANCE:.0e}), checks {ok}; card {card_line()}",
+              flush=True)
+        if not all(ok.values()):
+            raise AssertionError(f"augment_batch at B={b} failed: {ok}")
+    return times
+
+
+def data_train(K, dev, preset, aug, images, labels, batch, aug_ms):
+    """Phase (o) step 3: the train step on device-resident data through
+    IndexLoader + augment_batch, the counts reset just before."""
+    import torch
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from qavit_tpu_torch.data import augment as A
+    from qavit_tpu_torch.data.loader import IndexLoader
+    from qavit_tpu_torch.nn.models import build_model
+    from qavit_tpu_torch.train.optim import make_schedule
+    from qavit_tpu_torch.train.state import create_train_state
+    from qavit_tpu_torch.train.steps import make_train_step
+
+    cfg, tc = preset.model, preset.train
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = create_train_state(build_model(cfg, dev, seed=0), tc.use_ema,
+                               tc.ema_decay)
+    loader = IndexLoader(len(labels), batch, seed=0, device=dev)
+    step = make_train_step(cfg, tc, make_schedule(tc, len(loader)))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    batches = iter(loader)
+
+    def one():
+        idx = next(batches)
+        return step(state, A.augment_batch(images[idx], aug, gen),
+                    labels[idx], 0)["loss"]
+
+    reset_launches()
+    losses = [one()]                                  # warm-up
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    losses += [one() for _ in range(DATA_STEPS)]
+    e1.record()
+    torch.cuda.synchronize()
+    ms = e0.elapsed_time(e1) / DATA_STEPS
+    launches, routes = launch_counts(), dict(K.ROUTES)
+    steps = DATA_STEPS + 1
+    per = cfg.depth * steps
+    losses = [float(v) for v in losses]
+    bank = int(state.bank_count)
+    # the same steps on one augmented batch: the step without augmentation
+    idx = next(batches)
+    x, y = A.augment_batch(images[idx], aug, gen), labels[idx]
+    plain_ms = cuda_ms(lambda: step(state, x, y, 0), iters=DATA_STEPS,
+                       warmup=1)
+    mem = torch.cuda.max_memory_allocated(dev)
+    if batch == max(DATA_BATCHES):
+        # one step with augmentation traced: the device's busy and idle
+        # time (at the largest batch only: a trace of ~10^4 launches
+        # takes seconds to read)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            one()
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+        rows = device_kernels(prof)
+        busy = sum(r[1] for r in rows)
+        top = [(n[:48], round(ms, 2), c) for n, ms, c in rows[:6]]
+        print(f"data train step B={batch}, one step traced "
+              f"(torch.profiler): the device busy {busy:.1f} ms of "
+              f"{wall:.1f} ms, idle share {1 - busy / wall:.3f}; longest "
+              f"kernels {top}", flush=True)
+    print(f"data train path ({DATA_PRESET}, bf16, B={batch}): {steps} "
+          f"steps, losses {losses}, bank count {bank}, launches {launches}",
+          flush=True)
+    print(f"data train path: launches per C entry {routes}", flush=True)
+    print(f"data train step B={batch}: {ms:.3f} ms per step with "
+          f"augmentation, {plain_ms:.3f} ms without, augmentation alone "
+          f"{aug_ms:.3f} ms ({100 * aug_ms / ms:.1f}% of the step), "
+          f"{1000 * batch / ms:.1f} img/s, peak memory {mem / 2 ** 30:.2f} "
+          f"GiB (CUDA events, {DATA_STEPS} steps after one warm-up); card "
+          f"{card_line()}", flush=True)
+    want = {n: 0 if n == "flash_attention" else per for n in launches}
+    if launches != want:
+        raise AssertionError(f"data train path launches {launches}, "
+                             f"expected {want}")
+    mma = {f"{u}_mma" for u in MMA_BWD} | {f"{u}_bwd_mma" for u in MMA_BWD}
+    want = {n: per if n in mma else 0 for n in routes}
+    if routes != want:
+        raise AssertionError(f"data train path routes {routes}, expected "
+                             f"{want} (every launch through its n=16 "
+                             f"tensor-core entry)")
+    if bank != 3 * cfg.depth * steps:
+        raise AssertionError(f"bank count {bank} after {steps} steps, "
+                             f"expected {3 * cfg.depth} per step")
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"data train losses not finite: {losses}")
+    return ms, plain_ms, mem
+
+
+def data_path(K, dev):
+    """Phase (o): generate proc100_hard, augment it on the card, train on
+    it, evaluate its val split through the CLI."""
+    import hashlib
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from qavit_tpu_torch.cli import evaluate
+    from qavit_tpu_torch.configs import get_preset
+    from qavit_tpu_torch.data import augment as A
+    from qavit_tpu_torch.data.datasets import load_dataset
+    from qavit_tpu_torch.data.pipelines import get_pipeline
+
+    t_phase = time.perf_counter()
+    preset = get_preset(DATA_PRESET)
+    pipe = get_pipeline(preset.dataset)
+    with tempfile.TemporaryDirectory(prefix="qv_data_") as root:
+        say(f"phase (o) step 1: load_dataset({pipe.base_dataset!r}) into a "
+            f"temporary root")
+        t = time.perf_counter()
+        ds = load_dataset(pipe.base_dataset, root)
+        gen_s = time.perf_counter() - t
+        digest = hashlib.sha256(ds.test_images.tobytes()
+                                + ds.test_labels.tobytes()).hexdigest()
+        counts = np.bincount(ds.train_labels, minlength=ds.num_classes)
+        print(f"data: generated and cached in {gen_s:.1f} s: train "
+              f"{ds.train_images.shape} {ds.train_images.dtype}, val "
+              f"{ds.test_images.shape} {ds.test_images.dtype}, labels "
+              f"{ds.train_labels.dtype} in [{ds.train_labels.min()}, "
+              f"{ds.train_labels.max()}], class counts {counts.min()}-"
+              f"{counts.max()}, val sha256 {digest}", flush=True)
+        ok = (ds.train_images.shape == (DATA_SPLITS[0], 32, 32, 3)
+              and ds.test_images.shape == (DATA_SPLITS[1], 32, 32, 3)
+              and ds.train_images.dtype == ds.test_images.dtype == np.uint8
+              and ds.train_labels.dtype == ds.test_labels.dtype == np.int32
+              and 0 <= min(ds.train_labels.min(), ds.test_labels.min())
+              and max(ds.train_labels.max(), ds.test_labels.max()) < 100
+              and not ds.synthetic)
+        if not ok:
+            raise AssertionError("proc100_hard: unexpected shapes, dtypes or "
+                                 "labels")
+        # device-resident, as JAX keeps a dataset of 2 GiB or less
+        images = torch.from_numpy(ds.train_images).to(dev)
+        labels = torch.from_numpy(ds.train_labels).long().to(dev)
+        say("phase (o) step 2: augment_batch on the card")
+        aug_ms = augment_checks(A, pipe.aug, images, dev)
+        say("phase (o) step 3: train on augmented batches")
+        for b in DATA_BATCHES:
+            data_train(K, dev, preset, pipe.aug, images, labels, b,
+                       aug_ms[b])
+            torch.cuda.empty_cache()
+        del images, labels
+        say("phase (o) step 4: cli.evaluate over the val split")
+        reset_launches()
+        r = evaluate.main(["--preset", DATA_PRESET, "--data-root", root,
+                           "--batch-size", str(DATA_EVAL_BATCH)])
+        launches = launch_counts()
+        print(f"data eval: {r['count']} images, top-1 {r['top1']:.2f}% "
+              f"(seed weights), top-5 {r['top5']:.2f}%, loss "
+              f"{r['loss']:.4f}, {r['img_per_s']:.1f} img/s (host clock); "
+              f"launches {launches}; card {card_line()}", flush=True)
+        if not (r["count"] == DATA_SPLITS[1] and math.isfinite(r["loss"])):
+            raise AssertionError(f"data eval result out of range: {r}")
+        # the smoke forward, one untimed batch per shape, the batches
+        forwards = 1 + 2 + math.ceil(DATA_SPLITS[1] / DATA_EVAL_BATCH)
+        for name, n in launches.items():
+            want = preset.model.depth * forwards if name in K.UNITS else 0
+            if n != want:
+                raise AssertionError(f"data eval {name}: {n} launches, "
+                                     f"expected {want}")
+    print(f"phase (o): {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1759,12 +1991,13 @@ def main() -> int:
         raise AssertionError(f"main path result out of range: {r}")
 
     from qavit_tpu_torch.data.augment import eval_batch
-    from qavit_tpu_torch.data.datasets import STATS, synthetic_dataset
+    from qavit_tpu_torch.data.datasets import synthetic_dataset
+    from qavit_tpu_torch.data.pipelines import get_pipeline
 
     ds = synthetic_dataset("cifar100_hqa", cfg.img_size, cfg.num_classes,
                            n_test=BATCH, seed=0)
     images = eval_batch(torch.from_numpy(ds.test_images).to(dev),
-                        *STATS["cifar100"])
+                        get_pipeline("cifar100_hqa").aug)
     model_tol = {"bfloat16": 2.0 ** -4, "float32": 1e-4}
     for dtype_name in ("bfloat16", "float32"):
         model = build_model(cfg.replace(dtype=dtype_name), dev, seed=0)
@@ -1850,6 +2083,10 @@ def main() -> int:
     say("phase (n) n=64 train path: start")
     record += n64_train_path(K, dev, g64, p64)
     say("phase (n) n=64 train path: done")
+
+    say("phase (o) data path: start")
+    data_path(K, dev)
+    say("phase (o) data path: done")
 
     print(card_line(), flush=True)
     print(json.dumps({"kernels": record}), flush=True)

@@ -90,6 +90,48 @@ def _hqavit_proc_tin() -> Preset:
                   "proc_tin")
 
 
+def _hqavit_proc100() -> Preset:
+    """The flagship recipe on the proc100 procedural substrate."""
+    p = _hqavit_c100()
+    return Preset(p.model.replace(name="hqavit_proc100"), p.train,
+                  "proc100_hqa")
+
+
+def _hqavit_proc100_hard() -> Preset:
+    """The flagship recipe on the shortcut-free proc100_hard substrate
+    (per-sample palette, wrong-class distractor, occlusion)."""
+    p = _hqavit_c100()
+    return Preset(p.model.replace(name="hqavit_proc100_hard"), p.train,
+                  "proc100_hard_hqa")
+
+
+def _hqavit_proc100_hard_finetune() -> Preset:
+    """The CIFAR-100 finetune stage (HQAViT_C100_Finetune.py: warm
+    restarts, layer-wise LR groups, TTA) on proc100_hard, from the
+    proc100_hard pretrain.  Its train step waits for the LR groups
+    (ROADMAP.md queue 1 item 4); it evaluates."""
+    p = _hqavit_c100()
+    train = p.train.replace(
+        epochs=50, warmup_epochs=3, base_lr=1e-4, schedule="warm_restarts",
+        lr_groups="layerwise", mix_prob=0.5,
+    )
+    return Preset(p.model.replace(name="hqavit_proc100_hard_finetune"),
+                  train, "proc100_hard_hqa")
+
+
+def _hqavit_tiny_proc10() -> Preset:
+    """The CIFAR-10 transfer recipe (HQAViT_Tiny_Cifar10.py: head of 10
+    classes, differential LR, cosine schedule) on proc10.  Its train step
+    waits for the LR groups (ROADMAP.md queue 1 item 4); it evaluates."""
+    p = _hqavit_c100()
+    model = p.model.replace(name="hqavit_tiny_proc10", num_classes=10)
+    train = p.train.replace(
+        epochs=100, warmup_epochs=5, base_lr=5e-5, schedule="cosine",
+        lr_groups="differential", head_lr_multiplier=10.0, batch_size=256,
+    )
+    return Preset(model, train, "proc10")
+
+
 PRESETS = {
     "qavit_224_v1": _qavit_224_v1,
     "qavit_v2": _qavit_v2,
@@ -98,6 +140,10 @@ PRESETS = {
     "hqavit_c100": _hqavit_c100,
     "hqavit_tiny_in": _hqavit_tiny_in,
     "hqavit_proc_tin": _hqavit_proc_tin,
+    "hqavit_proc100": _hqavit_proc100,
+    "hqavit_proc100_hard": _hqavit_proc100_hard,
+    "hqavit_proc100_hard_finetune": _hqavit_proc100_hard_finetune,
+    "hqavit_tiny_proc10": _hqavit_tiny_proc10,
 }
 
 

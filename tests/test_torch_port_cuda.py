@@ -388,3 +388,28 @@ def test_n16_cga_backward_takes_the_tensor_cores(cuda):
                       torch.cuda.current_stream().cuda_stream)
     assert r.ok, r
     assert (K.ROUTES["unit_cga_bwd_mma"], K.ROUTES["unit_cga_bwd"]) == (1, 0)
+
+
+@pytest.mark.parametrize("pipeline", ["proc100_hard_hqa", "proc_stl"])
+def test_augment_on_the_card_matches_the_cpu(cuda, pipeline):
+    """``apply_augment`` on the card against the CPU with the same drawn
+    parameters (normalised output within 2e-3, the composed pipeline's
+    tolerance in test_torch_port_data.py), at B=256; the draws are
+    deterministic in the card's generator."""
+    from qavit_tpu_torch.data import augment as A
+    from qavit_tpu_torch.data.pipelines import get_pipeline
+
+    aug = get_pipeline(pipeline).aug
+    size = 96 if pipeline == "proc_stl" else 32
+    imgs = torch.randint(0, 256, (256, size, size, 3), dtype=torch.uint8,
+                         generator=torch.Generator().manual_seed(1))
+    params = A.draw_params(aug, 256,
+                           torch.Generator(device=cuda).manual_seed(0))
+    got = A.apply_augment(imgs.to(cuda), params, aug)
+    want = A.apply_augment(imgs, {k: v.cpu() for k, v in params.items()},
+                           aug)
+    assert got.device.type == "cuda" and bool(torch.isfinite(got).all())
+    assert (got.cpu() - want).abs().max().item() <= 2e-3
+    again = A.augment_batch(imgs.to(cuda), aug,
+                            torch.Generator(device=cuda).manual_seed(0))
+    assert torch.equal(again, got)

@@ -59,15 +59,16 @@ def test_eval_batch_matches_jax():
     from qavit_tpu.data import eval_batch as jax_eval_batch
     from qavit_tpu.data import get_pipeline
     from qavit_tpu_torch.data.augment import eval_batch
-    from qavit_tpu_torch.data.datasets import PIPELINE_BASE, STATS
+    from qavit_tpu_torch.data.pipelines import get_pipeline as port_pipeline
 
     aug = get_pipeline("cifar100_hqa").aug
     imgs = np.random.RandomState(9).randint(0, 256, (2, 32, 32, 3)).astype(
         np.uint8)
-    mean, std = STATS[PIPELINE_BASE["cifar100_hqa"]]
-    assert (tuple(mean), tuple(std)) == (tuple(aug.mean), tuple(aug.std))
+    port_aug = port_pipeline("cifar100_hqa").aug
+    assert (tuple(port_aug.mean), tuple(port_aug.std)) == (tuple(aug.mean),
+                                                           tuple(aug.std))
     np.testing.assert_allclose(
-        eval_batch(torch.from_numpy(imgs), mean, std).numpy(),
+        eval_batch(torch.from_numpy(imgs), port_aug).numpy(),
         np.asarray(jax_eval_batch(imgs, aug)), rtol=1e-6, atol=1e-6)
 
 

@@ -200,14 +200,15 @@ def test_bridge_unstacks_the_flat_tree(flat224):
 def test_224_presets_match_jax(name):
     from qavit_tpu.data import get_pipeline
     from qavit_tpu_torch.configs import get_preset
-    from qavit_tpu_torch.data.datasets import PIPELINE_BASE, STATS
+    from qavit_tpu_torch.data.pipelines import get_pipeline as port_pipeline
 
     pj, pt = jax_get_preset(name), get_preset(name)
     assert dataclasses.asdict(pt.model) == dataclasses.asdict(pj.model)
     assert dataclasses.asdict(pt.train) == dataclasses.asdict(pj.train)
     assert pt.dataset == pj.dataset
     aug = get_pipeline(pt.dataset).aug
-    mean, std = STATS[PIPELINE_BASE[pt.dataset]]
+    mean, std = port_pipeline(pt.dataset).aug.mean, port_pipeline(
+        pt.dataset).aug.std
     assert (tuple(mean), tuple(std)) == (tuple(aug.mean), tuple(aug.std))
     assert type(flat_block(pt.model)) is BranchQuadBlock
 

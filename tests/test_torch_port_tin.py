@@ -106,11 +106,11 @@ def test_dataset_matches_jax(name):
     (64 px, 200 classes)."""
     from qavit_tpu.data import get_pipeline
     from qavit_tpu.data.datasets import _synthetic
-    from qavit_tpu_torch.data.datasets import (PIPELINE_BASE, STATS,
-                                               synthetic_dataset)
+    from qavit_tpu_torch.data.datasets import synthetic_dataset
+    from qavit_tpu_torch.data.pipelines import get_pipeline as port_pipeline
 
     aug = get_pipeline(name).aug
-    mean, std = STATS[PIPELINE_BASE[name]]
+    mean, std = port_pipeline(name).aug.mean, port_pipeline(name).aug.std
     assert (tuple(mean), tuple(std)) == (tuple(aug.mean), tuple(aug.std))
     dj, dt = _synthetic(name, 64, 200), synthetic_dataset(name, 64, 200)
     for a in ("train_images", "train_labels", "test_images", "test_labels"):
