@@ -96,7 +96,10 @@ it stopped:
       version, every launch through its n=64 C entry (qv_unit_*_mma_train64,
       qv_unit_*_bwd_mma64); the same with the NaN guard tripped in one
       sample, with 12 bank rows, and at B=255 (a short last pass); the
-      eight kernels' registers, spills and shared memory;
+      eight kernels' registers, spills and shared memory, and for the two
+      cluster backwards (cga_bwd_mma64_kernel, cross_tail_bwd_mma64_kernel:
+      two CTAs a sample) the CTAs resident per SM and clusters at once
+      (cudaOccupancy*), then their device time at B=128 and B=1024;
   (n) the n=64 train path: ``qavit_tpu_torch.cli.bench --preset
       hqavit_proc_tin --train --batch-sizes 128`` with every launch count
       set to 0 just before and read just after (each of the eight kernels
@@ -843,8 +846,9 @@ def csrc_kernel(K, unit, g, dtype, backward=False):
     geometry ``g``: the tensor-core one where the route takes it."""
     if backward:
         entry = K.bwd_entry(unit, g, dtype)
-        if entry == "unit_msda_bwd_mma64":
-            return "msda_bwd_mma64_kernel"
+        if entry in ("unit_msda_bwd_mma64", "unit_cga_bwd_mma64",
+                     "unit_cross_tail_bwd_mma64"):
+            return f"{unit[5:]}_bwd_mma64_kernel"
         mma = entry != f"{unit}_bwd"
         return f"{unit[5:]}_bwd{'_mma' if mma else ''}_kernel"
     route = {"unit_swa": K.swa_route, "unit_msda": K.msda_route,
@@ -1499,8 +1503,8 @@ N64_TRAIN_KERNELS = (
     ("cross_tail_mma_kernel<8,1>", "unit_cross_tail_mma_train64"),
     ("swa_bwd_mma_kernel<4>", "unit_swa_bwd_mma64"),
     ("msda_bwd_mma64_kernel", "unit_msda_bwd_mma64"),
-    ("cga_bwd_mma_kernel<1>", "unit_cga_bwd_mma64"),
-    ("cross_tail_bwd_mma_kernel<8>", "unit_cross_tail_bwd_mma64"),
+    ("cga_bwd_mma64_kernel", "unit_cga_bwd_mma64"),
+    ("cross_tail_bwd_mma64_kernel", "unit_cross_tail_bwd_mma64"),
 )
 
 
@@ -1565,8 +1569,42 @@ def n64_train_checks(K, dev, g, p):
         smem = getattr(lib, f"qv_{entry}_smem")(None)
         print(f"{kern}: {smem} B of dynamic shared memory per block",
               flush=True)
+        if entry in K.CLUSTER_BWD:
+            per_sm, clusters = ctypes.c_int(), ctypes.c_int()
+            rc = getattr(lib, f"qv_{entry}_occupancy")(
+                ctypes.byref(per_sm), ctypes.byref(clusters))
+            ok = rc == 0 and per_sm.value >= K.CLUSTER_BWD[entry]
+            print(f"{kern}: clusters of 2 CTAs (1 sample each), "
+                  f"{per_sm.value} CTAs resident per SM (expected "
+                  f"{K.CLUSTER_BWD[entry]}), {clusters.value} clusters at "
+                  f"once, rc {rc}  {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                failed.append((kern, "occupancy"))
     if failed:
         raise AssertionError(f"n=64 training kernels disagree: {failed}")
+    cluster_bwd_times(K, dev, lib)
+
+
+def cluster_bwd_times(K, dev, lib):
+    """Phase (m): the device time of the two cluster backwards
+    (``K.CLUSTER_BWD``) at the train path's batch and at B=1024, with
+    masks on (``kernels/time_bwd64.py``'s inputs)."""
+    import torch
+
+    from qavit_tpu_torch.kernels import time_bwd64 as TB
+
+    for b in (TIN_BATCH, TIN_TRAIN_BIG[0]):
+        g, p, train, inputs, cots = TB.setup(TIN_PRESET, b, dev)
+        for unit in TB.UNITS:
+            kern = csrc_kernel(K, unit, g, torch.bfloat16, True)
+            ms = device_ms(TB.backward(lib, unit, g, p, train, inputs[unit],
+                                       cots[unit], dev), 10, kern)
+            clusters = K.cluster_grid(K.bwd_entry(unit, g, torch.bfloat16),
+                                      K.train_grid(dev, b), b).blocks
+            print(f"time {kern} B={b}: device {ms:.4f} ms, {clusters} "
+                  f"clusters of 2 CTAs; card {card_line()}", flush=True)
+        del inputs, cots
+        torch.cuda.empty_cache()
 
 
 def n64_train_path(K, dev, g, p):

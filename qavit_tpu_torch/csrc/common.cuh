@@ -974,3 +974,40 @@ static int qv_reduce(const float* ws, float* out, int P, int n, int grid,
   return qv_emu_run(grid, [&] { qv::reduce_rows_kernel(ws, out, P, n); });
 }
 #endif
+
+// Phase stamps, compiled only with -DQV_STAMPS (the build of
+// kernels/time_bwd64.py, never the library the port loads): thread 0 of
+// block 0 adds the %globaltimer nanoseconds since its previous stamp to
+// slot k of its source file's array (k < 0 only sets the start).  A
+// kernel stamps right after a barrier, so slot k is the time block 0 spent
+// in the phase that ends there, summed over its passes.  QV_STAMPS(tu)
+// defines the array and qv_stamps_<tu>(out, labels): it copies the
+// QV_NSTAMP slots to `out` (host) and zeroes them, and returns the
+// comma-separated phase names in `labels`.
+#define QV_NSTAMP 16
+#if defined(QV_STAMPS) && !defined(QV_EMULATE)
+#define QV_STAMPS_DEFINE(tu, names)                                         \
+  __device__ unsigned long long qv_stamp_buf_##tu[QV_NSTAMP + 1];           \
+  extern "C" int qv_stamps_##tu(unsigned long long* out,                    \
+                                const char** labels) {                      \
+    static const unsigned long long zero[QV_NSTAMP + 1] = {};               \
+    *labels = names;                                                        \
+    cudaError_t e = cudaMemcpyFromSymbol(out, qv_stamp_buf_##tu,            \
+                                         QV_NSTAMP * sizeof(zero[0]));      \
+    if (e == cudaSuccess)                                                   \
+      e = cudaMemcpyToSymbol(qv_stamp_buf_##tu, zero, sizeof(zero));        \
+    return (int)e;                                                          \
+  }
+#define QV_STAMP(tu, k) qv_stamp(qv_stamp_buf_##tu, k)
+__device__ __forceinline__ void qv_stamp(unsigned long long* s, int k) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    if (k >= 0) s[k] += t - s[QV_NSTAMP];
+    s[QV_NSTAMP] = t;
+  }
+}
+#else
+#define QV_STAMPS_DEFINE(tu, names)
+#define QV_STAMP(tu, k)
+#endif

@@ -606,7 +606,11 @@ __device__ __forceinline__ void save_rows(bf16* dst, int ldd, const bf16* src,
 // `elems` bf16) in chunks of as many as it holds, and the mma tiles'
 // sums over a chunk are stored into the slice, or added to it after the
 // first chunk: where one chunk holds every row, each slice element is
-// written once and never read.  Block-wide; ends with a barrier.
+// written once and never read.  A warp's item is 16 rows of gW by NJ x 16
+// columns (N a multiple of 16 NJ): NJ independent sums over the rows for
+// one A fragment a step, where NJ = 1 leaves a warp one dependent chain.
+// Block-wide; ends with a barrier.
+template <int NJ = 1>
 __device__ __forceinline__ void wgrad_block(const bf16* a, const bf16* b,
                                             int ld, int rows, int K, int N,
                                             float* gW, int ldg, float* gb,
@@ -616,7 +620,7 @@ __device__ __forceinline__ void wgrad_block(const bf16* a, const bf16* b,
   const int g = lane >> 2, t = lane & 3;
   const int lda = K + 8, ldb = N + 8, cpa = K / 8, cpr = (K + N) / 8;
   const int chunk = elems / (lda + ldb) / 16 * 16;
-  const int tn = N / 16, tiles = (K / 16) * tn;
+  const int tn = N / (16 * NJ), tiles = (K / 16) * tn;
   for (int r0 = 0; r0 < rows; r0 += chunk) {
     const int nr = rows - r0 < chunk ? rows - r0 : chunk;
     bf16* sb = smem + nr * lda;
@@ -632,23 +636,31 @@ __device__ __forceinline__ void wgrad_block(const bf16* a, const bf16* b,
     cp_async_wait<0>();
     __syncthreads();
     for (int tile = warp; tile < tiles; tile += NW) {
-      const int m0 = (tile / tn) * 16, n0 = (tile - (tile / tn) * tn) * 16;
-      float acc[2][4] = {};
+      const int m0 = (tile / tn) * 16;
+      const int n0 = (tile - (tile / tn) * tn) * 16 * NJ;
+      float acc[NJ][2][4] = {};
       for (int ks = 0; ks < nr / 16; ++ks) {
-        unsigned af[4], bf[4];
+        unsigned af[4];
         load_a_t(af, smem + ks * 16 * lda + m0, lda, lane);
-        load_b_kn(bf, sb + ks * 16 * ldb + n0, ldb, lane);
-        mma_bf16_16816(acc[0], af, bf);
-        mma_bf16_16816(acc[1], af, bf + 2);
-      }
-      float* p = gW + (m0 + g) * ldg + n0 + 2 * t;
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float* q = p + (e >> 1) * 8 * ldg + 8 * j + (e & 1);
-          *q = r0 ? *q + acc[j][e] : acc[j][e];
+        for (int nj = 0; nj < NJ; ++nj) {
+          unsigned bf[4];
+          load_b_kn(bf, sb + ks * 16 * ldb + n0 + 16 * nj, ldb, lane);
+          mma_bf16_16816(acc[nj][0], af, bf);
+          mma_bf16_16816(acc[nj][1], af, bf + 2);
         }
+      }
+#pragma unroll
+      for (int nj = 0; nj < NJ; ++nj) {
+        float* p = gW + (m0 + g) * ldg + n0 + 16 * nj + 2 * t;
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float* q = p + (e >> 1) * 8 * ldg + 8 * j + (e & 1);
+            *q = r0 ? *q + acc[nj][j][e] : acc[nj][j][e];
+          }
+      }
     }
     if (gb != nullptr)
       for (int n = threadIdx.x; n < N; n += NTHREADS) {
@@ -790,6 +802,19 @@ __device__ __forceinline__ float attn_mask(const AttnMask& m, int row,
   return kept(m.dr.salt, m.dr.thr,
               m.base + (unsigned)((m.vh * m.nq + row) * m.kv + key))
              ? p / m.dr.keep
+             : 0.f;
+}
+
+// attn_mask with a kept probability scaled by the product with inv_keep
+// (1 / m.dr.keep) instead of the quotient: within an ulp of it, and no
+// IEEE division an element (the n = 64 CGA backward)
+__device__ __forceinline__ float attn_mask_r(const AttnMask& m, int row,
+                                             int key, float p,
+                                             float inv_keep) {
+  if (!m.dr.on) return p;
+  return kept(m.dr.salt, m.dr.thr,
+              m.base + (unsigned)((m.vh * m.nq + row) * m.kv + key))
+             ? p * inv_keep
              : 0.f;
 }
 

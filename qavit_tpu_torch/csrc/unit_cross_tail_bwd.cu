@@ -57,15 +57,29 @@
 // end.  Time: PERF.md section 6 row 8.
 //
 // bf16 at hqavit_tiny_in's widths, n = 64 on an 8x8 grid,
-// cross_tail_bwd_mma_kernel<8>: a pass is half a sample (32 rows), and
-// the 3x3 dwconv that couples a grid row to its neighbours reads the
-// whole sample's input and output cotangent from a per-block scratch in
-// device memory (L2-resident, 24 KB a block), at the price of running
-// each half three times (the kernel's comment below).  Bound at B=128 on
+// cross_tail_bwd_mma64_kernel: one two-CTA thread-block cluster a sample,
+// CTA rank h the sample's grid rows 4h..4h+3 (32 rows, the n = 16 kernel's
+// pass), each row's forward recomputed once.  The 3x3 dwconv couples a
+// grid row to its neighbours, so each CTA reads the one grid row of the
+// other half next to its own (8 tokens x 96 channels) from the partner's
+// shared memory, between cluster barriers: the dwconv's input, then the
+// cotangent of its output.  Clusters walk the samples; one gradient slice
+// per cluster, each CTA forming half of the dense weight gradients (by
+// FLOPs) over both CTAs' saved operand rows and summing its scalar and
+// LayerNorm sums with the partner's in rank order: every field stored
+// once, so the caller's workspace needs no zeroing.  Bound at B=128 on
 // the H100: 36.8 MB against 9.4 GFLOP (~11 us): the bytes bound it.
 // Time: PERF.md section 6 row 8 @n64.
+#include "cluster.cuh"
 #include "mma_ops.cuh"
 #include "unit_cross_tail.cuh"
+
+QV_STAMPS_DEFINE(cross_tail_bwd,
+                 "bank projections,stage,recompute to the dwconv input,"
+                 "dwconv fc2 gamma,backward to d(dwconv out),"
+                 "dwconv fc1 norm2 bwd,bottleneck fusion bwd,"
+                 "branch LN compress bwd,cross proj attention q bwd,"
+                 "weight gradients,bank gradients,cluster barriers")
 
 namespace qv {
 
@@ -403,31 +417,43 @@ constexpr int CB_SMEM_BYTES = 2 * CB_BF16 + (4 * PASS_ROWS + 9 * 4) * 4;
 static_assert(2 * 2 * CB_S * CB_C * 4 <= 2 * 10 * CB_X,
               "the bank cotangents fit in the X buffers");
 
-// per block: the bank K/V projections' cotangents (float32); at n = 64
-// the sample's dwconv input and the cotangent of its output ([64, HID]
-// bf16 each); the operand rows (bf16) of its passes of 32 rows
-constexpr int CB_SIDE_DW = 2 * 64 * CB_HID / 2;  // floats of the two
+// n = 64: the partner's grid row next to the CTA's own, [8, HID] bf16:
+// the dwconv's input, then the cotangent of its output
+constexpr int CB_HALO = 8 * CB_LDH;
+constexpr int CB64_SMEM_BYTES = CB_SMEM_BYTES + 2 * CB_HALO * 2;
+// n = 64: the float32 sums a CTA keeps over its passes (CA_* offsets),
+// the slice fields they end in summed over the pair
+constexpr int CA_GAMMA = 0, CA_FUSION = 4, CA_PDN = 8;
+constexpr int CA_DWS = CA_PDN + 2 * CB_HID, CA_DWB = CA_DWS + CB_HID;
+constexpr int CA_DWW = CA_DWB + CB_HID, CA_DWN = CA_DWW + 9 * CB_HID;
+constexpr int CA_NORM2 = CA_DWN + 2 * CB_HID, CA_NORM = CA_NORM2 + 2 * CB_C;
+constexpr int CA_N = CA_NORM + 4 * 2 * CB_C;
+constexpr int CB_DKV = 2 * CB_S * CB_C;   // the bank K/V cotangents' sums
+static_assert((CB_DKV + CA_N) % 4 == 0, "16-byte aligned operand rows");
+
+// n = 16, per block: the bank K/V projections' cotangents (float32), the
+// operand rows (bf16) of its passes of 32 rows.  n = 64, per cluster:
+// each CTA's bank cotangents and CA_N sums, then the operand rows of the
+// cluster's passes, two a sample (CTA rank h's of the k-th at pass 2k+h)
 __host__ __device__ inline int cross_tail_bwd_mma_scratch_floats(
     const Dims& d) {
   const int nb = (d.B + d.grid - 1) / d.grid;
-  const int passes = (nb * (d.n / NT) + 1) / 2;
-  return 2 * CB_S * CB_C + (d.n == NT ? 0 : CB_SIDE_DW) +
-         PASS_ROWS * passes * CB_OPW / 2;
+  if (d.n == NT) return CB_DKV + PASS_ROWS * ((nb + 1) / 2) * CB_OPW / 2;
+  return 2 * (CB_DKV + CA_N) + PASS_ROWS * 2 * nb * CB_OPW / 2;
 }
 
-// One block per SM walks its samples in passes of 32 rows.  n = 16
-// (SIDE 4): two samples a pass (an odd last pass runs a sample of zeros
-// with a zero cotangent, which adds nothing).  n = 64 (SIDE 8): half a
-// sample a pass (four rows of its 8x8 grid), and since the dwconv couples
-// a grid row to its neighbours, each half runs three times, every time
-// recomputing the row-wise forward up to the dwconv's input: phase 0
-// stores that input to the block's scratch; phase 1 runs the dwconv over
-// the whole sample's from there, through the post-norm, fc2 and gamma,
-// and back to the cotangent of the dwconv's output, which it stores;
-// phase 2 takes the dwconv's backward from both (the halo rows of the
-// other half included) and the rest of the unit's backward.  The
-// per-block sums of phases 1 (gamma, fc2, the post-norm, the scale and
-// bias) and 2 (the others) each see every row once.  The [32, C] buffers
+// Passes of 32 rows.  n = 16 (SIDE 4, cross_tail_bwd_mma_kernel): one
+// block per SM walks its samples two a pass (an odd last pass runs a
+// sample of zeros with a zero cotangent, which adds nothing), its sums in
+// its own slice.  n = 64 (SIDE 8, cross_tail_bwd_mma64_kernel, PAIR): a
+// cluster of two CTAs walks its samples, CTA rank h half h of each (grid
+// rows 4h..4h+3) in one pass; the dwconv's halo row is the partner's,
+// read once it is written (a cluster barrier after the dwconv's input and
+// after its output's cotangent) and before the partner overwrites it (the
+// partner's arrival after its read, waited for before the bottleneck's
+// backward rewrites that buffer); the CTA's scalar and LayerNorm sums go
+// to its own scratch (CA_*), and at the end the pair sums them and forms
+// the weight gradients into the cluster's slice.  The [32, C] buffers
 // of a pass:
 //   q     cross q                     att  cross attention; then P used
 //   x3    cross output (branch 3)     cc   compressed branches; cga LN
@@ -437,19 +463,29 @@ __host__ __device__ inline int cross_tail_bwd_mma_scratch_floats(
 //   w3b   msda LN; then d(fin), d(x1); branch LN; dS
 // and the [32, 96] ones: h1 bottleneck hidden before GELU, hh CCF hidden
 // before GELU, dwb the dwconv output before its scale, ha hb hc in turn.
-// The operand rows of the weight gradients go to the block's scratch
-// (CB_OP_*).
+// The operand rows of the weight gradients go to the scratch (CB_OP_*).
 template <int SIDE>
-__global__ void __launch_bounds__(NTHREADS, 1)
-    cross_tail_bwd_mma_kernel(CrossTailBwdMmaArgs m) {
+__device__ __forceinline__ void cross_tail_bwd_mma(
+    const CrossTailBwdMmaArgs& m) {
   constexpr int SN = SIDE * SIDE;          // tokens of a sample
+  constexpr bool PAIR = SIDE != WS;        // a two-CTA cluster a sample
   QV_SMEM_DECL
+  QV_STAMP(cross_tail_bwd, -1);
   const CrossTailBwdArgs& a = m.a;
   const CrossTailArgs& f = a.f;
   const Dims& d = f.d;
   const CrossTailGrads& gr = a.g;
   const int S = d.bank_s, C = CB_C, HID = CB_HID;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // the CTA's rank in its cluster; the slice's (and scratch's) index and
+  // their count: the block's, or the cluster's
+  int rank = 0;
+  if constexpr (PAIR) rank = (int)cluster_rank();
+  const int unit = PAIR ? (int)blockIdx.x / 2 : (int)blockIdx.x;
+  const int units = PAIR ? (int)gridDim.x / 2 : (int)gridDim.x;
+  auto sl = [&](float* p) {
+    return p == nullptr ? p : p + (size_t)unit * a.c.wstride;
+  };
   bf16* kb = reinterpret_cast<bf16*>(qv_smem);
   bf16* vb = kb + CB_S * CB_LDX;
   bf16* q = vb + CB_S * CB_LDX;
@@ -471,19 +507,38 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   bf16* ring = hc + CB_HB;
   float* stats = reinterpret_cast<float*>(ring + CB_RING);  // [32][4]
   float* red = stats + 4 * PASS_ROWS;                         // 9 x 4
+  bf16* hbh = reinterpret_cast<bf16*>(red + 9 * 4);           // n = 64
+  bf16* hah = hbh + CB_HALO;
   const bf16* w1 = m.w;
   const bf16* w2 = m.w + CB_OW2;
   const bf16* w1t = m.w + CB_OW1T;
   const bf16* w2t = m.w + CB_OW2T;
   const bf16 zero = from_f<bf16>(0.f);
   const bool zero_attn = d.guard && a.c.flag[1] != 0;
-  float* dkv = a.c.scratch + (size_t)blockIdx.x *
+  float* scr = a.c.scratch + (size_t)unit *
                                  cross_tail_bwd_mma_scratch_floats(d);
-  // n = 64: the sample's dwconv input and its output's cotangent
-  bf16* hbuf = reinterpret_cast<bf16*>(dkv + 2 * CB_S * C);
-  bf16* abuf = hbuf + SN * HID;
-  bf16* ops = reinterpret_cast<bf16*>(
-      dkv + 2 * CB_S * C + (SIDE == WS ? 0 : CB_SIDE_DW));
+  // the bank cotangents' sums; n = 64: the CTA's, then its CA_* sums
+  float* dkv = scr + rank * (CB_DKV + CA_N);
+  float* cacc = dkv + CB_DKV;
+  bf16* ops = reinterpret_cast<bf16*>(scr + (PAIR ? 2 * (CB_DKV + CA_N)
+                                                  : CB_DKV));
+  // where a per-pass sum goes: the block's slice (n = 16, zeroed by the
+  // caller), or the CTA's CA_* sums at offset `off`
+  auto sums = [&](float* field, int off) {
+    if constexpr (PAIR) return cacc + off;
+    return sl(field);
+  };
+  // a dropout mask's kept value: the quotient by keep, as the plain
+  // version (n = 16), or the product with 1 / keep (n = 64: within an ulp
+  // of it, and no IEEE division an element)
+  const float inv_keep = 1.f / d.keep;
+  auto drp = [&](int key, unsigned idx, float v) {
+    if constexpr (PAIR) {
+      if (!(d.train && d.drop_on)) return v;
+      return kept(d.salt[key], d.thr, idx) ? v * inv_keep : 0.f;
+    }
+    return drop(d, key, idx, v);
+  };
   float fw[4];
   fusion_weights(f.fusion, fw);
   const float gamma = f.gamma[0];
@@ -503,7 +558,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     q[r * CB_LDX + c] = from_f<bf16>(rr < S ? rnd<bf16>(src[rr * C + c])
                                             : 0.f);
   }
-  for (int i = threadIdx.x; i < 2 * CB_S * C; i += blockDim.x) dkv[i] = 0.f;
+  for (int i = threadIdx.x; i < (PAIR ? CB_DKV + CA_N : CB_DKV);
+       i += blockDim.x)
+    dkv[i] = 0.f;
   __syncthreads();
   for (int w = 0; w < 2; ++w)
     gemm_pass<192, 3>(q, CB_LDX, w1 + (1 + w) * C, CB_W1, C, ring,
@@ -515,17 +572,29 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                             in ? dense_out(v0, b[c]) : 0.f,
                             in ? dense_out(v1, b[c + 1]) : 0.f);
                       });
+  QV_STAMP(cross_tail_bwd, 0);
 
-  // Pass pi of the block (its operand rows): at n = 16 the samples bs[0],
-  // bs[1] (the first ns of them), at n = 64 half `half` of sample bs[0] (=
-  // bs[1]) in phase `phase` (at n = 16 every phase at once: 2).
-  auto pass = [&](int pi, const int (&bs)[2], int ns, int half, int phase) {
+  // the partner's grid row next to this CTA's half of src (its rows 0-7
+  // for rank 0, 24-31 for rank 1) into dst; block-wide, no barrier
+  auto halo = [&](bf16* dst, const bf16* src) {
+    const bf16* peer = cluster_peer(src + (rank ? PASS_ROWS - SIDE : 0) *
+                                              CB_LDH, (unsigned)rank ^ 1u);
+    for (int i = threadIdx.x; i < SIDE * (HID / 8); i += blockDim.x) {
+      const int r = i / (HID / 8), c = (i - r * (HID / 8)) * 8;
+      *reinterpret_cast<uint4*>(dst + r * CB_LDH + c) =
+          *reinterpret_cast<const uint4*>(peer + r * CB_LDH + c);
+    }
+  };
+
+  // Pass pi (its operand rows): at n = 16 the samples bs[0], bs[1] (the
+  // first ns of them), at n = 64 the CTA's half of sample bs[0] (= bs[1]).
+  auto pass = [&](int pi, const int (&bs)[2], int ns) {
     bf16* op = ops + (size_t)pi * PASS_ROWS * CB_OPW;  // pass's rows
     // the flat token index of the pass's row r (the samples by a select:
     // an index into bs would go to memory), and of (r, column c) in a
     // [B, n, width] mask; whether row r holds a sample's
     auto tok = [&](int r) {
-      if constexpr (SIDE != WS) return bs[0] * SN + PASS_ROWS * half + r;
+      if constexpr (PAIR) return bs[0] * SN + PASS_ROWS * rank + r;
       return (r >> 4 ? bs[1] : bs[0]) * NT + (r & 15);
     };
     auto idx = [&](int r, int c, int width) {
@@ -557,19 +626,25 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       }
     };
     // the grid position of row r in its sample; the dwconv's input and
-    // its output's cotangent at (si, sj) of row r's sample, and the
-    // latter at row r (n = 64: from the block's scratch, every row of the
-    // sample there)
+    // its output's cotangent at (si, sj) of row r's sample (n = 64: a row
+    // of the other half is the halo row)
     auto grid_pos = [&](int r) {
-      return SIDE == WS ? (r & 15) : PASS_ROWS * half + r;
+      return PAIR ? PASS_ROWS * rank + r : (r & 15);
+    };
+    auto at = [&](const bf16* own, const bf16* hal, int r, int si, int sj,
+                  int ch) {
+      if constexpr (PAIR) {
+        const int n = si * SIDE + sj - PASS_ROWS * rank;
+        return to_f<bf16>(n >= 0 && n < PASS_ROWS ? own[n * CB_LDH + ch]
+                                                  : hal[sj * CB_LDH + ch]);
+      }
+      return to_f<bf16>(own[((r & ~15) + si * WS + sj) * CB_LDH + ch]);
     };
     auto hb_at = [&](int r, int si, int sj, int ch) {
-      if constexpr (SIDE != WS) return to_f<bf16>(hbuf[(si * SIDE + sj) * HID + ch]);
-      return to_f<bf16>(hb[((r & ~15) + si * WS + sj) * CB_LDH + ch]);
+      return at(hb, hbh, r, si, sj, ch);
     };
     auto ha_at = [&](int r, int si, int sj, int ch) {
-      if constexpr (SIDE != WS) return to_f<bf16>(abuf[(si * SIDE + sj) * HID + ch]);
-      return to_f<bf16>(ha[((r & ~15) + si * WS + sj) * CB_LDH + ch]);
+      return at(ha, hah, r, si, sj, ch);
     };
     const float m1a = drop_path_mul(d, DP1, bs[0]);
     const float m1b = drop_path_mul(d, DP1, bs[1]);
@@ -586,6 +661,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
+    QV_STAMP(cross_tail_bwd, 1);
 
     // ---- recompute: the cross branch -----------------------------------
     gemm_pass<192, 3>(w1b, CB_LDX, w1 + CB_CQ, CB_W1, C, ring,
@@ -616,9 +692,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     gemm_pass<192, 3>(att, CB_LDX, w1 + CB_CP, CB_W1, C, ring,
                       [&](int r, int c, float v0, float v1) {
                         put(x3 + r * CB_LDX + c,
-                            rnd<bf16>(drop(d, CROSS_PROJ, idx(r, c, C),
+                            rnd<bf16>(drp(CROSS_PROJ, idx(r, c, C),
                                            dense_out(v0, f.cp_b[c]))),
-                            rnd<bf16>(drop(d, CROSS_PROJ, idx(r, c + 1, C),
+                            rnd<bf16>(drp(CROSS_PROJ, idx(r, c + 1, C),
                                            dense_out(v1, f.cp_b[c + 1]))));
                       });
     __syncthreads();
@@ -656,7 +732,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                      });
     __syncthreads();
     auto g1 = [&](int r, int c) {     // dropout(GELU(h1)), as the forward
-      return rnd<bf16>(drop(d, BN1, idx(r, c, HID),
+      return rnd<bf16>(drp(BN1, idx(r, c, HID),
                             gelu_r(h1 + r * CB_LDH + c)));
     };
     for (int i = threadIdx.x; i < PASS_ROWS * HID / 2; i += blockDim.x) {
@@ -670,8 +746,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                         bf16* p = x1 + r * CB_LDX + c;
 #pragma unroll
                         for (int e = 0; e < 2; ++e) {
-                          float y = rnd<bf16>(drop(
-                              d, BN2, idx(r, c + e, C),
+                          float y = rnd<bf16>(drp(
+                              BN2, idx(r, c + e, C),
                               dense_out(v[e], f.bn2_b[c + e])));
                           if (d.train) y = rnd<bf16>(y * m1(r));
                           v[e] = to_f<bf16>(p[e]) + y;
@@ -695,18 +771,14 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     __syncthreads();
     ln_rows<PASS_ROWS, CB_HID>(ha, hb, CB_LDH, f.dwn_s, f.dwn_b);
     __syncthreads();
-    if constexpr (SIDE != WS) {
-      if (phase == 0) {       // the dwconv's input of the pass's rows
-        for (int i = threadIdx.x; i < PASS_ROWS * (HID / 8); i += blockDim.x) {
-          const int r = i / (HID / 8), c = (i - r * (HID / 8)) * 8;
-          *reinterpret_cast<uint4*>(hbuf + grid_pos(r) * HID + c) =
-              *reinterpret_cast<const uint4*>(hb + r * CB_LDH + c);
-        }
-        __syncthreads();
-        return;
-      }
+    if constexpr (PAIR) {     // the partner's dwconv input next to ours
+      QV_STAMP(cross_tail_bwd, 2);
+      cluster_sync();
+      QV_STAMP(cross_tail_bwd, 11);
+      halo(hbh, hb);
+      __syncthreads();
     }
-    if (SIDE == WS || phase == 1) {
+    QV_STAMP(cross_tail_bwd, 2);
     // the 3x3 depthwise correlation on each sample's grid (zero halo,
     // bias before the scale), as ccf_dwconv
     for (int i = threadIdx.x; i < PASS_ROWS * HID; i += blockDim.x) {
@@ -737,8 +809,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                           const float v[2] = {v0, v1};
 #pragma unroll
                           for (int e = 0; e < 2; ++e) {
-                            const float z = rnd<bf16>(drop(
-                                d, FFN, idx(r, c + e, C),
+                            const float z = rnd<bf16>(drp(
+                                FFN, idx(r, c + e, C),
                                 dense_out(v[e], f.fc2_b[c + e])));
                             float df = to_f<bf16>(dy[r * CB_LDX + c + e]);
                             if (d.train) df *= m2(r);
@@ -746,8 +818,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                           }
                         });
       block_sums<1>(gacc, red);
-      if (threadIdx.x == 0) slice(gr.gamma, a.c)[0] += red[8];
+      if (threadIdx.x == 0) sums(gr.gamma, CA_GAMMA)[0] += red[8];
     }
+    QV_STAMP(cross_tail_bwd, 3);
 
     // ---- backward: gamma, fc2, post-dwconv LN, scale, dwconv ------------
     for (int i = threadIdx.x; i < PASS_ROWS * C / 2; i += blockDim.x) {
@@ -757,7 +830,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       for (int e = 0; e < 2; ++e) {
         float df = to_f<bf16>(dy[r * CB_LDX + c + e]);
         if (d.train) df *= m2(r);
-        v[e] = drop(d, FFN, idx(r, c + e, C), df * gamma);
+        v[e] = drp(FFN, idx(r, c + e, C), df * gamma);
       }
       put(w2b + r * CB_LDX + c, v[0], v[1]);
     }
@@ -776,8 +849,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     }
     __syncthreads();
     ln_bwd_rows<PASS_ROWS, CB_HID>(hc, ha, ha, nullptr, CB_LDH, f.pdn_s,
-                                   slice(gr.pdn_s, a.c),
-                                   slice(gr.pdn_b, a.c), stats);
+                                   sums(gr.pdn_s, CA_PDN),
+                                   sums(gr.pdn_b, CA_PDN + HID), stats);
     for (int ch = threadIdx.x; ch < HID; ch += blockDim.x) {
       const float sc = rnd<bf16>(f.dw_scale[ch]);
       float gs = 0.f, gbias = 0.f;
@@ -788,22 +861,21 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         *p = from_f<bf16>(v * sc);
         gbias += to_f<bf16>(*p);
       }
-      slice(gr.dw_scale, a.c)[ch] += gs;
-      if (d.dw_bias) slice(gr.dw_b, a.c)[ch] += gbias;
+      sums(gr.dw_scale, CA_DWS)[ch] += gs;
+      if (d.dw_bias) sums(gr.dw_b, CA_DWB)[ch] += gbias;
     }
     __syncthreads();
-    if constexpr (SIDE != WS) {   // the cotangent of the pass's rows
-      for (int i = threadIdx.x; i < PASS_ROWS * (HID / 8); i += blockDim.x) {
-        const int r = i / (HID / 8), c = (i - r * (HID / 8)) * 8;
-        *reinterpret_cast<uint4*>(abuf + grid_pos(r) * HID + c) =
-            *reinterpret_cast<const uint4*>(ha + r * CB_LDH + c);
-      }
+    if constexpr (PAIR) {     // the partner's cotangent next to ours
+      QV_STAMP(cross_tail_bwd, 4);
+      cluster_sync();
+      QV_STAMP(cross_tail_bwd, 11);
+      halo(hah, ha);
       __syncthreads();
-      return;
+      cluster_arrive();       // our reads of the partner's rows are done
     }
-    }
+    QV_STAMP(cross_tail_bwd, 4);
     {  // the dwconv's weights (from its input) and its input
-      float* gw = slice(gr.dw_w, a.c);
+      float* gw = sums(gr.dw_w, CA_DWW);
       for (int i = threadIdx.x; i < HID * 9; i += blockDim.x) {
         const int ch = i / 9, tap = i - ch * 9, ki = tap / 3, kj = tap % 3;
         float acc = 0.f;
@@ -838,8 +910,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     }
     __syncthreads();
     ln_bwd_rows<PASS_ROWS, CB_HID>(hb, hc, hc, nullptr, CB_LDH, f.dwn_s,
-                                   slice(gr.dwn_s, a.c),
-                                   slice(gr.dwn_b, a.c), stats);
+                                   sums(gr.dwn_s, CA_DWN),
+                                   sums(gr.dwn_b, CA_DWN + HID), stats);
     for (int i = threadIdx.x; i < PASS_ROWS * HID; i += blockDim.x) {
       const int r = i / HID, c = i - r * HID;
       bf16* p = hc + r * CB_LDH + c;
@@ -856,9 +928,10 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     __syncthreads();
     // d(x1) = d(y) + norm2'(d(fin)); it is d(x)
     ln_bwd_rows<PASS_ROWS, CB_C>(x1, w3b, w3b, dy, CB_LDX, f.norm2_s,
-                                 slice(gr.norm2_s, a.c),
-                                 slice(gr.norm2_b, a.c), stats);
+                                 sums(gr.norm2_s, CA_NORM2),
+                                 sums(gr.norm2_b, CA_NORM2 + C), stats);
     store_rows(a.d_x, w3b);
+    QV_STAMP(cross_tail_bwd, 5);
     // ---- drop-path, bottleneck bn2 and bn1 --------------------------------
     for (int i = threadIdx.x; i < PASS_ROWS * C / 2; i += blockDim.x) {
       const int r = i / (C / 2), c = 2 * (i - r * (C / 2));
@@ -867,9 +940,14 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       for (int e = 0; e < 2; ++e) {
         float dv = to_f<bf16>(w3b[r * CB_LDX + c + e]);
         if (d.train) dv *= m1(r);
-        v[e] = drop(d, BN2, idx(r, c + e, C), dv);
+        v[e] = drp(BN2, idx(r, c + e, C), dv);
       }
       put(w2b + r * CB_LDX + c, v[0], v[1]);
+    }
+    if constexpr (PAIR) {     // the partner has read our ha
+      QV_STAMP(cross_tail_bwd, 6);
+      cluster_wait();
+      QV_STAMP(cross_tail_bwd, 11);
     }
     for (int i = threadIdx.x; i < PASS_ROWS * HID / 2; i += blockDim.x) {
       const int r = i / (HID / 2), c = 2 * (i - r * (HID / 2));
@@ -884,7 +962,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                        float o[2];
 #pragma unroll
                        for (int e = 0; e < 2; ++e)
-                         o[e] = drop(d, BN1, idx(r, c + e, HID), v[e]) *
+                         o[e] = drp(BN1, idx(r, c + e, HID), v[e]) *
                                 gelu_grad(to_f<bf16>(h1[r * CB_LDH + c + e]));
                        put(hb + r * CB_LDH + c, o[0], o[1]);
                      });
@@ -909,10 +987,11 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       if (threadIdx.x == 0) {
         float dot = 0.f;
         for (int i = 0; i < 4; ++i) dot = fmaf(fw[i], red[32 + i], dot);
-        float* gf = slice(gr.fusion, a.c);
+        float* gf = sums(gr.fusion, CA_FUSION);
         for (int i = 0; i < 4; ++i) gf[i] += fw[i] * (red[32 + i] - dot);
       }
     }
+    QV_STAMP(cross_tail_bwd, 6);
     // ---- per branch: LN + compress ----------------------------------------
     void* d_out3[3] = {a.d_swa, a.d_msda, a.d_cga};
     const void* branch[3] = {f.swa, f.msda, f.cga};
@@ -937,19 +1016,21 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                        put(x1 + r * CB_LDX + c, v0, v1);
                      });
       __syncthreads();
-      ln_bwd_rows<PASS_ROWS, CB_C>(src, x1, x1, nullptr, CB_LDX,
-                                   f.norm_s[i], slice(gr.norm_s[i], a.c),
-                                   slice(gr.norm_b[i], a.c), stats);
+      ln_bwd_rows<PASS_ROWS, CB_C>(
+          src, x1, x1, nullptr, CB_LDX, f.norm_s[i],
+          sums(gr.norm_s[i], CA_NORM + 2 * C * i),
+          sums(gr.norm_b[i], CA_NORM + 2 * C * i + C), stats);
       if (i < 3) {
         store_rows(d_out3[i], x1);
         __syncthreads();
       }
     }
+    QV_STAMP(cross_tail_bwd, 7);
     // ---- the cross branch: proj dropout, proj -------------------------------
     for (int i = threadIdx.x; i < PASS_ROWS * C; i += blockDim.x) {
       const int r = i / C, c = i - r * C;
       bf16* p = x1 + r * CB_LDX + c;
-      *p = from_f<bf16>(drop(d, CROSS_PROJ, idx(r, c, C), to_f<bf16>(*p)));
+      *p = from_f<bf16>(drp(CROSS_PROJ, idx(r, c, C), to_f<bf16>(*p)));
     }
     __syncthreads();
     save_rows(op + CB_OP_ATT, CB_OPW, att, CB_LDX, C);
@@ -1008,58 +1089,158 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                               v0, v1);
                       });
     __syncthreads();
+    QV_STAMP(cross_tail_bwd, 8);
   };
-  const int nb = (d.B - (int)blockIdx.x + (int)gridDim.x - 1) / gridDim.x;
-  if constexpr (SIDE == WS) {
+  const int nb = (d.B - unit + units - 1) / units;   // the unit's samples
+  if constexpr (PAIR) {
+    for (int k = 0; k < nb; ++k) {
+      const int bs[2] = {unit + k * units, unit + k * units};
+      pass(2 * k + rank, bs, 1);
+    }
+    __threadfence();
+    cluster_sync();     // both CTAs' operand rows and sums are written
+    QV_STAMP(cross_tail_bwd, 11);
+  } else {
     for (int k0 = 0; k0 < nb; k0 += 2) {
       const int ns = nb - k0 < 2 ? nb - k0 : 2;
-      const int bs[2] = {(int)blockIdx.x + k0 * (int)gridDim.x,
-                         (int)blockIdx.x + (k0 + 1) * (int)gridDim.x};
-      pass(k0 / 2, bs, ns, 0, 2);
-    }
-  } else {
-    for (int k0 = 0; k0 < nb; ++k0) {
-      const int b = (int)blockIdx.x + k0 * (int)gridDim.x;
-      const int bs[2] = {b, b};
-      for (int phase = 0; phase < 3; ++phase)
-        for (int half = 0; half < 2; ++half)
-          pass(2 * k0 + half, bs, 1, half, phase);
+      const int bs[2] = {unit + k0 * units, unit + (k0 + 1) * units};
+      pass(k0 / 2, bs, ns);
     }
   }
-  // the dense layers' weight gradients over every row of the block, each
-  // stored once into the slice (the guarded cross q's stay zero)
+  // the dense layers' weight gradients over every row of the block (the
+  // cluster: rank 0 fc2, proj and q, rank 1 the others, half the FLOPs
+  // each), each stored once into the slice (the guarded cross q's zero)
+  const bool r0 = !PAIR || rank == 0, r1 = !PAIR || rank == 1;
+  // (n = 64: an item of three 16-column tiles a warp, every N here a
+  // multiple of 48)
   auto wgrad = [&](int ao, int K, int bo, int N, float* w, int ldg,
                    float* bias) {
-    wgrad_block(ops + ao, ops + bo, CB_OPW,
-                PASS_ROWS * ((nb * (SN / NT) + 1) / 2), K,
-                N, slice(w, a.c), ldg, slice(bias, a.c),
-                reinterpret_cast<bf16*>(qv_smem), CB_BF16);
+    wgrad_block<PAIR ? 3 : 1>(
+        ops + ao, ops + bo, CB_OPW, PASS_ROWS * (PAIR ? 2 * nb : (nb + 1) / 2),
+        K, N, sl(w), ldg, sl(bias), reinterpret_cast<bf16*>(qv_smem),
+        CB_BF16);
   };
-  wgrad(CB_OP_HP, HID, CB_OP_DZ, C, gr.fc2_w, C, gr.fc2_b);
-  wgrad(CB_OP_FIN, C, CB_OP_DH, HID, gr.fc1_w, HID, gr.fc1_b);
-  wgrad(CB_OP_G1, HID, CB_OP_DBN2, C, gr.bn2_w, C, gr.bn2_b);
-  wgrad(CB_OP_FU, C, CB_OP_DH1, HID, gr.bn1_w, HID, gr.bn1_b);
-  for (int i = 0; i < 4; ++i)
-    wgrad(CB_OP_NRM + C * i, C, CB_OP_DCC + CB_DC * i, CB_DC, gr.comp_w[i],
-          CB_DC, gr.comp_b[i]);
-  wgrad(CB_OP_ATT, C, CB_OP_DX3, C, gr.cp_w, C, gr.cp_b);
+  auto zero_fill = [&](float* p, int n) {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) p[i] = 0.f;
+  };
+  if (r0) wgrad(CB_OP_HP, HID, CB_OP_DZ, C, gr.fc2_w, C, gr.fc2_b);
+  if (r1) {
+    wgrad(CB_OP_FIN, C, CB_OP_DH, HID, gr.fc1_w, HID, gr.fc1_b);
+    wgrad(CB_OP_G1, HID, CB_OP_DBN2, C, gr.bn2_w, C, gr.bn2_b);
+    wgrad(CB_OP_FU, C, CB_OP_DH1, HID, gr.bn1_w, HID, gr.bn1_b);
+    for (int i = 0; i < 4; ++i)
+      wgrad(CB_OP_NRM + C * i, C, CB_OP_DCC + CB_DC * i, CB_DC,
+            gr.comp_w[i], CB_DC, gr.comp_b[i]);
+  }
+  if (r0) wgrad(CB_OP_ATT, C, CB_OP_DX3, C, gr.cp_w, C, gr.cp_b);
+  if constexpr (PAIR) {
+    // the pair's sums, in rank order, half the elements each
+    const float* c0 = scr + CB_DKV;
+    const float* c1 = c0 + CB_DKV + CA_N;
+    auto store = [&](float* field, int off, int n) {
+      float* dst = sl(field);
+      if (dst == nullptr) return;
+      for (int i = threadIdx.x + rank * NTHREADS; i < n; i += 2 * NTHREADS)
+        dst[i] = c0[off + i] + c1[off + i];
+    };
+    store(gr.gamma, CA_GAMMA, 1);
+    store(gr.fusion, CA_FUSION, 4);
+    store(gr.pdn_s, CA_PDN, HID);
+    store(gr.pdn_b, CA_PDN + HID, HID);
+    store(gr.dw_scale, CA_DWS, HID);
+    if (d.dw_bias) store(gr.dw_b, CA_DWB, HID);
+    store(gr.dw_w, CA_DWW, 9 * HID);
+    store(gr.dwn_s, CA_DWN, HID);
+    store(gr.dwn_b, CA_DWN + HID, HID);
+    store(gr.norm2_s, CA_NORM2, C);
+    store(gr.norm2_b, CA_NORM2 + C, C);
+    for (int i = 0; i < 4; ++i) {
+      store(gr.norm_s[i], CA_NORM + 2 * C * i, C);
+      store(gr.norm_b[i], CA_NORM + 2 * C * i + C, C);
+    }
+    if (zero_attn) {    // nothing reaches q, the bank or its projections
+      if (r0) {
+        zero_fill(sl(gr.cq_w), C * C);
+        zero_fill(sl(gr.cq_b), C);
+      }
+      zero_fill(sl(rank ? gr.cv_w : gr.ck_w), C * C);
+      zero_fill(sl(rank ? gr.cv_b : gr.ck_b), C);
+      zero_fill(sl(rank ? gr.bank_v : gr.bank_k), S * C);
+      return;
+    }
+  }
   if (zero_attn) return;
-  wgrad(CB_OP_XN, C, CB_OP_DQ, C, gr.cq_w, C, gr.cq_b);
-  // the bank K/V projections, once a block: their weight gradients from
+  if (r0) wgrad(CB_OP_XN, C, CB_OP_DQ, C, gr.cq_w, C, gr.cq_b);
+  QV_STAMP(cross_tail_bwd, 9);
+  // the bank K/V projections, once a block (a cluster: rank 0 K's, rank 1
+  // V's, from the pair's sums in rank order): their weight gradients from
   // the rounded bank rows and the summed cotangents, and the bank rows'
   // gradients through the float32 weights rounded, as the float32 kernel
   float* dk = reinterpret_cast<float*>(q);
   float* dv = dk + CB_S * C;
-  for (int i = threadIdx.x; i < 2 * CB_S * C; i += blockDim.x) dk[i] = dkv[i];
+  if constexpr (PAIR) {
+    const float* s0 = scr + rank * CB_S * C;
+    const float* s1 = s0 + CB_DKV + CA_N;
+    // the pair's sums, and the rounded bank rows (dv's space)
+    const float* bank = rank ? a.c.bank_vr : a.c.bank_kr;
+    for (int i = threadIdx.x; i < CB_S * C; i += blockDim.x) {
+      dk[i] = s0[i] + s1[i];
+      dv[i] = i < S * C ? bank[i] : 0.f;
+    }
+    __syncthreads();
+    // the projection's kernel bank^T @ sum and its bias, stored
+    const float* br = dv;
+    float* gw = sl(rank ? gr.cv_w : gr.ck_w);
+    float* gb = sl(rank ? gr.cv_b : gr.ck_b);
+    for (int i = threadIdx.x; i < C * C / 4; i += blockDim.x) {
+      const int kk = i / (C / 4), j = 4 * (i - kk * (C / 4));
+      float4 acc = {0.f, 0.f, 0.f, 0.f};   // columns j..j+3 of row kk
+      for (int mm = 0; mm < S; ++mm) {
+        const float b = br[mm * C + kk];
+        const float4 dd = *reinterpret_cast<const float4*>(dk + mm * C + j);
+        acc.x = fmaf(b, dd.x, acc.x);
+        acc.y = fmaf(b, dd.y, acc.y);
+        acc.z = fmaf(b, dd.z, acc.z);
+        acc.w = fmaf(b, dd.w, acc.w);
+      }
+      float* o = gw + kk * C + j;      // a slice field: 4-byte aligned
+      o[0] = acc.x;
+      o[1] = acc.y;
+      o[2] = acc.z;
+      o[3] = acc.w;
+    }
+    for (int j = threadIdx.x; j < C; j += blockDim.x) {
+      float acc = 0.f;
+      for (int mm = 0; mm < S; ++mm) acc += dk[mm * C + j];
+      gb[j] = acc;
+    }
+    dense_dgrad<bf16>(dk, C, S, C, rank ? f.cv_w : f.ck_w, C, C, 1, 0,
+                      sl(rank ? gr.bank_v : gr.bank_k), C, false);
+  } else {
+    for (int i = threadIdx.x; i < 2 * CB_S * C; i += blockDim.x)
+      dk[i] = dkv[i];
+    __syncthreads();
+    dense_wgrad(a.c.bank_kr, C, 0, S, C, dk, C, C, 1, sl(gr.ck_w), C,
+                sl(gr.ck_b));
+    dense_wgrad(a.c.bank_vr, C, 0, S, C, dv, C, C, 1, sl(gr.cv_w), C,
+                sl(gr.cv_b));
+    dense_dgrad<bf16>(dk, C, S, C, f.ck_w, C, C, 1, 0, sl(gr.bank_k), C,
+                      true);
+    dense_dgrad<bf16>(dv, C, S, C, f.cv_w, C, C, 1, 0, sl(gr.bank_v), C,
+                      true);
+  }
   __syncthreads();
-  dense_wgrad(a.c.bank_kr, C, 0, S, C, dk, C, C, 1, slice(gr.ck_w, a.c), C,
-              slice(gr.ck_b, a.c));
-  dense_wgrad(a.c.bank_vr, C, 0, S, C, dv, C, C, 1, slice(gr.cv_w, a.c), C,
-              slice(gr.cv_b, a.c));
-  dense_dgrad<bf16>(dk, C, S, C, f.ck_w, C, C, 1, 0, slice(gr.bank_k, a.c),
-                    C, true);
-  dense_dgrad<bf16>(dv, C, S, C, f.cv_w, C, C, 1, 0, slice(gr.bank_v, a.c),
-                    C, true);
+  QV_STAMP(cross_tail_bwd, 10);
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+    cross_tail_bwd_mma_kernel(CrossTailBwdMmaArgs m) {
+  cross_tail_bwd_mma<WS>(m);
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+    cross_tail_bwd_mma64_kernel(CrossTailBwdMmaArgs m) {
+  cross_tail_bwd_mma<8>(m);
 }
 
 }  // namespace qv
@@ -1078,15 +1259,17 @@ extern "C" int qv_unit_cross_tail_bwd_mma(const qv::CrossTailBwdArgs* a,
       d.d_c != qv::CB_DC || !d.stab_ccf || !d.stab_dw || d.grid > d.B)
     return qv::ERR_ARGS;
   const qv::CrossTailBwdMmaArgs m{*a, static_cast<const qv::bf16*>(w)};
-  const int rc = qv_launch(qv::cross_tail_bwd_mma_kernel<qv::WS>, m,
+  const int rc = qv_launch(qv::cross_tail_bwd_mma_kernel, m,
                            qv::CB_SMEM_BYTES, stream, d.grid);
   if (rc != 0) return rc;
   return qv_reduce(a->c.gws, a->c.grad, d.grid, a->c.wstride, d.rgrid, stream);
 }
 
 // bf16 at hqavit_tiny_in's widths, n = 64 on an 8x8 grid
-// (cross_tail_bwd_mma_kernel<8>): as qv_unit_cross_tail_bwd_mma, with the
-// per-block scratch of cross_tail_bwd_mma_scratch_floats(d).
+// (cross_tail_bwd_mma64_kernel): d.grid clusters of two CTAs, one
+// gradient slice each in `gws` (which may hold anything: the kernel
+// stores every field), a scratch of cross_tail_bwd_mma_scratch_floats(d)
+// a cluster.  A cluster launch the card refuses returns its CUDA error.
 extern "C" int qv_unit_cross_tail_bwd_mma64(const qv::CrossTailBwdArgs* a,
                                             const void* w, int is_bf16,
                                             void* stream) {
@@ -1097,8 +1280,8 @@ extern "C" int qv_unit_cross_tail_bwd_mma64(const qv::CrossTailBwdArgs* a,
       d.d_c != qv::CB_DC || !d.stab_ccf || !d.stab_dw || d.grid > d.B)
     return qv::ERR_ARGS;
   const qv::CrossTailBwdMmaArgs m{*a, static_cast<const qv::bf16*>(w)};
-  const int rc = qv_launch(qv::cross_tail_bwd_mma_kernel<8>, m,
-                           qv::CB_SMEM_BYTES, stream, d.grid);
+  const int rc = qv_launch_cluster(qv::cross_tail_bwd_mma64_kernel, m,
+                                   qv::CB64_SMEM_BYTES, stream, d.grid, 2);
   if (rc != 0) return rc;
   return qv_reduce(a->c.gws, a->c.grad, d.grid, a->c.wstride, d.rgrid, stream);
 }
@@ -1112,9 +1295,17 @@ extern "C" int qv_unit_cross_tail_bwd_mma_scratch(const qv::Dims* d) {
 }
 
 extern "C" int qv_unit_cross_tail_bwd_mma64_smem(const qv::Dims*) {
-  return qv::CB_SMEM_BYTES;
+  return qv::CB64_SMEM_BYTES;
 }
 
 extern "C" int qv_unit_cross_tail_bwd_mma64_scratch(const qv::Dims* d) {
   return qv::cross_tail_bwd_mma_scratch_floats(*d);
+}
+
+// CTAs of cross_tail_bwd_mma64_kernel resident per SM and its two-CTA
+// clusters resident at once on the card (0 on the host)
+extern "C" int qv_unit_cross_tail_bwd_mma64_occupancy(int* per_sm,
+                                                      int* clusters) {
+  return qv_cluster_occupancy(qv::cross_tail_bwd_mma64_kernel,
+                              qv::CB64_SMEM_BYTES, 2, per_sm, clusters);
 }

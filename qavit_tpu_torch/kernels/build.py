@@ -58,8 +58,8 @@ def _nvcc() -> str:
     return found
 
 
-def _digest(sources) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _digest(sources, flags) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
     for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -78,14 +78,14 @@ def _run_all(cmds: List[List[str]]) -> List[subprocess.CompletedProcess]:
     return outs
 
 
-def _compile(sources, build_dir: Path, so: Path) -> str:
+def _compile(sources, build_dir: Path, so: Path, flags=NVCC_FLAGS) -> str:
     """One nvcc per source, all at once, then one link; returns the log."""
     nvcc = _nvcc()
     tmp = Path(tempfile.mkdtemp(dir=build_dir))
     try:
         objs = [tmp / (src.stem + ".o") for src in sources]
         log = []
-        for res in _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o",
+        for res in _run_all([[nvcc, *flags, "-c", str(src), "-o",
                               str(obj)] for src, obj in zip(sources, objs)]):
             log.append(res.stdout)
             if res.returncode != 0:
@@ -104,21 +104,25 @@ def _compile(sources, build_dir: Path, so: Path) -> str:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def load(build_dir: Optional[Path] = None) -> KernelLib:
-    """Build (if needed) and load the kernel library."""
+def load(build_dir: Optional[Path] = None, defines=()) -> KernelLib:
+    """Build (if needed) and load the kernel library; ``defines`` are
+    extra ``-D`` flags (a timing build's, in a build directory of its
+    own)."""
     build_dir = Path(build_dir or BUILD_DIR)
-    key = str(build_dir)
+    flags = NVCC_FLAGS + tuple(defines)
+    key = str(build_dir) + " ".join(defines)
     if key in _LOADED:
         return _LOADED[key]
     sources = sorted(CSRC.glob("*.cu"))
     headers = sorted(CSRC.glob("*.cuh"))
-    so = build_dir / f"libqavit_kernels_{_digest(sources + headers)}.so"
+    digest = _digest(sources + headers, flags)
+    so = build_dir / f"libqavit_kernels_{digest}.so"
     log_path = so.with_suffix(".log")
     t0 = time.perf_counter()
     hit = so.exists()
     if not hit:
         build_dir.mkdir(parents=True, exist_ok=True)
-        log_path.write_text(_compile(sources, build_dir, so))
+        log_path.write_text(_compile(sources, build_dir, so, flags))
     lib = ctypes.CDLL(str(so))
     out = KernelLib(lib, so, hit, time.perf_counter() - t0,
                     log_path.read_text() if log_path.exists() else "")

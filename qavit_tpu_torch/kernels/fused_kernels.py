@@ -24,8 +24,9 @@ bf16 the SWA, MSDA, CGA and cross/tail units run on the tensor cores, in
 eval and in training (``swa_mma_kernel``, ``msda_mma_kernel``,
 ``cga_mma_kernel``, ``cross_tail_mma_kernel``; training through their
 own C entries ``qv_unit_*_mma_train64``), and so do their backward
-kernels (``swa_bwd_mma_kernel<4>``, ``msda_bwd_mma64_kernel``,
-``cga_bwd_mma_kernel<1>``, ``cross_tail_bwd_mma_kernel<8>``, entries
+kernels (``swa_bwd_mma_kernel<4>``, ``msda_bwd_mma64_kernel``, and
+``cga_bwd_mma64_kernel``, ``cross_tail_bwd_mma64_kernel`` on one cluster
+of two CTAs a sample, :func:`cluster_grid`; entries
 ``qv_unit_*_bwd_mma64``), for the widths :func:`swa_mma_error`,
 :func:`msda_mma_error`, :func:`cga_mma_error`,
 :func:`cross_tail_mma_error` and the ``*_bwd_mma_error`` functions name;
@@ -421,6 +422,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn = getattr(lib, f"qv_{name}_scratch")
         fn.argtypes = [ctypes.POINTER(Dims)]
         fn.restype = ctypes.c_int
+    for name in CLUSTER_BWD:      # (CTAs per SM, clusters) on the card
+        fn = getattr(lib, f"qv_{name}_occupancy")
+        fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+        fn.restype = ctypes.c_int
     # the flash-attention kernel and the tensor-core self-test are built
     # into the same library
     from qavit_tpu_torch.kernels import flash_attention, mma_selftest
@@ -687,6 +692,22 @@ def train_grid(device: torch.device, b: int) -> "Grid":
     memory allows."""
     sms = _sm_count(device)
     return Grid(min(b, sms), 4 * sms)
+
+
+# the n=64 backward entries that run one cluster of two CTAs a sample:
+# the CTAs resident per SM (shared memory and registers allow)
+CLUSTER_BWD = {"unit_cross_tail_bwd_mma64": 1, "unit_cga_bwd_mma64": 2}
+
+
+def cluster_grid(entry: str, grid: "Grid", b: int) -> "Grid":
+    """The launch of backward C entry ``entry`` given the train grid
+    ``grid`` (``grid.blocks`` SMs): for a two-CTA-cluster entry, as many
+    clusters as those SMs hold at once, at most one a sample, each with
+    its own gradient slice; any other entry keeps ``grid``."""
+    per_sm = CLUSTER_BWD.get(entry)
+    if per_sm is None:
+        return grid
+    return Grid(max(1, min(b, grid.blocks * per_sm // 2)), grid.reduce)
 
 
 class _Launch:
@@ -1067,7 +1088,9 @@ class _Grads:
     field, and views of the reduced sums.  Zeroed for the kernels that add
     into their slice; left as allocated (``zero=False``) for a kernel that
     stores every field of its slice without reading it
-    (``swa_bwd_mma_kernel``, ``cga_bwd_mma_kernel``)."""
+    (``swa_bwd_mma_kernel``, ``cga_bwd_mma_kernel``, the n=64
+    ``cga_bwd_mma64_kernel`` and ``cross_tail_bwd_mma64_kernel``).  A
+    cluster kernel's ``grid.blocks`` counts its clusters, a slice each."""
 
     def __init__(self, lc: _Launch, unit: str, p: Params, grid: Grid,
                  zero: bool = True):
@@ -1229,9 +1252,10 @@ def launch_cga_bwd(lib, p: Params, xn, bank_k, bank_v, g: FusedGeom, dtype,
     f.bv_w, f.bv_b = lc.dense(pc["bank_v_proj"], c, g.cperg)
     f.bank_k, f.bank_v = _bank(lc, bank_k, bank_v)
     f.proj_w, f.proj_b = lc.dense(pc["proj"], g.groups * g.cperg, c)
-    f.d = _dims(g, lc.b, p, grid.blocks, grid.reduce, train.rng)
     entry = bwd_entry("unit_cga", g, dtype)
     mma = entry != "unit_cga_bwd"
+    grid = cluster_grid(entry, grid, lc.b)
+    f.d = _dims(g, lc.b, p, grid.blocks, grid.reduce, train.rng)
     grads = _Grads(lc, "unit_cga", p, grid, zero=not mma)
     grads.fill(a.g)
     w16 = scratch = None
@@ -1259,10 +1283,12 @@ def launch_cross_tail_bwd(lib, p: Params, x, xn, out_swa, out_msda, out_cga,
     f.swa, f.msda, f.cga = lc.act(out_swa), lc.act(out_msda), lc.act(out_cga)
     f.bank_k, f.bank_v = _bank(lc, bank_k, bank_v)
     _cross_tail_args(lc, p, f)
-    f.d = _dims(g, lc.b, p, grid.blocks, grid.reduce, train.rng)
-    grads = _Grads(lc, "unit_cross_tail", p, grid)
-    grads.fill(a.g)
     entry = bwd_entry("unit_cross_tail", g, dtype)
+    grid = cluster_grid(entry, grid, lc.b)
+    f.d = _dims(g, lc.b, p, grid.blocks, grid.reduce, train.rng)
+    grads = _Grads(lc, "unit_cross_tail", p, grid,
+                   zero=entry not in CLUSTER_BWD)
+    grads.fill(a.g)
     per = getattr(lib, f"qv_{entry}_scratch")(ctypes.byref(f.d))
     scratch = torch.empty(grid.blocks * per, device=lc.device)
     _bwd_common(lc, a.c, bank_k, bank_v, ws, grads, scratch)

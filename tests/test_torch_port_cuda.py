@@ -19,7 +19,9 @@ where Nkv and D are not multiples of 16, and a full-depth
 qavit_224_v1_proc forward that launches it 16 times and matches the plain
 path's logits; the tensor-core primitives' self-test (ldmatrix ->
 mma.sync against A @ B) and the n=64 bf16 SWA, MSDA, CGA and cross/tail
-kernels with a short bank and with their NaN guard tripped."""
+kernels with a short bank and with their NaN guard tripped; the n=64
+bf16 CGA and cross/tail backwards on two-CTA clusters (their occupancy
+and gradients on two launch grids)."""
 
 from unittest import mock
 
@@ -413,3 +415,46 @@ def test_augment_on_the_card_matches_the_cpu(cuda, pipeline):
     again = A.augment_batch(imgs.to(cuda), aug,
                             torch.Generator(device=cuda).manual_seed(0))
     assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("unit", ["unit_cga", "unit_cross_tail"])
+def test_n64_cluster_backward_on_the_card(cuda, unit):
+    """The n=64 bf16 CGA and cross/tail backwards, one cluster of two
+    CTAs a sample: the CTAs resident per SM their design needs (CGA two,
+    cross/tail one), and their gradients against autograd through the
+    plain version (GRAD_TOLERANCE) with masks on over 9 samples, on the
+    train grid's clusters and on three SMs' (clusters walking several
+    samples, one ending on an odd sample), each launch through its
+    ``_bwd_mma64`` entry."""
+    import ctypes
+
+    from qavit_tpu_torch.kernels import build
+    from qavit_tpu_torch.kernels import fused_ref as R
+    from qavit_tpu_torch.kernels import unit_checks as UC
+    from qavit_tpu_torch.nn.bank import GlobalBankParams
+
+    cfg = get_preset("hqavit_proc_tin").model
+    g = make_geom(cfg)
+    gen = torch.Generator().manual_seed(21)
+    p = param_tree(init_weights(QuadBlockParams(cfg, g), gen).to(cuda))
+    bank = init_weights(GlobalBankParams(cfg.bank, g.c), gen).to(cuda)
+    bankp = {k: v.detach() for k, v in bank.write_params().items()}
+    rows = [(torch.randn(1, g.bank_s, g.c, generator=gen) * 0.5).to(cuda)
+            for _ in range(2)]
+    dtype = torch.bfloat16
+    x = torch.randn(9, g.n, g.c, generator=gen).to(cuda, dtype)
+    batch = UC.unit_inputs(p, g, dtype, x, rows)[unit]
+    tr = K.UnitTrain(R.block_rng(22, 0.1, 0.1), bankp)
+    cots = UC.random_cotangents(unit, batch, dtype, gen)
+    lib = K.bind(build.load().lib)
+    entry = f"{unit}_bwd_mma64"
+    per_sm, clusters = ctypes.c_int(), ctypes.c_int()
+    assert getattr(lib, f"qv_{entry}_occupancy")(
+        ctypes.byref(per_sm), ctypes.byref(clusters)) == 0
+    assert per_sm.value >= K.CLUSTER_BWD[entry] and clusters.value > 0
+    for grid in (K.train_grid(cuda, 9), K.Grid(3, 12)):
+        K.reset_launches()
+        r = UC.check_unit(lib, unit, p, tr, batch, g, dtype, grid, cots,
+                          torch.cuda.current_stream().cuda_stream)
+        assert r.ok, r
+        assert K.ROUTES[entry] == 1, K.ROUTES

@@ -26,11 +26,19 @@ where it is defined.
 At hqavit_tiny_in's geometry (C=192, n=64 on an 8x8 grid, four SWA
 windows, 40 pooled MSDA rows) the bf16 train-mode forwards and backward
 kernels (their own C entries, qv_unit_*_mma_train64 and
-qv_unit_*_bwd_mma64) are held the same way over 5 samples and 3 blocks
-(the SWA backward's passes of two windows end short, the others' passes
-of a sample end on blocks of one and two samples), with the guard
+qv_unit_*_bwd_mma64) are held the same way over 5 samples and 4 blocks
+(the SWA backward's passes of two windows end short, the MSDA
+backward's passes of a sample end on blocks of one and two samples; the
+CGA and cross/tail backwards run one cluster of two CTAs a sample,
+fused_kernels.cluster_grid: 4 clusters of CGA, one ending on a second
+sample, and 2 of cross/tail, of 3 and 2 samples), with the guard
 tripped, with 12 bank rows, with their masks at dropout 0.5, and their
-routes and ERR_ARGS are checked."""
+routes and ERR_ARGS are checked.  The emulator runs a cluster's CTAs at
+once, each with its own NaN-filled shared memory, and a CTA reads its
+partner's as the partner left it at its last cluster barrier: a halo
+row read before that barrier is NaN
+(test_cluster_read_before_the_partners_barrier_is_nan), so a missing
+barrier or halo exchange fails the n=64 tests."""
 
 import ctypes
 import functools
@@ -63,8 +71,10 @@ B = 3
 # element moves a partial by ~5e-4 while max|partial| grows with the batch
 SAMPLES = {"tiny": B, "flagship_width": 2 * B, "tin": 5}
 GRID = K.Grid(2, 2)
-# n=64: three blocks over 5 samples (20 windows: 7, 7 and 6 a block)
-GRID64 = K.Grid(3, 2)
+# n=64: four blocks over 5 samples (20 windows: 5 a block); the cluster
+# backwards' launches from it: CGA 4 clusters (samples 0 and 4, then one
+# each), cross/tail 2 (samples 0, 2, 4 and 1, 3)
+GRID64 = K.Grid(4, 2)
 UNITS = list(K.UNITS)
 
 
@@ -338,3 +348,75 @@ def test_mma_forward_masks_are_the_plain_masks(emu_lib, unit, width):
     eval_out = eval_out[0] if isinstance(eval_out, tuple) else eval_out
     assert ((outs[0].float() - eval_out.float()).abs().max()
             > 0.1 * eval_out.float().abs().max())
+
+
+def test_cluster_grid():
+    """The two-CTA-cluster backward entries launch as many clusters as
+    the train grid's SMs hold at once (cross/tail one CTA an SM, CGA
+    two), at most one a sample, a gradient slice each; every other entry
+    keeps the train grid."""
+    big, small = K.Grid(132, 528), K.Grid(4, 2)
+    assert K.cluster_grid("unit_cross_tail_bwd_mma64", big, 1024) == (66, 528)
+    assert K.cluster_grid("unit_cga_bwd_mma64", big, 1024) == (132, 528)
+    assert K.cluster_grid("unit_cross_tail_bwd_mma64", K.Grid(128, 528),
+                          128) == (64, 528)
+    assert K.cluster_grid("unit_cga_bwd_mma64", K.Grid(128, 528),
+                          128) == (128, 528)
+    assert K.cluster_grid("unit_cross_tail_bwd_mma64", small, 5) == (2, 2)
+    assert K.cluster_grid("unit_cga_bwd_mma64", small, 5) == (4, 2)
+    assert K.cluster_grid("unit_cga_bwd_mma64", small, 1) == (1, 2)
+    assert K.cluster_grid("unit_cross_tail_bwd_mma64", K.Grid(1, 2),
+                          1) == (1, 2)
+    for entry in ("unit_swa_bwd_mma64", "unit_msda_bwd_mma64",
+                  "unit_cga_bwd_mma", "unit_cross_tail_bwd_mma"):
+        assert K.cluster_grid(entry, big, 1024) is big
+
+
+# A cluster of two CTAs: each writes 8 rows of its shared memory (its rank
+# plus one), then reads its partner's same rows before the cluster barrier
+# and again after it
+_HALO_PROBE = r"""
+#include "cluster.cuh"
+namespace qv {
+__global__ void halo_probe(float* out) {
+  QV_SMEM_DECL
+  const unsigned r = cluster_rank();
+  float* o = out + r * 2 * 768;
+  for (int i = threadIdx.x; i < 768; i += NTHREADS) qv_smem[i] = r + 1.f;
+  __syncthreads();
+  const float* peer = cluster_peer(qv_smem, r ^ 1u);
+  for (int i = threadIdx.x; i < 768; i += NTHREADS) o[i] = peer[i];
+  cluster_sync();
+  peer = cluster_peer(qv_smem, r ^ 1u);
+  for (int i = threadIdx.x; i < 768; i += NTHREADS) o[768 + i] = peer[i];
+  cluster_sync();
+}
+}  // namespace qv
+extern "C" int halo_probe(float* out) {
+  return qv_launch_cluster(qv::halo_probe, out, 768 * 4, nullptr, 1, 2);
+}
+"""
+
+
+def test_cluster_read_before_the_partners_barrier_is_nan(tmp_path):
+    """The emulator's clusters: a CTA reading its partner's halo rows
+    before the partner's cluster barrier sees the NaN fill, not the rows
+    the partner wrote; after the barrier it sees them.  So a kernel whose
+    halo read no barrier orders fails its emulated tests."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is needed to compile the kernels for the host")
+    src = tmp_path / "halo_probe.cu"
+    src.write_text(_HALO_PROBE)
+    lib = tmp_path / "halo_probe.so"
+    subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC",
+                    "-DQV_EMULATE", "-x", "c++", f"-I{EMU}", f"-I{CSRC}",
+                    str(src), "-o", str(lib), "-lpthread"], check=True,
+                   capture_output=True)
+    probe = ctypes.CDLL(str(lib)).halo_probe
+    probe.argtypes = [ctypes.c_void_p]
+    out = torch.zeros(2, 2, 768)
+    assert probe(out.data_ptr()) == 0
+    assert torch.isnan(out[:, 0]).all()              # before the barrier
+    assert torch.equal(out[0, 1], torch.full((768,), 2.0))
+    assert torch.equal(out[1, 1], torch.full((768,), 1.0))
