@@ -96,10 +96,12 @@ it stopped:
       version, every launch through its n=64 C entry (qv_unit_*_mma_train64,
       qv_unit_*_bwd_mma64); the same with the NaN guard tripped in one
       sample, with 12 bank rows, and at B=255 (a short last pass); the
-      eight kernels' registers, spills and shared memory, and for the two
-      cluster backwards (cga_bwd_mma64_kernel, cross_tail_bwd_mma64_kernel:
-      two CTAs a sample) the CTAs resident per SM and clusters at once
-      (cudaOccupancy*), then their device time at B=128 and B=1024;
+      eight kernels' registers, spills and shared memory, and for the four
+      backwards on two-CTA clusters (swa_bwd_mma_kernel<4>,
+      msda_bwd_mma64_kernel, cga_bwd_mma64_kernel,
+      cross_tail_bwd_mma64_kernel) the CTAs resident per SM and clusters
+      at once (cudaOccupancy*), then their device time at B=128 and
+      B=1024;
   (n) the n=64 train path: ``qavit_tpu_torch.cli.bench --preset
       hqavit_proc_tin --train --batch-sizes 128`` with every launch count
       set to 0 just before and read just after (each of the eight kernels
@@ -1574,7 +1576,7 @@ def n64_train_checks(K, dev, g, p):
             rc = getattr(lib, f"qv_{entry}_occupancy")(
                 ctypes.byref(per_sm), ctypes.byref(clusters))
             ok = rc == 0 and per_sm.value >= K.CLUSTER_BWD[entry]
-            print(f"{kern}: clusters of 2 CTAs (1 sample each), "
+            print(f"{kern}: clusters of 2 CTAs, "
                   f"{per_sm.value} CTAs resident per SM (expected "
                   f"{K.CLUSTER_BWD[entry]}), {clusters.value} clusters at "
                   f"once, rc {rc}  {'ok' if ok else 'FAIL'}", flush=True)
@@ -1586,7 +1588,7 @@ def n64_train_checks(K, dev, g, p):
 
 
 def cluster_bwd_times(K, dev, lib):
-    """Phase (m): the device time of the two cluster backwards
+    """Phase (m): the device time of the four cluster backwards
     (``K.CLUSTER_BWD``) at the train path's batch and at B=1024, with
     masks on (``kernels/time_bwd64.py``'s inputs)."""
     import torch
@@ -1600,7 +1602,7 @@ def cluster_bwd_times(K, dev, lib):
             ms = device_ms(TB.backward(lib, unit, g, p, train, inputs[unit],
                                        cots[unit], dev), 10, kern)
             clusters = K.cluster_grid(K.bwd_entry(unit, g, torch.bfloat16),
-                                      K.train_grid(dev, b), b).blocks
+                                      K.train_grid(dev, b), b, dev).blocks
             print(f"time {kern} B={b}: device {ms:.4f} ms, {clusters} "
                   f"clusters of 2 CTAs; card {card_line()}", flush=True)
         del inputs, cots

@@ -49,6 +49,25 @@ __device__ __forceinline__ void cluster_sync() {
   cluster_wait();
 }
 
+// The pair's sums of the n floats each CTA of a two-CTA cluster left at
+// `mine` (the same offset of each one's shared memory), in rank order:
+// store(i, v) gets v = rank 0's [i] + rank 1's [i], each i by one thread
+// of one CTA (rank h the i = h NTHREADS + threadIdx.x + 2 NTHREADS k), so
+// the pair stores every element once, half each.  Call it after a
+// cluster barrier that follows both CTAs' writes of `mine` (before it
+// the partner's floats are not its sums), and keep `mine` until the
+// partner has read it (its next cluster arrival).
+template <typename F>
+__device__ __forceinline__ void pair_sums(const float* mine, int n,
+                                          F&& store) {
+  const unsigned rank = cluster_rank();
+  const float* s0 = rank ? cluster_peer(mine, 0u) : mine;
+  const float* s1 = rank ? mine : cluster_peer(mine, 1u);
+#pragma unroll 4
+  for (int i = threadIdx.x + (int)rank * NTHREADS; i < n; i += 2 * NTHREADS)
+    store(i, s0[i] + s1[i]);
+}
+
 }  // namespace qv
 
 #ifndef QV_EMULATE

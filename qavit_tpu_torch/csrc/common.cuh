@@ -72,6 +72,7 @@ struct Dims {
   int lin_k;              // Linformer compressed length
   int bank_s;             // bank slots
   int msda_keep;          // pooled MSDA rows
+  int msda_pad;           // rows of MSDA's Linformer E (its backward at n = 64)
   int groups;             // CGA channel groups
   int cperg;              // CGA compressed channels per group
   int ccf_hidden;
@@ -286,6 +287,15 @@ __device__ __forceinline__ float drop(const Dims& d, int key, unsigned idx,
                                       float v) {
   if (!(d.train && d.drop_on)) return v;
   return kept(d.salt[key], d.thr, idx) ? v / d.keep : 0.f;
+}
+
+// drop with a kept element scaled by the product with inv_keep (1 /
+// d.keep) instead of the quotient: within an ulp of it, and no IEEE
+// division an element (the n = 64 SWA and MSDA backwards' d(out))
+__device__ __forceinline__ float drop_r(const Dims& d, int key, unsigned idx,
+                                        float v, float inv_keep) {
+  if (!(d.train && d.drop_on)) return v;
+  return kept(d.salt[key], d.thr, idx) ? v * inv_keep : 0.f;
 }
 
 // prescaled drop-path factor of sample b (1 outside training)

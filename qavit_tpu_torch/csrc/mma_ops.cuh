@@ -508,6 +508,41 @@ __device__ __forceinline__ void mma_tn(float (&acc)[2][4], const bf16* a,
   }
 }
 
+// gemm_pass<192, STAGES> (below) with a second K block from shared memory
+// in the same float32 sums: epi gets those of A @ W + A2 @ B2 (A2 [32,
+// K2], leading dim lda2; B2 [K2, 192], leading dim ldb2; K2 a multiple of
+// 16, or 0).  Block-wide; the ring is free again on return.
+template <int STAGES, typename F>
+__device__ __forceinline__ void gemm_pass_k2(const bf16* a, int lda,
+                                             const bf16* W, int ldw, int K,
+                                             bf16* ring, const bf16* a2,
+                                             int lda2, const bf16* b2,
+                                             int ldb2, int K2, F&& epi) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int mt = warp & 1, n0 = 48 * (warp >> 1);
+  float acc[1][6][4];
+  ring_gemm<1, 6, STAGES>(a + mt * 16 * lda, lda, W, ldw, 192, K, ring, 200,
+                          n0, acc);
+  for (int ks = 0; ks < K2 / 16; ++ks) {
+    unsigned af[4];
+    load_a(af, a2 + mt * 16 * lda2 + ks * 16, lda2, lane);
+#pragma unroll
+    for (int np = 0; np < 3; ++np) {
+      unsigned bf[4];
+      load_b_kn(bf, b2 + ks * 16 * ldb2 + n0 + np * 16, ldb2, lane);
+      mma_bf16_16816(acc[0][2 * np], af, bf);
+      mma_bf16_16816(acc[0][2 * np + 1], af, bf + 2);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 6; ++j)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+      epi(16 * mt + g + 8 * hf, n0 + 8 * j + 2 * t, acc[0][j][2 * hf],
+          acc[0][j][2 * hf + 1]);
+}
+
 // A product over the PASS_ROWS rows of a pass: A (shared memory, leading
 // dim lda, K columns) @ W (bf16 [K, ldw] in device memory, N = 192 or 96
 // columns) through ring_gemm's ring (STAGES x RING_KS x (N + 8) elements);
@@ -537,16 +572,8 @@ __device__ __forceinline__ void gemm_pass(const bf16* a, int lda,
             epi(16 * mi + g + 8 * hf, n0 + 8 * j + 2 * t,
                 acc[mi][j][2 * hf], acc[mi][j][2 * hf + 1]);
   } else {
-    const int mt = warp & 1, n0 = 48 * (warp >> 1);
-    float acc[1][6][4];
-    ring_gemm<1, 6, STAGES>(a + mt * 16 * lda, lda, W, ldw, N, K, ring,
-                            N + 8, n0, acc);
-#pragma unroll
-    for (int j = 0; j < 6; ++j)
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf)
-        epi(16 * mt + g + 8 * hf, n0 + 8 * j + 2 * t, acc[0][j][2 * hf],
-            acc[0][j][2 * hf + 1]);
+    gemm_pass_k2<STAGES>(a, lda, W, ldw, K, ring, nullptr, 0, nullptr, 0, 0,
+                         epi);
   }
 }
 
@@ -580,6 +607,32 @@ __device__ __forceinline__ void gemm_pass_smem(const bf16* a, int lda,
     for (int hf = 0; hf < 2; ++hf)
       epi(16 * mt + g + 8 * hf, n0 + 8 * j + 2 * t, acc[j][2 * hf],
           acc[j][2 * hf + 1]);
+}
+
+// A product over 48 rows (three 16-row tiles, one weight stream for all):
+// A (shared memory, leading dim lda, K columns) @ W (bf16 [K, ldw] in
+// device memory, N = 192) through ring_gemm's ring (STAGES x RING_KS x
+// 200 elements); warps 0-5 the 32 columns from 32 w (6 and 7 repeat warp
+// 5's and keep nothing); epi as gemm_pass's.  Block-wide; the ring is free
+// again on return.
+template <int STAGES, typename F>
+__device__ __forceinline__ void gemm_pass48(const bf16* a, int lda,
+                                            const bf16* W, int ldw, int K,
+                                            bf16* ring, F&& epi) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = 32 * (warp < 6 ? warp : 5);
+  float acc[3][4][4];
+  ring_gemm<3, 4, STAGES>(a, lda, W, ldw, 192, K, ring, 200, n0, acc);
+  if (warp < 6)
+#pragma unroll
+    for (int mt = 0; mt < 3; ++mt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          epi(16 * mt + g + 8 * hf, n0 + 8 * j + 2 * t, acc[mt][j][2 * hf],
+              acc[mt][j][2 * hf + 1]);
 }
 
 // The rows of a pass (PASS_ROWS, or `rows`), cols (a multiple of 8) from
@@ -670,6 +723,131 @@ __device__ __forceinline__ void wgrad_block(const bf16* a, const bf16* b,
       }
     __syncthreads();
   }
+}
+
+// A weight gradient of K = 192 rows over `rows` operand rows (a multiple
+// of 16) saved in device memory: gW[k, n] = sum_r a[r, k] b[r, n] for n <
+// N (a multiple of 96) into gW (leading dim ldg), and gb[n] = sum_r b[r,
+// n] when gb is not null; a and b point at their first column in the
+// operand rows (leading dim ld).  96 columns at a time, whose sums stay in
+// registers (warp w the 48 x 48 tile of gW at row 48 (w >> 1), column 48
+// (w & 1): three 16-column tiles of three independent sums a step) while
+// every row streams through a ring of three WG_ROWS-row chunks of shared
+// memory (smem: WG_SMEM bf16) by cp.async, one barrier a chunk; then each
+// element is stored once, never read, so the slice needs no zeroing.  The
+// bias as the product with a tile of ones (warps 0 and 1).  Against
+// wgrad_block, which stores each chunk's sums and adds the next chunk's to
+// them through device memory, one warp item a 16 x 16 tile, no element is
+// read back.  Block-wide; ends with a barrier.
+constexpr int WG_ROWS = 64, WG_LDA = 192 + 8, WG_LDB = 96 + 8;
+constexpr int WG_STAGE = WG_ROWS * (WG_LDA + WG_LDB);
+constexpr int WG_SMEM = 3 * WG_STAGE;
+__device__ __forceinline__ void wgrad_stream(const bf16* a, const bf16* b,
+                                             int ld, int rows, int N,
+                                             float* gW, int ldg, float* gb,
+                                             bf16* smem) {
+  constexpr int STAGES = 3;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = 48 * (warp >> 1), n0 = 48 * (warp & 1);
+  const int nch = (rows + WG_ROWS - 1) / WG_ROWS, total = nch * (N / 96);
+  const bool bias = gb != nullptr && warp < 2;
+  // chunk i: rows WG_ROWS (i % nch).. of a's 192 columns and b's 96 of
+  // block i / nch, into stage i % STAGES; an empty group past the last
+  auto issue = [&](int i) {
+    if (i < total) {
+      const int blk = i / nch, r0 = (i - blk * nch) * WG_ROWS;
+      const int nr = rows - r0 < WG_ROWS ? rows - r0 : WG_ROWS;
+      bf16* sa = smem + (i % STAGES) * WG_STAGE;
+      bf16* sb = sa + WG_ROWS * WG_LDA;
+      const bf16* ar = a + (size_t)r0 * ld;
+      const bf16* br = b + (size_t)r0 * ld + 96 * blk;
+      for (int e = threadIdx.x; e < nr * 36; e += NTHREADS) {
+        const int r = e / 36, c = e - r * 36;
+        if (c < 24)
+          cp_async_16(sa + r * WG_LDA + 8 * c, ar + (size_t)r * ld + 8 * c);
+        else
+          cp_async_16(sb + r * WG_LDB + 8 * (c - 24),
+                      br + (size_t)r * ld + 8 * (c - 24));
+      }
+    }
+    cp_async_commit();
+  };
+  float acc[3][3][2][4], bacc[3][2][4];
+  auto zero = [&] {
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][h][e] = 0.f;
+          if (i == 0)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) bacc[j][h][e] = 0.f;
+        }
+  };
+  zero();
+  const unsigned ones[4] = {0x3F803F80u, 0x3F803F80u, 0x3F803F80u,
+                            0x3F803F80u};   // a tile of bf16 ones
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) issue(i);
+  for (int i = 0; i < total; ++i) {
+    cp_async_wait<STAGES - 2>();   // chunk i has landed
+    __syncthreads();               // every warp is past chunk i - 1
+    issue(i + STAGES - 1);
+    const int blk = i / nch, ch = i - blk * nch;
+    const int nr = rows - ch * WG_ROWS < WG_ROWS ? rows - ch * WG_ROWS
+                                                 : WG_ROWS;
+    const bf16* sa = smem + (i % STAGES) * WG_STAGE;
+    const bf16* sb = sa + WG_ROWS * WG_LDA;
+    for (int ks = 0; ks < nr / 16; ++ks) {
+      unsigned af[3][4], bf[3][4];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        load_a_t(af[k], sa + ks * 16 * WG_LDA + m0 + 16 * k, WG_LDA, lane);
+        load_b_kn(bf[k], sb + ks * 16 * WG_LDB + n0 + 16 * k, WG_LDB, lane);
+      }
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          mma_bf16_16816(acc[k][j][0], af[k], bf[j]);
+          mma_bf16_16816(acc[k][j][1], af[k], bf[j] + 2);
+        }
+      if (bias)
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          mma_bf16_16816(bacc[j][0], ones, bf[j]);
+          mma_bf16_16816(bacc[j][1], ones, bf[j] + 2);
+        }
+    }
+    if (ch == nch - 1) {           // block blk's sums are whole:
+      const int nb = 96 * blk + n0;  // stored a pair of columns at once
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+#pragma unroll
+        for (int j = 0; j < 3; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf)
+              *reinterpret_cast<float2*>(
+                  gW + (m0 + 16 * k + g + 8 * hf) * ldg + nb + 16 * j +
+                  8 * h + 2 * t) =
+                  float2{acc[k][j][h][2 * hf], acc[k][j][h][2 * hf + 1]};
+      if (bias && g == 0)
+#pragma unroll
+        for (int j = 0; j < 3; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<float2*>(gb + nb + 16 * j + 8 * h + 2 * t) =
+                float2{bacc[j][h][0], bacc[j][h][1]};
+      zero();
+    }
+  }
+  __syncthreads();
 }
 
 // The block-wide sums of every thread's v[k] (k < NV), in a fixed order
@@ -883,7 +1061,7 @@ __device__ __forceinline__ void softmax_c(float (&s)[2 * NKT][4], int nkeys,
 // sqrt(D), keys from nkeys on -inf, float32 softmax by quad shuffles),
 // left in s in the C-fragment layout: s[j] holds keys 8j.. of query rows
 // g and g + 8.
-template <int NKT>
+template <int NKT, bool RECIP = false>
 __device__ __forceinline__ void attn_probs(const unsigned (&qa)[3][4],
                                            const bf16* const (&kt)[NKT],
                                            int ld, int hc, int nkeys,
@@ -900,7 +1078,7 @@ __device__ __forceinline__ void attn_probs(const unsigned (&qa)[3][4],
       mma_bf16_16816(s[2 * np], qa[ks], kb);
       mma_bf16_16816(s[2 * np + 1], qa[ks], kb + 2);
     }
-  softmax_c<NKT>(s, nkeys, sqrtf((float)ATT_D));
+  softmax_c<NKT, RECIP>(s, nkeys, sqrtf((float)ATT_D));
 }
 
 // The A fragments of a 16-key step kk of probabilities (or dS) held in
@@ -922,15 +1100,18 @@ __device__ __forceinline__ void c_to_a(const float (&s)[2 * NKT][4], int kk,
 // warp_attention in training: the probabilities through the attention
 // dropout m before PV (rnd(P / keep) or 0, as common.cuh's attention),
 // the 16 output rows to out (leading dim ldo, columns hc..) as bf16.
-// True if an output is NaN.
-template <int NKT>
-__device__ __forceinline__ bool warp_attention_train(
-    const unsigned (&qa)[3][4], const bf16* const (&kt)[NKT],
-    const bf16* const (&vt)[NKT], int ld, int hc, int nkeys,
-    const AttnMask& m, bf16* out, int ldo) {
+// True if an output is NaN.  RECIP (the n = 64 SWA and MSDA backwards):
+// each row's softmax as the product with its sum's reciprocal
+// (softmax_c) and the dropout scale as the product with 1 / keep
+// (attn_mask_r), each within an ulp of the quotient, no IEEE division a
+// probability.  In two halves: attn_probs, then attn_pv_train from the
+// probabilities s, which a caller may keep for attn_bwd_p.
+template <int NKT, bool RECIP = false>
+__device__ __forceinline__ bool attn_pv_train(
+    const float (&s)[2 * NKT][4], const bf16* const (&vt)[NKT], int ld,
+    int hc, const AttnMask& m, bf16* out, int ldo) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  float s[2 * NKT][4];
-  attn_probs<NKT>(qa, kt, ld, hc, nkeys, s);
+  const float inv_keep = 1.f / m.dr.keep;
   float o[6][4];
 #pragma unroll
   for (int j = 0; j < 6; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
@@ -938,6 +1119,7 @@ __device__ __forceinline__ bool warp_attention_train(
   for (int kk = 0; kk < NKT; ++kk) {
     unsigned pa[4];
     c_to_a<NKT>(s, kk, [&](int row, int key, float p) {
+      if constexpr (RECIP) return attn_mask_r(m, row, key, p, inv_keep);
       return attn_mask(m, row, key, p);
     }, pa);
 #pragma unroll
@@ -961,6 +1143,16 @@ __device__ __forceinline__ bool warp_attention_train(
   return nan_seen;
 }
 
+template <int NKT, bool RECIP = false>
+__device__ __forceinline__ bool warp_attention_train(
+    const unsigned (&qa)[3][4], const bf16* const (&kt)[NKT],
+    const bf16* const (&vt)[NKT], int ld, int hc, int nkeys,
+    const AttnMask& m, bf16* out, int ldo) {
+  float s[2 * NKT][4];
+  attn_probs<NKT, RECIP>(qa, kt, ld, hc, nkeys, s);
+  return attn_pv_train<NKT, RECIP>(s, vt, ld, hc, m, out, ldo);
+}
+
 // The backward of warp_attention_train for one warp's 16 queries in one
 // head, given the output's cotangent dO (16 rows, leading dim ldo,
 // columns hc..): P recomputed from q (qa), the keys and the mask; dP = dO
@@ -971,17 +1163,21 @@ __device__ __forceinline__ bool warp_attention_train(
 // (16 rows, keys 0 .. 16 NKT, leading dim lds), all as bf16, for the key
 // gradients dK = dS^T q and dV = P^T dO, which the caller forms (mma_tn)
 // after a __syncwarp (one sample's keys) or a barrier (keys shared by
-// the samples).  Keys past nkeys must be finite rows (zeros).
-template <int NKT>
-__device__ __forceinline__ void warp_attention_bwd(
-    const unsigned (&qa)[3][4], const bf16* const (&kt)[NKT],
-    const bf16* const (&vt)[NKT], int ld, int hc, int nkeys,
-    const AttnMask& m, const bf16* dO, int ldo, bf16* dq, int lddq,
-    bf16* ds, bf16* pu, int lds) {
+// the samples).  Keys past nkeys must be finite rows (zeros).  RECIP as
+// warp_attention_train's, and each element's mask bit hashed once for dP
+// and the P used, dS scaled by the product with 1 / sqrt(D).  In two
+// halves: attn_probs, then attn_bwd_p from the probabilities s (which it
+// overwrites with dS), so a caller that kept the forward's s skips the
+// recompute.
+template <int NKT, bool RECIP = false>
+__device__ __forceinline__ void attn_bwd_p(
+    float (&s)[2 * NKT][4], const bf16* const (&kt)[NKT],
+    const bf16* const (&vt)[NKT], int ld, int hc, const AttnMask& m,
+    const bf16* dO, int ldo, bf16* dq, int lddq, bf16* ds, bf16* pu,
+    int lds) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const float sqrt_d = sqrtf((float)ATT_D);
-  float s[2 * NKT][4], dp[2 * NKT][4];
-  attn_probs<NKT>(qa, kt, ld, hc, nkeys, s);
+  float dp[2 * NKT][4];
   unsigned oa[3][4];
 #pragma unroll
   for (int ks = 0; ks < 3; ++ks) load_a(oa[ks], dO + hc + ks * 16, ldo, lane);
@@ -998,32 +1194,66 @@ __device__ __forceinline__ void warp_attention_bwd(
       mma_bf16_16816(dp[2 * np + 1], oa[ks], vb + 2);
     }
   float dot0 = 0.f, dot1 = 0.f;
+  if constexpr (RECIP) {
+    const float inv_keep = 1.f / m.dr.keep;
 #pragma unroll
-  for (int j = 0; j < 2 * NKT; ++j)
+    for (int j = 0; j < 2 * NKT; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int key = 8 * j + 2 * t + (e & 1), row = g + 8 * (e >> 1);
-      dp[j][e] = attn_mask(m, row, key, dp[j][e]);
-      // the probabilities PV used, for dV
-      if (e & 1)
-        store_bf16x2(pu + row * lds + key - 1,
-                     pack_bf16x2(attn_mask(m, row, key - 1, s[j][e - 1]),
-                                 attn_mask(m, row, key, s[j][e])));
-      if (e >> 1)
-        dot1 = fmaf(dp[j][e], s[j][e], dot1);
-      else
-        dot0 = fmaf(dp[j][e], s[j][e], dot0);
-    }
+      for (int hf = 0; hf < 2; ++hf) {
+        const int key = 8 * j + 2 * t, row = g + 8 * hf;
+        float mk[2];               // the mask's scale: 1, 1 / keep or 0
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          mk[e] = !m.dr.on ? 1.f
+                  : kept(m.dr.salt, m.dr.thr,
+                         m.base + (unsigned)((m.vh * m.nq + row) * m.kv +
+                                             key + e))
+                      ? inv_keep
+                      : 0.f;
+        // the probabilities PV used, for dV
+        store_bf16x2(pu + row * lds + key,
+                     pack_bf16x2(s[j][2 * hf] * mk[0],
+                                 s[j][2 * hf + 1] * mk[1]));
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          dp[j][2 * hf + e] *= mk[e];
+          if (hf)
+            dot1 = fmaf(dp[j][2 + e], s[j][2 + e], dot1);
+          else
+            dot0 = fmaf(dp[j][e], s[j][e], dot0);
+        }
+      }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 2 * NKT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = 8 * j + 2 * t + (e & 1), row = g + 8 * (e >> 1);
+        dp[j][e] = attn_mask(m, row, key, dp[j][e]);
+        // the probabilities PV used, for dV
+        if (e & 1)
+          store_bf16x2(pu + row * lds + key - 1,
+                       pack_bf16x2(attn_mask(m, row, key - 1, s[j][e - 1]),
+                                   attn_mask(m, row, key, s[j][e])));
+        if (e >> 1)
+          dot1 = fmaf(dp[j][e], s[j][e], dot1);
+        else
+          dot0 = fmaf(dp[j][e], s[j][e], dot0);
+      }
+  }
 #pragma unroll
   for (int o = 1; o < 4; o <<= 1) {
     dot0 += __shfl_xor_sync(0xffffffffu, dot0, o);
     dot1 += __shfl_xor_sync(0xffffffffu, dot1, o);
   }
+  const float inv_sqrt_d = 1.f / sqrt_d;
 #pragma unroll
   for (int j = 0; j < 2 * NKT; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      s[j][e] = s[j][e] * (dp[j][e] - (e >> 1 ? dot1 : dot0)) / sqrt_d;
+    for (int e = 0; e < 4; ++e) {
+      const float v = s[j][e] * (dp[j][e] - (e >> 1 ? dot1 : dot0));
+      s[j][e] = RECIP ? v * inv_sqrt_d : v / sqrt_d;
+    }
 #pragma unroll
   for (int j = 0; j < 2 * NKT; ++j)
 #pragma unroll
@@ -1051,6 +1281,18 @@ __device__ __forceinline__ void warp_attention_bwd(
     for (int hf = 0; hf < 2; ++hf)
       store_bf16x2(dq + (g + 8 * hf) * lddq + hc + 8 * j + 2 * t,
                    pack_bf16x2(o[j][2 * hf], o[j][2 * hf + 1]));
+}
+
+template <int NKT, bool RECIP = false>
+__device__ __forceinline__ void warp_attention_bwd(
+    const unsigned (&qa)[3][4], const bf16* const (&kt)[NKT],
+    const bf16* const (&vt)[NKT], int ld, int hc, int nkeys,
+    const AttnMask& m, const bf16* dO, int ldo, bf16* dq, int lddq,
+    bf16* ds, bf16* pu, int lds) {
+  float s[2 * NKT][4];
+  attn_probs<NKT, RECIP>(qa, kt, ld, hc, nkeys, s);
+  attn_bwd_p<NKT, RECIP>(s, kt, vt, ld, hc, m, dO, ldo, dq, lddq, ds, pu,
+                         lds);
 }
 
 // The key gradients of warp_attention_bwd for 16 keys and one head of

@@ -533,10 +533,7 @@ __device__ __forceinline__ void cross_tail_bwd_mma(
   // of it, and no IEEE division an element)
   const float inv_keep = 1.f / d.keep;
   auto drp = [&](int key, unsigned idx, float v) {
-    if constexpr (PAIR) {
-      if (!(d.train && d.drop_on)) return v;
-      return kept(d.salt[key], d.thr, idx) ? v * inv_keep : 0.f;
-    }
+    if constexpr (PAIR) return drop_r(d, key, idx, v, inv_keep);
     return drop(d, key, idx, v);
   };
   float fw[4];

@@ -47,9 +47,11 @@
 // Time: PERF.md section 6 row 6.
 //
 // bf16 at hqavit_tiny_in's widths, n = 64 with 40 pooled rows,
-// msda_bwd_mma64_kernel (below): a pass a sample.  Bound at B=128 on the
+// msda_bwd_mma64_kernel (below): a pass a sample, on two-CTA clusters
+// that share the tail.  Bound at B=128 on the
 // H100: 10.7 MB against 7.2 GFLOP (~7.3 us): the operations bound it.
 // Time: PERF.md section 6 row 6 @n64.
+#include "cluster.cuh"
 #include "mma_ops.cuh"
 #include "unit_msda.cuh"
 
@@ -163,6 +165,13 @@ extern "C" int qv_unit_msda_bwd_smem(const qv::Dims* d) {
 }
 
 // --- bf16 at hqavit_c100's widths: the tensor-core kernel --------------------
+
+QV_STAMPS_DEFINE(msda_bwd,
+                 "prologue,pooled rows,kv and kc|vc,stage and q,"
+                 "attention forward,proj,attention backward and key "
+                 "gradients,d(kc) and d(E),Linformer backward,"
+                 "d(pooled) and d(xn),weight gradients,slice stores,"
+                 "cluster barriers")
 
 namespace qv {
 
@@ -546,19 +555,33 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 // resident while the queries run in two halves of 32 rows through the n =
 // 16 design's steps (q, the attention with its dropout replayed, proj's
 // d(att), warp_attention_bwd); each warp (k or v, head) sums its keys'
-// d(kc), d(vc) and the bank keys' over both halves in float32 registers.
-// Then the Linformer backward (d(E), d(k | v) = E @ d(kc | vc)), d(pooled)
-// = d(kv) @ W_kv^T, and per half d(xn) = dq @ W_q^T + sel_t d(pooled), the
-// halves' dq read back from the block's operand rows.  The pooled rows are
-// made from device memory (xn) by each pooled row's non-zeros in token
-// order, as the forward's gather (a NaN in xn trips the guard, whose
-// branch reads no pooled row).  The operand rows of the weight gradients
-// go to the block's scratch: 64 rows a sample of proj's input, d(out), xn
-// and dq; 48 of the pooled rows and d(kv).
+// d(kc), d(vc) over both halves, and the bank keys' over all its samples,
+// in float32 registers.  Then the Linformer backward (d(E), d(k | v) = E
+// @ d(kc | vc)), d(pooled) = d(kv) @ W_kv^T, and per half d(xn) = dq @
+// W_q^T + sel_t d(pooled), the halves' dq read back from the operand
+// rows.  The pooling runs on the tensor cores both ways: pooled =
+// rnd(sel^T @ xn) over the sample's 64 rows staged in shared memory, and
+// sel_t d(pooled) as a second K block (K = 48) in the float32 sums of dq
+// @ W_q^T, rounded once after both (it was a gather of bf16 loads from
+// device memory and 40 scalar FMAs an element of d(xn), 0.063 of 0.229 ms
+// of block 0 at B=128).  The products over the 48 pooled rows stream
+// their weight once (gemm_pass48).  A thread-block cluster of two CTAs
+// walks the samples b = c, c + clusters, ... (c = blockIdx.x / 2), the
+// k-th by CTA rank k % 2, and shares the tail as the SWA backward's
+// does: the operand rows of the cluster's samples in its scratch (64 rows
+// a sample of proj's input, d(out), xn and dq; 48 of the pooled rows and
+// d(kv)), half the columns of each weight gradient a CTA (wgrad_stream),
+// the bank keys' gradients and d(E) summed through distributed shared
+// memory in rank order, one slice a cluster, every field stored once.
+// d(E) is summed over the CTA's samples in its scratch (a float32 row
+// block a CTA) rather than in registers, which the attention fills.  As in
+// the SWA backward, the dropout scales and the softmax's row sums are
+// products with reciprocals and each warp keeps its probabilities in
+// registers from the attention to its backward.
 
 // the geometry msda_bwd_mma64_kernel is written for
 // (fused_kernels.msda_bwd_mma_error)
-constexpr int M6_N = 64, M6_KEEP = 48, M6_POOL = 8;
+constexpr int M6_N = 64, M6_KEEP = 48;
 constexpr int M6_LDE = M6_KEEP + 8, M6_LDS = M6_KEEP + 8;
 constexpr int M6_X = PASS_ROWS * MB_LDX;       // one [32, C] buffer
 // columns of a sample's saved operand rows: per query row proj's input
@@ -567,6 +590,8 @@ constexpr int M6_OP_ATT = 0, M6_OP_DO = MB_C, M6_OP_XS = 2 * MB_C;
 constexpr int M6_OP_DQ = 3 * MB_C, M6_OPW = 4 * MB_C;
 constexpr int M6_OP_POOL = 0, M6_OP_DKV = MB_C, M6_OPPW = 3 * MB_C;
 constexpr int M6_OPS = M6_N * M6_OPW + M6_KEEP * M6_OPPW;  // a sample's
+// a CTA's d(E) sums in the scratch, floats: [2][M6_KEEP][MB_LK]
+constexpr int M6_ESUM = 2 * M6_KEEP * MB_LK;
 constexpr int M6_BF16 = 2 * MB_S * MB_LDX      // bank k, v
                         + 2 * MB_LK * M6_LDE   // E_k^T, E_v^T
                         + 2 * M6_KEEP * MB_LDEN  // E_k, E_v
@@ -574,22 +599,30 @@ constexpr int M6_BF16 = 2 * MB_S * MB_LDX      // bank k, v
                         + M6_KEEP * MB_LDKV    // kv, then d(kv)
                         + 4 * MB_LK * MB_LDX / 2  // kc, vc; d(kc), d(vc)
                         + 7 * M6_X + MB_RING;
-constexpr int M6_SMEM_BYTES = 2 * M6_BF16 + M6_KEEP * (1 + 2 * M6_POOL) * 4;
+constexpr int M6_SMEM_BYTES = 2 * M6_BF16;
 static_assert(2 * M6_X >= M6_KEEP * MB_LDX, "the pooled rows in q | att");
+// the pair's sums in shared memory (floats, in ds's, pu's and the ring's
+// place): the bank keys' gradients [2][MB_S][C], then d(E) from M6_OWN_E
+constexpr int M6_OWN_E = 2 * MB_S * MB_C;
+static_assert((M6_OWN_E + M6_ESUM) * 4 <= (2 * M6_X + MB_RING) * 2,
+              "the pair's sums in ds, pu and the ring");
 
-// per block: the operand rows (bf16) of its samples
+// per cluster: each CTA's d(E) sums, then the operand rows (bf16) of the
+// cluster's samples
 __host__ __device__ inline int msda_bwd_mma64_scratch_floats(const Dims& d) {
-  return (d.B + d.grid - 1) / d.grid * M6_OPS / 2;
+  return 2 * M6_ESUM + (d.B + d.grid - 1) / d.grid * M6_OPS / 2;
 }
 
 // The buffers: xs (a half's xn), q, att (the attention rows, then
 // d(att)), dO (d(out) through the proj dropout), dq, ds (dS), pu (the
-// probabilities PV used), each [32, C]; the pooled rows, later d(pooled),
-// in q | att's space ([48, C]); kv [48, 2C] (k | v, then d(kv)); kc | vc
-// [2][32, C] (then d(kc) | d(vc)).
+// probabilities PV used), each [32, C]; the sample's 64 xn rows in dO |
+// dq for the pooling; the pooled rows, later d(pooled), in q | att's
+// space ([48, C]); kv [48, 2C] (k | v, then d(kv)); kc | vc [2][32, C]
+// (then d(kc) | d(vc)).
 __global__ void __launch_bounds__(NTHREADS, 1)
     msda_bwd_mma64_kernel(MsdaBwdMmaArgs m) {
   QV_SMEM_DECL
+  QV_STAMP(msda_bwd, -1);
   const MsdaBwdArgs& a = m.a;
   const MsdaArgs& f = a.f;
   const Dims& d = f.d;
@@ -613,59 +646,82 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   bf16* ds = dq + M6_X;
   bf16* pu = ds + M6_X;
   bf16* ring = pu + M6_X;
-  int* pool_n = reinterpret_cast<int*>(ring + MB_RING);
-  int* pool_src = pool_n + M6_KEEP;      // [M6_KEEP][M6_POOL]
-  float* pool_w = reinterpret_cast<float*>(pool_src + M6_KEEP * M6_POOL);
   const bf16 zero = from_f<bf16>(0.f);
   const bool zero_attn = d.guard && a.c.flag[1] != 0;
-  float* gqkv_w = slice(gr.qkv_w, a.c);
-  float* gqkv_b = slice(gr.qkv_b, a.c);
   auto kcv = [&](int w) { return kc + w * MB_LK * MB_LDX; };
-  const int nb = (d.B - (int)blockIdx.x + (int)gridDim.x - 1) / gridDim.x;
-  bf16* ops = reinterpret_cast<bf16*>(
-      a.c.scratch + (size_t)blockIdx.x * msda_bwd_mma64_scratch_floats(d));
+  const int rank = (int)cluster_rank();
+  const int unit = (int)blockIdx.x / 2, units = (int)gridDim.x / 2;
+  auto sl = [&](float* p) { return p + (size_t)unit * a.c.wstride; };
+  const float inv_keep = 1.f / d.keep;
+  const int nb = (d.B - unit + units - 1) / units;  // the cluster's samples
+  float* scr = a.c.scratch + (size_t)unit * msda_bwd_mma64_scratch_floats(d);
+  float* esum = scr + rank * M6_ESUM;               // this CTA's d(E) sums
+  bf16* ops = reinterpret_cast<bf16*>(scr + 2 * M6_ESUM);
   bf16* opq = ops;                                  // [nb * 64][M6_OPW]
   bf16* opp = ops + (size_t)nb * M6_N * M6_OPW;     // [nb * 48][M6_OPPW]
 
   // per block: the bank rows rounded (rows past S zero), E^T and E
-  // rounded (past msda_keep zero), the pooling matrix rounded, and each
-  // pooled row's non-zeros in token order
-  for (int i = threadIdx.x; i < MB_S * C; i += blockDim.x) {
-    const int r = i / C, c = i - r * C;
-    bk[r * MB_LDX + c] = from_f<bf16>(r < S ? rnd<bf16>(f.bank_k[i]) : 0.f);
-    bv[r * MB_LDX + c] = from_f<bf16>(r < S ? rnd<bf16>(f.bank_v[i]) : 0.f);
+  // rounded (past msda_keep zero), the pooling matrix rounded; each read
+  // four floats a load in its own order (neighbouring threads,
+  // neighbouring floats), several loads in flight a thread
+  auto put4 = [&](bf16* dst, int step, float4 v) {
+    dst[0] = from_f<bf16>(rnd<bf16>(v.x));
+    dst[step] = from_f<bf16>(rnd<bf16>(v.y));
+    dst[2 * step] = from_f<bf16>(rnd<bf16>(v.z));
+    dst[3 * step] = from_f<bf16>(rnd<bf16>(v.w));
+  };
+  const float4 zero4{0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+  for (int i = threadIdx.x; i < MB_S * C / 4; i += NTHREADS) {
+    const int r = 4 * i / C, c = 4 * i - r * C;
+    put4(bk + r * MB_LDX + c, 1,
+         r < S ? reinterpret_cast<const float4*>(f.bank_k)[i] : zero4);
+    put4(bv + r * MB_LDX + c, 1,
+         r < S ? reinterpret_cast<const float4*>(f.bank_v)[i] : zero4);
   }
-  for (int i = threadIdx.x; i < 2 * MB_LK * M6_KEEP; i += blockDim.x) {
-    const int w = i / (MB_LK * M6_KEEP), r = i - w * MB_LK * M6_KEEP;
-    const int mr = r / M6_KEEP, k = r - mr * M6_KEEP;
-    const float* e = w ? f.e_v : f.e_k;
-    const bf16 v = k < keep ? from_f<bf16>(rnd<bf16>(e[k * MB_LK + mr]))
-                            : zero;
-    et[(w * MB_LK + mr) * M6_LDE + k] = v;
-    en[(w * M6_KEEP + k) * MB_LDEN + mr] = v;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < 2 * M6_KEEP * MB_LK / 4; i += NTHREADS) {
+    const int w = 4 * i / (M6_KEEP * MB_LK), r = 4 * i - w * M6_KEEP * MB_LK;
+    const int k = r / MB_LK, mr = r - k * MB_LK;
+    const float4 v =
+        k < keep ? *reinterpret_cast<const float4*>((w ? f.e_v : f.e_k) + r)
+                 : zero4;
+    put4(et + (w * MB_LK + mr) * M6_LDE + k, M6_LDE, v);
+    put4(en + (w * M6_KEEP + k) * MB_LDEN + mr, 1, v);
   }
-  for (int i = threadIdx.x; i < M6_N * M6_KEEP; i += blockDim.x) {
-    const int n = i / M6_KEEP, p = i - n * M6_KEEP;
-    selb[n * M6_LDS + p] =
-        from_f<bf16>(p < keep ? rnd<bf16>(f.sel_t[n * keep + p]) : 0.f);
+  for (int i = threadIdx.x; i < M6_N * (M6_KEEP - keep); i += NTHREADS) {
+    const int n = i / (M6_KEEP - keep), p = keep + i % (M6_KEEP - keep);
+    selb[n * M6_LDS + p] = zero;
   }
-  if ((int)threadIdx.x < keep) {
-    const int p = threadIdx.x;
-    int cnt = 0;
-    for (int n = 0; n < M6_N; ++n) {
-      const float w = f.sel_t[n * keep + p];
-      if (w != 0.f && cnt < M6_POOL) {
-        pool_src[p * M6_POOL + cnt] = n;
-        pool_w[p * M6_POOL + cnt] = rnd<bf16>(w);
-        ++cnt;
-      }
+#pragma unroll 4
+  for (int i = threadIdx.x; i < M6_N * keep / 4; i += NTHREADS) {
+    const float4 v = reinterpret_cast<const float4*>(f.sel_t)[i];
+    const float vs[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int e = 4 * i + u, n = e / keep, p = e - n * keep;
+      selb[n * M6_LDS + p] = from_f<bf16>(rnd<bf16>(vs[u]));
     }
-    pool_n[p] = cnt;
   }
   __syncthreads();
+  QV_STAMP(msda_bwd, 0);
 
-  for (int k0 = 0; k0 < nb; ++k0) {
-    const int b = (int)blockIdx.x + k0 * (int)gridDim.x;
+  // this warp's key gradients: warp (k or v, head h), its 32 compressed
+  // keys (tiles 0, 1: summed over a sample's halves) and the bank's 16
+  // (tile 2: summed over all the CTA's samples)
+  const int kw = warp >> 2, kh = (warp & 3) * ATT_D;
+  float kacc[3][3][2][4];
+#pragma unroll
+  for (int kt = 0; kt < 3; ++kt)
+#pragma unroll
+    for (int c3 = 0; c3 < 3; ++c3)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) kacc[kt][c3][j][e] = 0.f;
+  bool has_e = false;                // esum holds this CTA's d(E) sums
+  for (int k0 = rank; k0 < nb; k0 += 2) {
+    const int b = unit + k0 * units;
     const bf16* xn = static_cast<const bf16*>(f.xn) + (size_t)b * M6_N * C;
     bf16* oq = opq + (size_t)k0 * M6_N * M6_OPW;     // the sample's rows
     bf16* op = opp + (size_t)k0 * M6_KEEP * M6_OPPW;
@@ -678,7 +734,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         cp_async_16(dst + r * MB_LDX + c, from + (size_t)r * C + c);
       }
     };
-    // d(out) of half hq through the proj dropout into dO
+    // d(out) of half hq through the proj dropout (the product with 1 /
+    // keep) into dO
     auto stage_dout = [&](int hq) {
       stage(dO, a.d_out, hq);
       cp_async_commit();
@@ -688,10 +745,10 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         for (int i = threadIdx.x; i < PASS_ROWS * C; i += blockDim.x) {
           const int r = i / C, c = i - r * C;
           bf16* p = dO + r * MB_LDX + c;
-          *p = from_f<bf16>(drop(
+          *p = from_f<bf16>(drop_r(
               d, MSDA_PROJ,
               (unsigned)(((size_t)b * M6_N + PASS_ROWS * hq + r) * C + c),
-              to_f<bf16>(*p)));
+              to_f<bf16>(*p), inv_keep));
         }
       __syncthreads();
     };
@@ -718,30 +775,56 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       continue;
     }
     // ---- recompute: the pooled rows, kv, kc | vc ----------------------
-    for (int i = threadIdx.x; i < M6_KEEP * C; i += blockDim.x) {
-      const int p = i / C, c = i - p * C;
-      float acc = 0.f;
-      if (p < keep)
-        for (int j = 0; j < pool_n[p]; ++j)
-          acc = fmaf(pool_w[p * M6_POOL + j],
-                     to_f<bf16>(xn[(size_t)pool_src[p * M6_POOL + j] * C + c]),
-                     acc);
-      pl[p * MB_LDX + c] = from_f<bf16>(acc);
+    // pooled = rnd(sel^T @ xn) over the sample's 64 rows (in dO | dq):
+    // warp w the 16-column tiles w, w + 8, all three 16-row tiles
+    for (int i = threadIdx.x; i < M6_N * (C / 8); i += blockDim.x) {
+      const int r = i / (C / 8), c = (i - r * (C / 8)) * 8;
+      cp_async_16(dO + r * MB_LDX + c, xn + (size_t)r * C + c);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int nt = warp; nt < C / 16; nt += NTHREADS / 32) {
+      float acc[3][2][4];
+#pragma unroll
+      for (int mt = 0; mt < 3; ++mt)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < M6_N / 16; ++ks) {
+        unsigned bf[4];
+        load_b_kn(bf, dO + 16 * ks * MB_LDX + 16 * nt, MB_LDX, lane);
+#pragma unroll
+        for (int mt = 0; mt < 3; ++mt) {
+          unsigned af[4];
+          load_a_t(af, selb + 16 * ks * M6_LDS + 16 * mt, M6_LDS, lane);
+          mma_bf16_16816(acc[mt][0], af, bf);
+          mma_bf16_16816(acc[mt][1], af, bf + 2);
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < 3; ++mt)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf)
+            store_bf16x2(pl + (16 * mt + g + 8 * hf) * MB_LDX + 16 * nt +
+                             8 * j + 2 * t,
+                         pack_bf16x2(acc[mt][j][2 * hf],
+                                     acc[mt][j][2 * hf + 1]));
     }
     __syncthreads();
+    QV_STAMP(msda_bwd, 1);
     save_rows(op + M6_OP_POOL, M6_OPPW, pl, MB_LDX, C, M6_KEEP);
-    for (int r0 = 0; r0 < M6_KEEP; r0 += PASS_ROWS)
-      for (int w = 0; w < 2; ++w)   // kv = pooled @ W_kv + b, k then v
-        gemm_pass<192, 3>(pl + r0 * MB_LDX, MB_LDX,
-                          m.w + MB_QKV + (1 + w) * C, 3 * C, C, ring,
-                          [&](int r, int c, float v0, float v1) {
-                            if (r0 + r >= M6_KEEP) return;
-                            const float* bb = f.qkv_b + (1 + w) * C;
-                            store_bf16x2(kv + (r0 + r) * MB_LDKV + w * C + c,
-                                         pack_bf16x2(dense_out(v0, bb[c]),
-                                                     dense_out(v1,
-                                                               bb[c + 1])));
-                          });
+    for (int w = 0; w < 2; ++w)   // kv = pooled @ W_kv + b, k then v
+      gemm_pass48<3>(pl, MB_LDX, m.w + MB_QKV + (1 + w) * C, 3 * C, C, ring,
+                     [&](int r, int c, float v0, float v1) {
+                       const float* bb = f.qkv_b + (1 + w) * C;
+                       store_bf16x2(kv + r * MB_LDKV + w * C + c,
+                                    pack_bf16x2(dense_out(v0, bb[c]),
+                                                dense_out(v1, bb[c + 1])));
+                     });
     __syncthreads();
     {  // kc | vc = rnd(E^T @ k | v): warp (k or v, 16-key tile, 96-column
        // half)
@@ -773,12 +856,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                        pack_bf16x2(acc[j][2 * hf], acc[j][2 * hf + 1]));
     }
     __syncthreads();
-    // this warp's key gradients, summed over both halves: warp (k or v,
-    // head h), its 32 compressed keys and the bank's 16 (key tile kt)
-    const int kw = warp >> 2, kh = (warp & 3) * ATT_D;
-    float kacc[3][3][2][4];
+    QV_STAMP(msda_bwd, 2);
 #pragma unroll
-    for (int kt = 0; kt < 3; ++kt)
+    for (int kt = 0; kt < 2; ++kt)
 #pragma unroll
       for (int c3 = 0; c3 < 3; ++c3)
 #pragma unroll
@@ -798,6 +878,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                                                              f.qkv_b[c + 1])));
                         });
       __syncthreads();
+      QV_STAMP(msda_bwd, 3);
       // the attention: warp (16-query tile s, head h)
       const int s = warp >> 2, h = warp & 3, hc = h * ATT_D;
       const AttnMask am{attn_drop(d, MSDA_ATTN),
@@ -810,9 +891,12 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 #pragma unroll
       for (int ks = 0; ks < 3; ++ks)
         load_a(qa[ks], q + 16 * s * MB_LDX + hc + 16 * ks, MB_LDX, lane);
-      warp_attention_train<3>(qa, kt, vt, MB_LDX, hc, kvn, am,
-                              att + 16 * s * MB_LDX, MB_LDX);
+      float sp[6][4];     // the probabilities, kept for the backward
+      attn_probs<3, true>(qa, kt, MB_LDX, hc, kvn, sp);
+      attn_pv_train<3, true>(sp, vt, MB_LDX, hc, am, att + 16 * s * MB_LDX,
+                             MB_LDX);
       __syncthreads();
+      QV_STAMP(msda_bwd, 4);
       // ---- proj ------------------------------------------------------
       save_rows(oh + M6_OP_ATT, M6_OPW, att, MB_LDX, C);
       save_rows(oh + M6_OP_DO, M6_OPW, dO, MB_LDX, C);
@@ -822,15 +906,12 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                                        pack_bf16x2(v0, v1));
                         });
       __syncthreads();
+      QV_STAMP(msda_bwd, 5);
       // ---- attention: dq, dS, P ----------------------------------------
-#pragma unroll
-      for (int ks = 0; ks < 3; ++ks)
-        load_a(qa[ks], q + 16 * s * MB_LDX + hc + 16 * ks, MB_LDX, lane);
-      warp_attention_bwd<3>(qa, kt, vt, MB_LDX, hc, kvn, am,
-                            att + 16 * s * MB_LDX, MB_LDX,
-                            dq + 16 * s * MB_LDX, MB_LDX,
-                            ds + 16 * s * MB_LDX + hc,
-                            pu + 16 * s * MB_LDX + hc, MB_LDX);
+      attn_bwd_p<3, true>(sp, kt, vt, MB_LDX, hc, am, att + 16 * s * MB_LDX,
+                          MB_LDX, dq + 16 * s * MB_LDX, MB_LDX,
+                          ds + 16 * s * MB_LDX + hc,
+                          pu + 16 * s * MB_LDX + hc, MB_LDX);
       __syncthreads();
 #pragma unroll
       for (int kt2 = 0; kt2 < 3; ++kt2) {
@@ -847,8 +928,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       save_rows(oh + M6_OP_XS, M6_OPW, xs, MB_LDX, C);
       save_rows(oh + M6_OP_DQ, M6_OPW, dq, MB_LDX, C);
       __syncthreads();
+      QV_STAMP(msda_bwd, 6);
     }
-    // ---- d(kc), d(vc) over kc | vc; the bank keys' into the slice -------
+    // ---- d(kc), d(vc) over kc | vc --------------------------------------
 #pragma unroll
     for (int kt2 = 0; kt2 < 2; ++kt2)
 #pragma unroll
@@ -861,24 +943,11 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                              16 * c3 + 8 * j + 2 * t,
                          pack_bf16x2(kacc[kt2][c3][j][2 * hf],
                                      kacc[kt2][c3][j][2 * hf + 1]));
-    {
-      float* gb = slice(kw ? gr.bank_v : gr.bank_k, a.c);
-#pragma unroll
-      for (int c3 = 0; c3 < 3; ++c3)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int key = g + 8 * (e >> 1);
-            if (key < S)
-              gb[key * C + kh + 16 * c3 + 8 * j + 2 * t + (e & 1)] +=
-                  kacc[2][c3][j][e];
-          }
-    }
     __syncthreads();
     // ---- the Linformer mix ----------------------------------------------
     // d(E)[p, m] = sum_c k[p, c] d(kc)[m, c]: unit (k or v, 16 pooled
-    // rows, 16 of the 32 m)
+    // rows, 16 of the 32 m), summed over the CTA's samples in esum (each
+    // element by the same thread every sample)
     for (int u = warp; u < 12; u += NTHREADS / 32) {
       const int w = u / 6, nt = (u % 6) >> 1, m0 = 16 * (u & 1);
       float acc[2][4] = {};
@@ -890,17 +959,19 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         mma_bf16_16816(acc[0], af, bf);
         mma_bf16_16816(acc[1], af, bf + 2);
       }
-      float* ge = slice(w ? gr.e_v : gr.e_k, a.c);
 #pragma unroll
       for (int j = 0; j < 2; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int n = 16 * nt + g + 8 * (e >> 1);
-          if (n < keep)
-            ge[n * MB_LK + m0 + 8 * j + 2 * t + (e & 1)] += acc[j][e];
+          float* p = esum + (w * M6_KEEP + 16 * nt + g + 8 * (e >> 1)) *
+                                MB_LK +
+                     m0 + 8 * j + 2 * t + (e & 1);
+          *p = has_e ? *p + acc[j][e] : acc[j][e];
         }
     }
+    has_e = true;
     __syncthreads();
+    QV_STAMP(msda_bwd, 7);
     // d(k | v)[p, c] = sum_m E[p, m] d(kc | vc)[m, c] into kv: unit (k or
     // v, 16 pooled rows, 96-column half); rows past keep are zero
     for (int u = warp; u < 12; u += NTHREADS / 32) {
@@ -932,15 +1003,13 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                        pack_bf16x2(acc[j][2 * hf], acc[j][2 * hf + 1]));
     }
     __syncthreads();
+    QV_STAMP(msda_bwd, 8);
     // ---- the qkv kernel: d(pooled), then d(xn) a half at a time ----------
     save_rows(op + M6_OP_DKV, M6_OPPW, kv, MB_LDKV, 2 * C, M6_KEEP);
-    for (int r0 = 0; r0 < M6_KEEP; r0 += PASS_ROWS)
-      gemm_pass<192, 3>(kv + r0 * MB_LDKV, MB_LDKV, m.w + MB_QKVT + C * C, C,
-                        2 * C, ring, [&](int r, int c, float v0, float v1) {
-                          if (r0 + r < M6_KEEP)
-                            store_bf16x2(pl + (r0 + r) * MB_LDX + c,
-                                         pack_bf16x2(v0, v1));
-                        });
+    gemm_pass48<3>(kv, MB_LDKV, m.w + MB_QKVT + C * C, C, 2 * C, ring,
+                   [&](int r, int c, float v0, float v1) {
+                     store_bf16x2(pl + r * MB_LDX + c, pack_bf16x2(v0, v1));
+                   });
     __syncthreads();
     for (int hq = 0; hq < 2; ++hq) {
       const bf16* dqs = oq + PASS_ROWS * hq * M6_OPW + M6_OP_DQ;
@@ -948,34 +1017,82 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         const int r = i / (C / 8), c = (i - r * (C / 8)) * 8;
         cp_async_16(dq + r * MB_LDX + c, dqs + (size_t)r * M6_OPW + c);
       }
-      cp_async_commit();       // gemm_pass's first wait completes it
-      gemm_pass<192, 3>(dq, MB_LDX, m.w + MB_QKVT, C, C, ring,
-                        [&](int r, int c, float v0, float v1) {
-                          const int n = PASS_ROWS * hq + r;
-                          for (int p = 0; p < keep; ++p) {
-                            const float w = to_f<bf16>(selb[n * M6_LDS + p]);
-                            const bf16* dp = pl + p * MB_LDX + c;
-                            v0 = fmaf(w, to_f<bf16>(dp[0]), v0);
-                            v1 = fmaf(w, to_f<bf16>(dp[1]), v1);
-                          }
-                          store_bf16x2(static_cast<bf16*>(a.d_xn) +
-                                           ((size_t)b * M6_N + n) * C + c,
-                                       pack_bf16x2(v0, v1));
-                        });
+      cp_async_commit();       // gemm_pass_k2's first wait completes it
+      // d(xn) = dq @ W_q^T + sel_t d(pooled), rounded once
+      gemm_pass_k2<3>(dq, MB_LDX, m.w + MB_QKVT, C, C, ring,
+                      selb + PASS_ROWS * hq * M6_LDS, M6_LDS, pl, MB_LDX,
+                      M6_KEEP, [&](int r, int c, float v0, float v1) {
+                        store_bf16x2(static_cast<bf16*>(a.d_xn) +
+                                         ((size_t)b * M6_N +
+                                          PASS_ROWS * hq + r) * C + c,
+                                     pack_bf16x2(v0, v1));
+                      });
       __syncthreads();
     }
+    QV_STAMP(msda_bwd, 9);
   }
-  // the weight gradients over every row of the block, each stored once
-  // into the slice (the guarded branch's qkv ones stay zero)
-  bf16* stage_smem = reinterpret_cast<bf16*>(qv_smem);
-  wgrad_block(opq + M6_OP_ATT, opq + M6_OP_DO, M6_OPW, M6_N * nb, C, C,
-              slice(gr.proj_w, a.c), C, slice(gr.proj_b, a.c), stage_smem,
-              M6_BF16);
-  if (zero_attn) return;
-  wgrad_block(opp + M6_OP_POOL, opp + M6_OP_DKV, M6_OPPW, M6_KEEP * nb, C,
-              2 * C, gqkv_w + C, 3 * C, gqkv_b + C, stage_smem, M6_BF16);
-  wgrad_block(opq + M6_OP_XS, opq + M6_OP_DQ, M6_OPW, M6_N * nb, C, C,
-              gqkv_w, 3 * C, gqkv_b, stage_smem, M6_BF16);
+  // ---- the cluster's tail: this CTA's bank keys' gradients and d(E) to
+  // shared memory for the pair's sums ------------------------------------
+  float* own = reinterpret_cast<float*>(ds);   // [2][16][C], [2][48][32]
+#pragma unroll
+  for (int c3 = 0; c3 < 3; ++c3)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        own[(kw * MB_S + g + 8 * (e >> 1)) * C + kh + 16 * c3 + 8 * j +
+            2 * t + (e & 1)] = kacc[2][c3][j][e];
+  for (int i = threadIdx.x; i < M6_ESUM; i += NTHREADS)
+    own[M6_OWN_E + i] = has_e ? esum[i] : 0.f;
+  __threadfence();         // the operand rows, for the partner's reads
+  cluster_sync();          // both CTAs' operand rows and sums are written
+  QV_STAMP(msda_bwd, 12);
+  // the pair's sums in rank order, half the elements each, stored into
+  // the slice (the bank keys' past S and d(E)'s past msda_keep are not
+  // stored from them); E's rows from msda_keep to its msda_pad are zero
+  pair_sums(own, M6_OWN_E + M6_ESUM, [&](int i, float v) {
+    if (i >= M6_OWN_E) {
+      const int e = i - M6_OWN_E, w = e / (M6_KEEP * MB_LK);
+      const int r = e - w * M6_KEEP * MB_LK;
+      if (r < keep * MB_LK) sl(w ? gr.e_v : gr.e_k)[r] = v;
+      return;
+    }
+    const int w = i / (MB_S * C), e = i - w * MB_S * C;
+    if (e < S * C) sl(w ? gr.bank_v : gr.bank_k)[e] = v;
+  });
+  const int tail = (d.msda_pad - keep) * MB_LK;
+  for (int i = threadIdx.x + rank * NTHREADS; i < 2 * tail;
+       i += 2 * NTHREADS)
+    sl(i < tail ? gr.e_k : gr.e_v)[keep * MB_LK + i % tail] = 0.f;
+  cluster_arrive();        // this CTA has read the partner's sums
+  QV_STAMP(msda_bwd, 11);
+  // the weight gradients, half the columns each (rank h: proj's 96 h..,
+  // the kv kernel's 192 h.., the q kernel's 96 h..) over the cluster's
+  // rows, each stored once (zeros for the guarded branch's qkv); the
+  // staging stays below `own`
+  bf16* wst = reinterpret_cast<bf16*>(qv_smem);
+  static_assert(WG_SMEM <= M6_BF16 - 2 * M6_X - MB_RING, "staging below ds");
+  const int hp = 96 * rank, hk = 192 * rank;
+  float* gqkv_w = sl(gr.qkv_w);
+  float* gqkv_b = sl(gr.qkv_b);
+  wgrad_stream(opq + M6_OP_ATT, opq + M6_OP_DO + hp, M6_OPW, M6_N * nb, 96,
+               sl(gr.proj_w) + hp, C, sl(gr.proj_b) + hp, wst);
+  if (zero_attn) {
+    for (int i = threadIdx.x; i < C * 288; i += NTHREADS) {
+      const int r = i / 288, c = i - r * 288;
+      gqkv_w[r * 3 * C + (c < 96 ? hp + c : C + hk + c - 96)] = 0.f;
+    }
+    for (int i = threadIdx.x; i < 288; i += NTHREADS)
+      gqkv_b[i < 96 ? hp + i : C + hk + i - 96] = 0.f;
+  } else {
+    wgrad_stream(opp + M6_OP_POOL, opp + M6_OP_DKV + hk, M6_OPPW,
+                 M6_KEEP * nb, 192, gqkv_w + C + hk, 3 * C,
+                 gqkv_b + C + hk, wst);
+    wgrad_stream(opq + M6_OP_XS, opq + M6_OP_DQ + hp, M6_OPW, M6_N * nb, 96,
+                 gqkv_w + hp, 3 * C, gqkv_b + hp, wst);
+  }
+  QV_STAMP(msda_bwd, 10);
+  cluster_wait();          // the partner has read this CTA's sums
 }
 
 }  // namespace qv
@@ -1007,21 +1124,26 @@ extern "C" int qv_unit_msda_bwd_mma_scratch(const qv::Dims* d) {
 }
 
 // bf16 at hqavit_tiny_in's widths, n = 64 (msda_bwd_mma64_kernel): `a` as
-// for qv_unit_msda_bwd with a per-block scratch of
-// msda_bwd_mma64_scratch_floats(d), the bf16 weights beside it; the
-// workspace `gws` zeroed.  ERR_ARGS for any other geometry or type (the
-// wrapper checks them first, msda_bwd_mma_error).
+// for qv_unit_msda_bwd on d.grid clusters of two CTAs (at most one a
+// sample), one gradient slice each in `gws` (which may hold anything: the
+// kernel stores every field), a scratch of
+// msda_bwd_mma64_scratch_floats(d) a cluster, the bf16 weights beside it,
+// d.msda_pad the rows of E.  ERR_ARGS for any other geometry or type (the
+// wrapper checks them first, msda_bwd_mma_error); a cluster launch the
+// card refuses returns its CUDA error.
 extern "C" int qv_unit_msda_bwd_mma64(const qv::MsdaBwdArgs* a,
                                       const void* w, int is_bf16,
                                       void* stream) {
   const qv::Dims& d = a->f.d;
   if (!is_bf16 || !d.train || d.n != qv::M6_N || d.nw != 4 ||
       d.c != qv::MB_C || d.heads != qv::MB_H || d.lin_k != qv::MB_LK ||
-      d.bank_s > qv::MB_S || d.msda_keep > qv::M6_KEEP || d.grid > d.B)
+      d.bank_s > qv::MB_S || d.msda_keep > qv::M6_KEEP ||
+      d.msda_pad < d.msda_keep || d.grid > d.B ||
+      a->c.wstride % 2 != 0)   // (wgrad_stream stores column pairs)
     return qv::ERR_ARGS;
   const qv::MsdaBwdMmaArgs m{*a, static_cast<const qv::bf16*>(w)};
-  const int rc = qv_launch(qv::msda_bwd_mma64_kernel, m, qv::M6_SMEM_BYTES,
-                           stream, d.grid);
+  const int rc = qv_launch_cluster(qv::msda_bwd_mma64_kernel, m,
+                                   qv::M6_SMEM_BYTES, stream, d.grid, 2);
   if (rc != 0) return rc;
   return qv_reduce(a->c.gws, a->c.grad, d.grid, a->c.wstride, d.rgrid, stream);
 }
@@ -1032,4 +1154,11 @@ extern "C" int qv_unit_msda_bwd_mma64_smem(const qv::Dims*) {
 
 extern "C" int qv_unit_msda_bwd_mma64_scratch(const qv::Dims* d) {
   return qv::msda_bwd_mma64_scratch_floats(*d);
+}
+
+// CTAs of msda_bwd_mma64_kernel resident per SM and its two-CTA clusters
+// resident at once on the card (0 on the host)
+extern "C" int qv_unit_msda_bwd_mma64_occupancy(int* per_sm, int* clusters) {
+  return qv_cluster_occupancy(qv::msda_bwd_mma64_kernel, qv::M6_SMEM_BYTES, 2,
+                              per_sm, clusters);
 }

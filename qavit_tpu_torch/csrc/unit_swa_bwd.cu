@@ -49,11 +49,29 @@
 // bf16 at hqavit_tiny_in's widths, n = 64 in four 4x4 windows on an 8x8
 // grid, swa_bwd_mma_kernel<4>: the windows are independent but for
 // norm1's and the weights' sums, and the bank partials lie outside
-// autograd, so the same kernel walks the B x 4 windows as the n = 16 one
+// autograd, so the same body walks the B x 4 windows as the n = 16 one
 // walks samples, a window's rows gathered from the grid and its d(x)
-// scattered back (the masks are the [B nw, 16, ...] layouts' own).  Bound
-// at B=128 on the H100: 13.8 MB against 8.8 GFLOP (~8.9 us): the
+// scattered back (the masks are the [B nw, 16, ...] layouts' own), on
+// thread-block clusters of two CTAs, as many as the SMs hold (the grid
+// counts windows: 66 clusters on 132 SMs at B=128).  Its block 0 spent
+// 0.063 of 0.200 ms at B=128, and 1.23 of 2.23 ms at B=1024, forming the
+// weight gradients (wgrad_block: a store and a read-back of the slice per
+// chunk of rows, one dependent chain a warp), so the pair shares the
+// tail: each CTA forms half the columns of each weight gradient over both
+// CTAs' rows with the sums in registers (wgrad_stream), the other sums
+// meet through distributed shared memory, and one slice a cluster is
+// stored (half the bytes written and reduced).  The dropout scales and the
+// softmax's row sums are products with reciprocals (within an ulp of the
+// quotients: the IEEE divisions were a large part of the attention
+// phases), each warp keeps its probabilities in registers from the
+// attention to its backward (no second softmax), and the cotangent of xn
+// is staged in shared memory.  Left as they were: the passes' products,
+// bound inside the SM (neither prefetching each product's first slices,
+// nor five 32-row slices in the ring, nor two of 64 rows moved them;
+// PERF.md).
+// Bound at B=128 on the H100: 13.8 MB against 8.8 GFLOP (~8.9 us): the
 // operations bound it.  Time: PERF.md section 6 row 5 @n64.
+#include "cluster.cuh"
 #include "mma_ops.cuh"
 #include "unit_swa.cuh"
 
@@ -165,6 +183,12 @@ extern "C" int qv_unit_swa_bwd_smem(const qv::Dims* d) {
 
 // --- bf16 at hqavit_c100's widths: the tensor-core kernel --------------------
 
+QV_STAMPS_DEFINE(swa_bwd,
+                 "prologue,stage,recompute,attention forward,proj,"
+                 "attention backward and key gradients,Linformer backward,"
+                 "d(xn) and norm1 backward,weight gradients,slice stores,"
+                 "cluster barriers")
+
 namespace qv {
 
 struct SwaBwdMmaArgs {
@@ -197,34 +221,51 @@ constexpr int SB_BF16 = 2 * SB_S * SB_LDX      // bank k, v
 // norm1's scale and bias gradients, then ln_bwd_rows' statistics
 constexpr int SB_SMEM_BYTES = 2 * SB_BF16 + (2 * SB_C + 4 * PASS_ROWS) * 4;
 
-// per block: the operand rows (bf16) of its windows in passes of two
+// n = 64, the pair's sums in shared memory (floats, in pu's and the
+// ring's place): the bank keys' gradients [2][SB_S][C], then d(E)
+// [2][NT][SB_LK] from SB_OWN_E
+constexpr int SB_OWN_E = 2 * SB_S * SB_C;
+static_assert((SB_OWN_E + 2 * NT * SB_LK) * 4 <= (SB_X + SB_RING) * 2,
+              "the pair's sums in pu and the ring");
+
+// per block (n = 16) or cluster (n = 64): the operand rows (bf16) of its
+// windows in passes of two
 __host__ __device__ inline int swa_bwd_mma_scratch_floats(const Dims& d) {
   const int nb = (d.B * d.nw + d.grid - 1) / d.grid;
   return PASS_ROWS * ((nb + 1) / 2) * SB_OPW / 2;
 }
 
-// One block per SM walks its windows u = b nw + w = blockIdx.x,
+// n = 16 (NW = 1): one block per SM walks its windows u = blockIdx.x,
 // blockIdx.x + grid, ... in passes of two (an odd last pass runs a window
-// of zeros with a zero cotangent, which adds nothing).  NW windows a
-// sample: 1 at n = 16 (a window is a sample), 4 at n = 64, where the
-// windows are independent but for norm1's and the weights' sums: a
-// window's 16 rows are gathered from the 8x8 grid and its cotangent
-// scattered back (fused_ref.window_partition), and its masks are those
-// of window u in the [B nw, 16, ...] layouts, as at n = 16 of sample u.
-// The [32, C] buffers of a pass:
+// of zeros with a zero cotangent, which adds nothing), its sums in its own
+// slice.  n = 64 (NW = 4, PAIR): the B x 4 windows are independent but for
+// norm1's and the weights' sums, so a thread-block cluster of two CTAs
+// walks the windows u = c, c + clusters, ... (c = blockIdx.x / 2) in
+// passes of two, pass p by CTA rank p % 2: a window's 16 rows gathered
+// from the 8x8 grid and its cotangent scattered back
+// (fused_ref.window_partition), its masks those of window u in the [B nw,
+// 16, ...] layouts, as at n = 16 of sample u.  Both CTAs save their passes'
+// operand rows to the cluster's scratch (pass p at row 32 p); after a
+// cluster barrier each forms half the columns of each weight gradient over
+// all of them (wgrad_stream), and the pair adds its other sums (the bank
+// keys', d(E), norm1's) through distributed shared memory in rank order,
+// half the elements each: one gradient slice a cluster, every field
+// stored once.  The [32, C] buffers of a pass:
 //   xs    x
 //   kc    [sample][k, v] the compressed keys [32, C]; then d(kc), d(vc)
 //   att   the attention rows; then d(att)
 //   dO    d(out) through the proj dropout
 //   dq    xn; then d(q); then d(xn)
-//   ds    dS
+//   ds    dS; then (n = 64) the cotangent of xn
 //   pu    the probabilities PV used
 // and qkv [32, 3C]: q | k | v, then d(q) | d(k) | d(v).  The operand rows
-// of the weight gradients go to the block's scratch (SB_OP_*).
+// of the weight gradients go to the scratch (SB_OP_*).
 template <int NW>
 __global__ void __launch_bounds__(NTHREADS, 1)
     swa_bwd_mma_kernel(SwaBwdMmaArgs m) {
+  constexpr bool PAIR = NW != 1;           // a two-CTA cluster
   QV_SMEM_DECL
+  QV_STAMP(swa_bwd, -1);
   const SwaBwdArgs& a = m.a;
   const SwaArgs& f = a.f;
   const Dims& d = f.d;
@@ -250,8 +291,16 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   const bf16 zero = from_f<bf16>(0.f);
   const bool zero_attn = d.guard && a.c.flag[1] != 0;
   auto kcv = [&](int s, int w) { return kc + (2 * s + w) * SB_X; };
+  // the CTA's rank in its cluster; the slice's (and scratch's) index and
+  // their count: the block's, or the cluster's
+  int rank = 0;
+  if constexpr (PAIR) rank = (int)cluster_rank();
+  const int unit = PAIR ? (int)blockIdx.x / 2 : (int)blockIdx.x;
+  const int units = PAIR ? (int)gridDim.x / 2 : (int)gridDim.x;
+  auto sl = [&](float* p) { return p + (size_t)unit * a.c.wstride; };
+  const float inv_keep = 1.f / d.keep;
   bf16* ops = reinterpret_cast<bf16*>(
-      a.c.scratch + (size_t)blockIdx.x * swa_bwd_mma_scratch_floats(d));
+      a.c.scratch + (size_t)unit * swa_bwd_mma_scratch_floats(d));
 
   // per block: the bank rows rounded (rows past S zero), E^T and E
   // rounded, norm1's gradient sums zeroed
@@ -273,6 +322,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   // 16 of the 32 compressed rows)
   float gbank[3][2][4] = {};
   float ge[2][4] = {};
+  QV_STAMP(swa_bwd, 0);
 
   // the token (row of the [B n, C] activations) of row i of window u
   auto row_of = [&](int u, int i) {
@@ -292,13 +342,14 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         *reinterpret_cast<uint4*>(to) = uint4{0u, 0u, 0u, 0u};
     }
   };
-  const int units = d.B * NW;            // windows
-  const int nb = (units - (int)blockIdx.x + (int)gridDim.x - 1) / gridDim.x;
-  for (int k0 = 0; k0 < nb; k0 += 2) {
-    const int ns = nb - k0 < 2 ? nb - k0 : 2;
-    const int bs[2] = {(int)blockIdx.x + k0 * (int)gridDim.x,
-                       (int)blockIdx.x + (k0 + 1) * (int)gridDim.x};
-    bf16* op = ops + (size_t)(k0 / 2) * PASS_ROWS * SB_OPW;  // pass's rows
+  // the unit's windows unit + k units (k < nu), pass p their k = 2p, 2p + 1
+  const int nu = (d.B * NW - unit + units - 1) / units;
+  const int np = (nu + 1) / 2;
+  for (int p = rank; p < np; p += PAIR ? 2 : 1) {
+    const int k0 = 2 * p;
+    const int ns = nu - k0 < 2 ? nu - k0 : 2;
+    const int bs[2] = {unit + k0 * units, unit + (k0 + 1) * units};
+    bf16* op = ops + (size_t)p * PASS_ROWS * SB_OPW;  // the pass's rows
     // the flat index of the pass's row r in the window-major [B nw, 16]
     // layout (the windows by a select: an index into bs would go to
     // memory), and its token
@@ -315,6 +366,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
             *reinterpret_cast<const uint4*>(dq + r * SB_LDX + c);
       }
       __syncthreads();
+      QV_STAMP(swa_bwd, 7);
     };
     stage(xs, f.x, bs, ns);
     stage(dO, a.d_out, bs, ns);
@@ -322,13 +374,16 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
-    // d(out) through the proj dropout
+    QV_STAMP(swa_bwd, 1);
+    // d(out) through the proj dropout (n = 64: the product with 1 / keep)
     if (d.train && d.drop_on)
       for (int i = threadIdx.x; i < PASS_ROWS * C; i += blockDim.x) {
         const int r = i / C, c = i - r * C;
         bf16* p = dO + r * SB_LDX + c;
-        *p = from_f<bf16>(drop(d, SWA_PROJ, (unsigned)(tok(r) * C + c),
-                               to_f<bf16>(*p)));
+        const unsigned idx = (unsigned)(tok(r) * C + c);
+        const float v = to_f<bf16>(*p);
+        *p = from_f<bf16>(PAIR ? drop_r(d, SWA_PROJ, idx, v, inv_keep)
+                               : drop(d, SWA_PROJ, idx, v));
       }
     if (zero_attn) {
       // a guarded branch: no gradient passes through its attention, so
@@ -366,12 +421,13 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       unsigned af[4];
       load_a(af, et + (w * SB_LK + mt * 16) * SB_LDE, SB_LDE, lane);
 #pragma unroll
-      for (int np = 0; np < 6; ++np) {
+      for (int np6 = 0; np6 < 6; ++np6) {
         unsigned bf[4];
-        load_b_kn(bf, qkv + 16 * s * SB_LDQ + (1 + w) * C + ch * 96 + 16 * np,
+        load_b_kn(bf, qkv + 16 * s * SB_LDQ + (1 + w) * C + ch * 96 +
+                          16 * np6,
                   SB_LDQ, lane);
-        mma_bf16_16816(acc[2 * np], af, bf);
-        mma_bf16_16816(acc[2 * np + 1], af, bf + 2);
+        mma_bf16_16816(acc[2 * np6], af, bf);
+        mma_bf16_16816(acc[2 * np6 + 1], af, bf + 2);
       }
 #pragma unroll
       for (int j = 0; j < 12; ++j)
@@ -382,6 +438,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                        pack_bf16x2(acc[j][2 * hf], acc[j][2 * hf + 1]));
     }
     __syncthreads();
+    QV_STAMP(swa_bwd, 2);
     // the attention: warp (sample s, head h), 32 compressed + S bank keys
     const int s = warp >> 2, h = warp & 3, hc = h * ATT_D;
     const AttnMask am{attn_drop(d, SWA_ATTN),
@@ -392,9 +449,17 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     unsigned qa[3][4];
 #pragma unroll
     for (int ks = 0; ks < 3; ++ks) load_a(qa[ks], qs + 16 * ks, SB_LDQ, lane);
-    warp_attention_train<3>(qa, kt, vt, SB_LDX, hc, kvn, am,
-                            att + 16 * s * SB_LDX, SB_LDX);
+    float sp[6][4];   // n = 64: the probabilities, kept for the backward
+    if constexpr (PAIR) {
+      attn_probs<3, true>(qa, kt, SB_LDX, hc, kvn, sp);
+      attn_pv_train<3, true>(sp, vt, SB_LDX, hc, am, att + 16 * s * SB_LDX,
+                             SB_LDX);
+    } else {
+      warp_attention_train<3>(qa, kt, vt, SB_LDX, hc, kvn, am,
+                              att + 16 * s * SB_LDX, SB_LDX);
+    }
     __syncthreads();
+    QV_STAMP(swa_bwd, 3);
     // ---- proj --------------------------------------------------------
     save_rows(op + SB_OP_ATT, SB_OPW, att, SB_LDX, C);
     save_rows(op + SB_OP_DO, SB_OPW, dO, SB_LDX, C);
@@ -404,14 +469,23 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                                      pack_bf16x2(v0, v1));
                       });
     __syncthreads();
+    QV_STAMP(swa_bwd, 4);
     // ---- attention: dq, dS, P; this warp's d(kc), d(vc) in place -------
+    if constexpr (PAIR) {
+      attn_bwd_p<3, true>(sp, kt, vt, SB_LDX, hc, am, att + 16 * s * SB_LDX,
+                          SB_LDX, dq + 16 * s * SB_LDX, SB_LDX,
+                          ds + 16 * s * SB_LDX + hc,
+                          pu + 16 * s * SB_LDX + hc, SB_LDX);
+    } else {
 #pragma unroll
-    for (int ks = 0; ks < 3; ++ks) load_a(qa[ks], qs + 16 * ks, SB_LDQ, lane);
-    warp_attention_bwd<3>(qa, kt, vt, SB_LDX, hc, kvn, am,
-                          att + 16 * s * SB_LDX, SB_LDX,
-                          dq + 16 * s * SB_LDX, SB_LDX,
-                          ds + 16 * s * SB_LDX + hc, pu + 16 * s * SB_LDX + hc,
-                          SB_LDX);
+      for (int ks = 0; ks < 3; ++ks)
+        load_a(qa[ks], qs + 16 * ks, SB_LDQ, lane);
+      warp_attention_bwd<3>(qa, kt, vt, SB_LDX, hc, kvn, am,
+                            att + 16 * s * SB_LDX, SB_LDX,
+                            dq + 16 * s * SB_LDX, SB_LDX,
+                            ds + 16 * s * SB_LDX + hc,
+                            pu + 16 * s * SB_LDX + hc, SB_LDX);
+    }
     __syncwarp();
     for (int w = 0; w < 2; ++w)
 #pragma unroll
@@ -435,6 +509,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                                        acc[c3][j][2 * hf + 1]));
       }
     __syncthreads();
+    QV_STAMP(swa_bwd, 5);
     {  // the bank keys: warp (k or v, head), summed over the pass's rows
       const int w = warp >> 2, hb = (warp & 3) * ATT_D;
       float acc[3][2][4];
@@ -465,6 +540,12 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         }
     }
     __syncthreads();
+    // n = 64: the cotangent of xn into ds (free now), for d(xn)'s epilogue
+    // (gemm_pass's first wait completes it)
+    if constexpr (PAIR) {
+      stage(ds, a.d_xn, bs, ns);
+      cp_async_commit();
+    }
     // d(q) beside d(k), d(v) (q is read no more)
     for (int i = threadIdx.x; i < PASS_ROWS * (C / 8); i += blockDim.x) {
       const int r = i / (C / 8), c = (i - r * (C / 8)) * 8;
@@ -483,12 +564,12 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         unsigned af[4];
         load_a(af, en + w * NT * SB_LDEN + 16 * ks, SB_LDEN, lane);
 #pragma unroll
-        for (int np = 0; np < 6; ++np) {
+        for (int np6 = 0; np6 < 6; ++np6) {
           unsigned bf[4];
-          load_b_kn(bf, kcv(s2, w) + 16 * ks * SB_LDX + ch * 96 + 16 * np,
+          load_b_kn(bf, kcv(s2, w) + 16 * ks * SB_LDX + ch * 96 + 16 * np6,
                     SB_LDX, lane);
-          mma_bf16_16816(acc[2 * np], af, bf);
-          mma_bf16_16816(acc[2 * np + 1], af, bf + 2);
+          mma_bf16_16816(acc[2 * np6], af, bf);
+          mma_bf16_16816(acc[2 * np6 + 1], af, bf + 2);
         }
       }
 #pragma unroll
@@ -500,14 +581,20 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                        pack_bf16x2(acc[j][2 * hf], acc[j][2 * hf + 1]));
     }
     __syncthreads();
+    QV_STAMP(swa_bwd, 6);
     // ---- the qkv kernel and norm1: d(xn) = d(qkv) @ W^T + d_xn ----------
     save_rows(op + SB_OP_DQKV, SB_OPW, qkv, SB_LDQ, 3 * C);
     gemm_pass<192, 3>(qkv, SB_LDQ, m.w + SB_QKVT, C, 3 * C, ring,
                       [&](int r, int c, float v0, float v1) {
                         if ((r >> 4) < ns) {
-                          const unsigned u = *reinterpret_cast<const unsigned*>(
-                              static_cast<const bf16*>(a.d_xn) +
-                              (size_t)row(r) * C + c);
+                          unsigned u;
+                          if constexpr (PAIR)
+                            u = *reinterpret_cast<const unsigned*>(
+                                ds + r * SB_LDX + c);
+                          else
+                            u = *reinterpret_cast<const unsigned*>(
+                                static_cast<const bf16*>(a.d_xn) +
+                                (size_t)row(r) * C + c);
                           v0 += bf16x2_lo(u);
                           v1 += bf16x2_hi(u);
                         }
@@ -517,32 +604,96 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     __syncthreads();
     norm1_bwd();
   }
+  if constexpr (PAIR) {
+    // ---- the cluster's tail: this CTA's bank keys' gradients and d(E)
+    // to shared memory (norm1's are in gln) for the pair's sums --------
+    float* own = reinterpret_cast<float*>(pu);   // [2][16][C], [2][16][32]
+    {
+      const int w = warp >> 2, hb = (warp & 3) * ATT_D;
+#pragma unroll
+      for (int c3 = 0; c3 < 3; ++c3)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            own[(w * SB_S + g + 8 * (e >> 1)) * C + hb + 16 * c3 + 8 * j +
+                2 * t + (e & 1)] = gbank[c3][j][e];
+    }
+    if (warp < 4) {
+      const int w = warp >> 1, m0 = 16 * (warp & 1);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          own[SB_OWN_E + (w * NT + g + 8 * (e >> 1)) * SB_LK + m0 + 8 * j +
+              2 * t + (e & 1)] = ge[j][e];
+    }
+    __threadfence();       // the operand rows, for the partner's reads
+    cluster_sync();        // both CTAs' operand rows and sums are written
+    QV_STAMP(swa_bwd, 10);
+    // the pair's sums in rank order, half the elements each, stored into
+    // the slice (the bank keys' past S are not fields)
+    pair_sums(own, SB_OWN_E + 2 * NT * SB_LK, [&](int i, float v) {
+      if (i >= SB_OWN_E) {
+        const int e = i - SB_OWN_E, w = e / (NT * SB_LK);
+        sl(w ? gr.e_v : gr.e_k)[e - w * NT * SB_LK] = v;
+        return;
+      }
+      const int w = i / (SB_S * C), e = i - w * SB_S * C;
+      if (e < S * C) sl(w ? gr.bank_v : gr.bank_k)[e] = v;
+    });
+    pair_sums(gln, 2 * C, [&](int i, float v) {
+      sl(i < C ? gr.norm1_s : gr.norm1_b)[i % C] = v;
+    });
+    cluster_arrive();      // this CTA has read the partner's sums
+    QV_STAMP(swa_bwd, 9);
+    // the weight gradients, half the columns each (rank h: proj's 96 h..,
+    // qkv's 288 h..) over both CTAs' rows, each stored once (zeros for
+    // the guarded branch's qkv); the staging stays below `own`
+    bf16* wst = reinterpret_cast<bf16*>(qv_smem);
+    static_assert(WG_SMEM <= SB_BF16 - SB_X - SB_RING, "staging below pu");
+    const int rows = PASS_ROWS * np, hp = 96 * rank, hq = 288 * rank;
+    wgrad_stream(ops + SB_OP_ATT, ops + SB_OP_DO + hp, SB_OPW, rows, 96,
+                 sl(gr.proj_w) + hp, C, sl(gr.proj_b) + hp, wst);
+    if (zero_attn) {
+      for (int i = threadIdx.x; i < C * 288; i += NTHREADS)
+        sl(gr.qkv_w)[(i / 288) * 3 * C + hq + i % 288] = 0.f;
+      for (int i = threadIdx.x; i < 288; i += NTHREADS)
+        sl(gr.qkv_b)[hq + i] = 0.f;
+    } else {
+      wgrad_stream(ops + SB_OP_XN, ops + SB_OP_DQKV + hq, SB_OPW, rows, 288,
+                   sl(gr.qkv_w) + hq, 3 * C, sl(gr.qkv_b) + hq, wst);
+    }
+    QV_STAMP(swa_bwd, 8);
+    cluster_wait();        // the partner has read this CTA's sums
+    return;
+  }
   // the weight gradients over every row of the block, each stored once
   // into the slice (zeros for the guarded branch's qkv)
   auto wgrad = [&](int ao, int K, int bo, int N, float* w, float* bias,
                    int ldg) {
-    wgrad_block(ops + ao, ops + bo, SB_OPW, PASS_ROWS * ((nb + 1) / 2), K, N,
-                w, ldg, bias, reinterpret_cast<bf16*>(qv_smem), SB_BF16);
+    wgrad_block(ops + ao, ops + bo, SB_OPW, PASS_ROWS * np, K, N, w, ldg,
+                bias, reinterpret_cast<bf16*>(qv_smem), SB_BF16);
   };
-  wgrad(SB_OP_ATT, C, SB_OP_DO, C, slice(gr.proj_w, a.c),
-        slice(gr.proj_b, a.c), C);
+  wgrad(SB_OP_ATT, C, SB_OP_DO, C, sl(gr.proj_w), sl(gr.proj_b), C);
   if (zero_attn) {
-    float* gw = slice(gr.qkv_w, a.c);
-    float* gb = slice(gr.qkv_b, a.c);
+    float* gw = sl(gr.qkv_w);
+    float* gb = sl(gr.qkv_b);
     for (int i = threadIdx.x; i < C * 3 * C; i += blockDim.x) gw[i] = 0.f;
     for (int i = threadIdx.x; i < 3 * C; i += blockDim.x) gb[i] = 0.f;
   } else {
-    wgrad(SB_OP_XN, C, SB_OP_DQKV, 3 * C, slice(gr.qkv_w, a.c),
-          slice(gr.qkv_b, a.c), 3 * C);
+    wgrad(SB_OP_XN, C, SB_OP_DQKV, 3 * C, sl(gr.qkv_w), sl(gr.qkv_b),
+          3 * C);
   }
+  QV_STAMP(swa_bwd, 8);
   // the sums kept over the passes: norm1's, d(E), the bank rows'
   for (int i = threadIdx.x; i < C; i += blockDim.x) {
-    slice(gr.norm1_s, a.c)[i] = gln[i];
-    slice(gr.norm1_b, a.c)[i] = gln[C + i];
+    sl(gr.norm1_s)[i] = gln[i];
+    sl(gr.norm1_b)[i] = gln[C + i];
   }
   if (warp < 4) {
     const int w = warp >> 1, m0 = 16 * (warp & 1);
-    float* gE = slice(w ? gr.e_v : gr.e_k, a.c);
+    float* gE = sl(w ? gr.e_v : gr.e_k);
 #pragma unroll
     for (int j = 0; j < 2; ++j)
 #pragma unroll
@@ -552,7 +703,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   }
   {
     const int w = warp >> 2, hb = (warp & 3) * ATT_D;
-    float* gb = slice(w ? gr.bank_v : gr.bank_k, a.c);
+    float* gb = sl(w ? gr.bank_v : gr.bank_k);
 #pragma unroll
     for (int c3 = 0; c3 < 3; ++c3)
 #pragma unroll
@@ -565,6 +716,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                 gbank[c3][j][e];
         }
   }
+  QV_STAMP(swa_bwd, 9);
 }
 
 }  // namespace qv
@@ -589,18 +741,22 @@ extern "C" int qv_unit_swa_bwd_mma(const qv::SwaBwdArgs* a, const void* w,
 }
 
 // bf16 at hqavit_tiny_in's widths, n = 64 in four 4x4 windows on an 8x8
-// grid (swa_bwd_mma_kernel<4>): as qv_unit_swa_bwd_mma, whose workspace
-// rules it keeps.
+// grid (swa_bwd_mma_kernel<4>): d.grid clusters of two CTAs (at most one
+// a window), one gradient slice each in `gws` (which may hold anything:
+// the kernel stores every field), a scratch of
+// swa_bwd_mma_scratch_floats(d) a cluster.  A cluster launch the card
+// refuses returns its CUDA error.
 extern "C" int qv_unit_swa_bwd_mma64(const qv::SwaBwdArgs* a, const void* w,
                                      int is_bf16, void* stream) {
   const qv::Dims& d = a->f.d;
   if (!is_bf16 || !d.train || d.n != 4 * qv::NT || d.nw != 4 ||
       d.side != 8 || d.c != qv::SB_C || d.heads != qv::SB_H ||
-      d.lin_k != qv::SB_LK || d.bank_s > qv::SB_S || d.grid > 4 * d.B)
+      d.lin_k != qv::SB_LK || d.bank_s > qv::SB_S || d.grid > 4 * d.B ||
+      a->c.wstride % 2 != 0)   // (wgrad_stream stores column pairs)
     return qv::ERR_ARGS;
   const qv::SwaBwdMmaArgs m{*a, static_cast<const qv::bf16*>(w)};
-  const int rc = qv_launch(qv::swa_bwd_mma_kernel<4>, m, qv::SB_SMEM_BYTES,
-                           stream, d.grid);
+  const int rc = qv_launch_cluster(qv::swa_bwd_mma_kernel<4>, m,
+                                   qv::SB_SMEM_BYTES, stream, d.grid, 2);
   if (rc != 0) return rc;
   return qv_reduce(a->c.gws, a->c.grad, d.grid, a->c.wstride, d.rgrid, stream);
 }
@@ -619,4 +775,11 @@ extern "C" int qv_unit_swa_bwd_mma64_smem(const qv::Dims*) {
 
 extern "C" int qv_unit_swa_bwd_mma64_scratch(const qv::Dims* d) {
   return qv::swa_bwd_mma_scratch_floats(*d);
+}
+
+// CTAs of swa_bwd_mma_kernel<4> resident per SM and its two-CTA clusters
+// resident at once on the card (0 on the host)
+extern "C" int qv_unit_swa_bwd_mma64_occupancy(int* per_sm, int* clusters) {
+  return qv_cluster_occupancy(qv::swa_bwd_mma_kernel<4>, qv::SB_SMEM_BYTES,
+                              2, per_sm, clusters);
 }

@@ -24,10 +24,10 @@ bf16 the SWA, MSDA, CGA and cross/tail units run on the tensor cores, in
 eval and in training (``swa_mma_kernel``, ``msda_mma_kernel``,
 ``cga_mma_kernel``, ``cross_tail_mma_kernel``; training through their
 own C entries ``qv_unit_*_mma_train64``), and so do their backward
-kernels (``swa_bwd_mma_kernel<4>``, ``msda_bwd_mma64_kernel``, and
-``cga_bwd_mma64_kernel``, ``cross_tail_bwd_mma64_kernel`` on one cluster
-of two CTAs a sample, :func:`cluster_grid`; entries
-``qv_unit_*_bwd_mma64``), for the widths :func:`swa_mma_error`,
+kernels (``swa_bwd_mma_kernel<4>``, ``msda_bwd_mma64_kernel``,
+``cga_bwd_mma64_kernel``, ``cross_tail_bwd_mma64_kernel``, on clusters of
+two CTAs, :func:`cluster_grid`; entries ``qv_unit_*_bwd_mma64``), for the
+widths :func:`swa_mma_error`,
 :func:`msda_mma_error`, :func:`cga_mma_error`,
 :func:`cross_tail_mma_error` and the ``*_bwd_mma_error`` functions name;
 other widths, and float32 in training, raise.  At n=16 in bf16
@@ -221,7 +221,7 @@ PLAIN = {"unit_swa": swa_plain, "unit_msda": msda_plain,
 
 _P = ctypes.c_void_p
 _DIM_FIELDS = ("B", "n", "side", "nw", "c", "heads", "lin_k", "bank_s",
-               "msda_keep", "groups", "cperg", "ccf_hidden",
+               "msda_keep", "msda_pad", "groups", "cperg", "ccf_hidden",
                "bottleneck_hidden", "d_c", "guard", "stab_ccf", "stab_dw",
                "dw_bias", "grid", "train", "drop_on", "rgrid")
 
@@ -694,20 +694,29 @@ def train_grid(device: torch.device, b: int) -> "Grid":
     return Grid(min(b, sms), 4 * sms)
 
 
-# the n=64 backward entries that run one cluster of two CTAs a sample:
-# the CTAs resident per SM (shared memory and registers allow)
-CLUSTER_BWD = {"unit_cross_tail_bwd_mma64": 1, "unit_cga_bwd_mma64": 2}
+# the n=64 backward entries that run on clusters of two CTAs: the CTAs
+# resident per SM (shared memory and registers allow)
+CLUSTER_BWD = {"unit_swa_bwd_mma64": 1, "unit_msda_bwd_mma64": 1,
+               "unit_cross_tail_bwd_mma64": 1, "unit_cga_bwd_mma64": 2}
 
 
-def cluster_grid(entry: str, grid: "Grid", b: int) -> "Grid":
+def cluster_grid(entry: str, grid: "Grid", b: int,
+                 device: Optional[torch.device] = None) -> "Grid":
     """The launch of backward C entry ``entry`` given the train grid
-    ``grid`` (``grid.blocks`` SMs): for a two-CTA-cluster entry, as many
-    clusters as those SMs hold at once, at most one a sample, each with
-    its own gradient slice; any other entry keeps ``grid``."""
+    ``grid`` (``grid.blocks``: one block a sample, at most one an SM): for
+    a two-CTA-cluster entry, as many clusters as the SMs hold at once, at
+    most one a work item (a sample; SWA's a window), each with its own
+    gradient slice.  The SMs are ``grid.blocks``, times SWA's four windows
+    a sample on ``device``'s card, at most its SMs (so at B=128 SWA's 512
+    windows fill 132 SMs); any other entry keeps ``grid``."""
     per_sm = CLUSTER_BWD.get(entry)
     if per_sm is None:
         return grid
-    return Grid(max(1, min(b, grid.blocks * per_sm // 2)), grid.reduce)
+    per_sample = 4 if entry == "unit_swa_bwd_mma64" else 1   # SWA: windows
+    sms = grid.blocks
+    if device is not None and device.type == "cuda":
+        sms = min(grid.blocks * per_sample, _sm_count(device))
+    return Grid(max(1, min(b * per_sample, sms * per_sm // 2)), grid.reduce)
 
 
 class _Launch:
@@ -1088,9 +1097,9 @@ class _Grads:
     field, and views of the reduced sums.  Zeroed for the kernels that add
     into their slice; left as allocated (``zero=False``) for a kernel that
     stores every field of its slice without reading it
-    (``swa_bwd_mma_kernel``, ``cga_bwd_mma_kernel``, the n=64
-    ``cga_bwd_mma64_kernel`` and ``cross_tail_bwd_mma64_kernel``).  A
-    cluster kernel's ``grid.blocks`` counts its clusters, a slice each."""
+    (``swa_bwd_mma_kernel``, ``cga_bwd_mma_kernel``, and the four n=64
+    backwards on clusters, :data:`CLUSTER_BWD`).  A cluster kernel's
+    ``grid.blocks`` counts its clusters, a slice each."""
 
     def __init__(self, lc: _Launch, unit: str, p: Params, grid: Grid,
                  zero: bool = True):
@@ -1185,9 +1194,10 @@ def launch_swa_bwd(lib, p: Params, x, bank_k, bank_v, g: FusedGeom, dtype,
     f.e_v = lc.w(ps["linformer"]["E_v"], g.ws2, g.lin_k)
     f.bank_k, f.bank_v = _bank(lc, bank_k, bank_v)
     f.proj_w, f.proj_b = lc.dense(ps["proj"], c, c)
-    f.d = _dims(g, lc.b, p, grid.blocks, grid.reduce, train.rng)
     entry = bwd_entry("unit_swa", g, dtype)
     mma = entry != "unit_swa_bwd"
+    grid = cluster_grid(entry, grid, lc.b, lc.device)
+    f.d = _dims(g, lc.b, p, grid.blocks, grid.reduce, train.rng)
     grads = _Grads(lc, "unit_swa", p, grid, zero=not mma)
     grads.fill(a.g)
     w16 = scratch = None
@@ -1219,10 +1229,12 @@ def launch_msda_bwd(lib, p: Params, xn, bank_k, bank_v, g: FusedGeom, dtype,
     f.e_v = lc.w(pm["linformer"]["E_v"], pad, g.lin_k)
     f.bank_k, f.bank_v = _bank(lc, bank_k, bank_v)
     f.proj_w, f.proj_b = lc.dense(pm["proj"], c, c)
-    f.d = _dims(g, lc.b, p, grid.blocks, grid.reduce, train.rng)
-    grads = _Grads(lc, "unit_msda", p, grid)
-    grads.fill(a.g)
     entry = bwd_entry("unit_msda", g, dtype)
+    grid = cluster_grid(entry, grid, lc.b, lc.device)
+    f.d = _dims(g, lc.b, p, grid.blocks, grid.reduce, train.rng)
+    f.d.msda_pad = pad
+    grads = _Grads(lc, "unit_msda", p, grid, zero=entry not in CLUSTER_BWD)
+    grads.fill(a.g)
     w16 = scratch = None
     if entry != "unit_msda_bwd":         # qkv, proj, then both transposed
         w16 = _bwd_weights(lc, pm["qkv_kernel"], pm["proj"]["kernel"])
@@ -1254,7 +1266,7 @@ def launch_cga_bwd(lib, p: Params, xn, bank_k, bank_v, g: FusedGeom, dtype,
     f.proj_w, f.proj_b = lc.dense(pc["proj"], g.groups * g.cperg, c)
     entry = bwd_entry("unit_cga", g, dtype)
     mma = entry != "unit_cga_bwd"
-    grid = cluster_grid(entry, grid, lc.b)
+    grid = cluster_grid(entry, grid, lc.b, lc.device)
     f.d = _dims(g, lc.b, p, grid.blocks, grid.reduce, train.rng)
     grads = _Grads(lc, "unit_cga", p, grid, zero=not mma)
     grads.fill(a.g)
@@ -1284,7 +1296,7 @@ def launch_cross_tail_bwd(lib, p: Params, x, xn, out_swa, out_msda, out_cga,
     f.bank_k, f.bank_v = _bank(lc, bank_k, bank_v)
     _cross_tail_args(lc, p, f)
     entry = bwd_entry("unit_cross_tail", g, dtype)
-    grid = cluster_grid(entry, grid, lc.b)
+    grid = cluster_grid(entry, grid, lc.b, lc.device)
     f.d = _dims(g, lc.b, p, grid.blocks, grid.reduce, train.rng)
     grads = _Grads(lc, "unit_cross_tail", p, grid,
                    zero=entry not in CLUSTER_BWD)

@@ -1,7 +1,7 @@
-"""Device time of the CGA and cross/tail backward kernels in bf16 with
-masks on: their n=64 instances (``hqavit_proc_tin``) at B=128 and B=1024
-and their n=16 instances (``hqavit_c100``) at B=1024, each the kernel
-alone by ``torch.profiler`` (``chip_smoke.device_ms``, by kernel name),
+"""Device time of the four units' backward kernels (SWA, MSDA, CGA,
+cross/tail) in bf16 with masks on: their n=64 instances
+(``hqavit_proc_tin``) at B=128 and B=1024 and their n=16 instances
+(``hqavit_c100``) at B=1024, each the kernel alone by ``torch.profiler`` (``chip_smoke.device_ms``, by kernel name),
 beside the wrapper's call by CUDA events; then their ptxas lines.  To
 compare two designs, run it from the root of each tree in turns, in one
 call on the card:
@@ -11,8 +11,11 @@ call on the card:
 With ``--stamps`` it also builds the kernels with ``-DQV_STAMPS`` into a
 build directory of its own and prints the n=64 kernels' phase breakdown
 at both batches: block 0's time in each phase of one launch
-(``QV_STAMP`` in ``csrc/common.cuh``).  Every line it prints starts with
-TAG.  Needs CUDA (it raises without).
+(``QV_STAMP`` in ``csrc/common.cuh``); and the SWA and MSDA backwards'
+phases with the work a CTA has at B=128 (two passes of two windows; one
+sample) on 16 SMs only (B=16 on 8 clusters), against the whole card at
+B=128: what sharing the card's L2 and memory costs each phase.  Every
+line it prints starts with TAG.  Needs CUDA (it raises without).
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from __future__ import annotations
 import ctypes
 import sys
 
-UNITS = ("unit_cga", "unit_cross_tail")
+UNITS = ("unit_swa", "unit_msda", "unit_cga", "unit_cross_tail")
 CASES = (("hqavit_proc_tin", 128), ("hqavit_proc_tin", 1024),
          ("hqavit_c100", 1024))
 
@@ -68,7 +71,7 @@ def backward(lib, unit, g, p, train, batch, cots, dev):
                                 ws, *cots)
 
 
-def _stamps(tag, kl, dev) -> None:
+def _stamps(tag, kl, dev, cases=CASES[:2], units=UNITS, note="") -> None:
     """The n=64 kernels' phases in one launch, from the stamps build."""
     import torch
 
@@ -77,9 +80,9 @@ def _stamps(tag, kl, dev) -> None:
     lib = K.bind(kl.lib)
     out = (ctypes.c_ulonglong * 16)()
     names = ctypes.c_char_p()
-    for preset, b in CASES[:2]:
+    for preset, b in cases:
         g, p, train, inputs, cots = setup(preset, b, dev)
-        for unit in UNITS:
+        for unit in units:
             read = getattr(kl.lib, f"qv_stamps_{unit[5:]}_bwd")
             read.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
             bwd = backward(lib, unit, g, p, train, inputs[unit], cots[unit],
@@ -95,7 +98,7 @@ def _stamps(tag, kl, dev) -> None:
             total = sum(out[:len(labels)]) / 1e6
             parts = ", ".join(f"{name} {out[k] / 1e6:.4f}"
                               for k, name in enumerate(labels))
-            print(f"{tag} stamps {unit}_bwd n={g.n} B={b}: block 0 "
+            print(f"{tag} stamps {unit}_bwd n={g.n} B={b}{note}: block 0 "
                   f"{total:.4f} ms: {parts}", flush=True)
 
 
@@ -128,11 +131,21 @@ def main(argv=None) -> None:
         del inputs, cots
         torch.cuda.empty_cache()
     for line in CS.ptxas_summary(kl.log):
-        if line.startswith(("cga_bwd", "cross_tail_bwd")):
+        if line.startswith(("swa_bwd", "msda_bwd", "cga_bwd",
+                            "cross_tail_bwd")):
             print(tag, "ptxas:", line, flush=True)
     if stamps:
-        _stamps(tag, build.load(build.BUILD_DIR / "stamps",
-                                ("-DQV_STAMPS",)), dev)
+        skl = build.load(build.BUILD_DIR / "stamps", ("-DQV_STAMPS",))
+        _stamps(tag, skl, dev)
+        # the work a CTA has at B=128 on 8 clusters (16 SMs)
+        cluster_grid = K.cluster_grid
+        K.cluster_grid = lambda entry, grid, b, device=None: (
+            K.Grid(8, grid.reduce) if entry in K.CLUSTER_BWD else grid)
+        try:
+            _stamps(tag, skl, dev, (("hqavit_proc_tin", 16),),
+                    ("unit_swa", "unit_msda"), " on 8 clusters")
+        finally:
+            K.cluster_grid = cluster_grid
 
 
 if __name__ == "__main__":

@@ -80,6 +80,7 @@ inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_S
 inline int atomicOr(int* p, int v) { return __atomic_fetch_or(p, v, __ATOMIC_SEQ_CST); }
 inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
 using std::isnan;
+struct alignas(8) float2 { float x, y; };
 struct alignas(16) float4 { float x, y, z, w; };
 struct alignas(16) uint4 { unsigned x, y, z, w; };
 inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); return f; }

@@ -19,9 +19,9 @@ where Nkv and D are not multiples of 16, and a full-depth
 qavit_224_v1_proc forward that launches it 16 times and matches the plain
 path's logits; the tensor-core primitives' self-test (ldmatrix ->
 mma.sync against A @ B) and the n=64 bf16 SWA, MSDA, CGA and cross/tail
-kernels with a short bank and with their NaN guard tripped; the n=64
-bf16 CGA and cross/tail backwards on two-CTA clusters (their occupancy
-and gradients on two launch grids)."""
+kernels with a short bank and with their NaN guard tripped; the four
+n=64 bf16 backwards on two-CTA clusters (their occupancy and gradients on
+two launch grids)."""
 
 from unittest import mock
 
@@ -417,15 +417,17 @@ def test_augment_on_the_card_matches_the_cpu(cuda, pipeline):
     assert torch.equal(again, got)
 
 
-@pytest.mark.parametrize("unit", ["unit_cga", "unit_cross_tail"])
+@pytest.mark.parametrize("unit", ["unit_swa", "unit_msda", "unit_cga",
+                                  "unit_cross_tail"])
 def test_n64_cluster_backward_on_the_card(cuda, unit):
-    """The n=64 bf16 CGA and cross/tail backwards, one cluster of two
-    CTAs a sample: the CTAs resident per SM their design needs (CGA two,
-    cross/tail one), and their gradients against autograd through the
-    plain version (GRAD_TOLERANCE) with masks on over 9 samples, on the
-    train grid's clusters and on three SMs' (clusters walking several
-    samples, one ending on an odd sample), each launch through its
-    ``_bwd_mma64`` entry."""
+    """The n=64 bf16 backwards on clusters of two CTAs (CGA and cross/tail
+    one a sample, MSDA a sample a CTA, SWA two windows a pass): the CTAs
+    resident per SM their design needs (CGA two, the others one), and
+    their gradients against autograd through the plain version
+    (GRAD_TOLERANCE) with masks on over 9 samples, on the train grid's
+    clusters and on three SMs' (clusters walking several samples or
+    passes, one ending short), each launch through its ``_bwd_mma64``
+    entry."""
     import ctypes
 
     from qavit_tpu_torch.kernels import build

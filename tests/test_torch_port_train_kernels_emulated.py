@@ -26,19 +26,20 @@ where it is defined.
 At hqavit_tiny_in's geometry (C=192, n=64 on an 8x8 grid, four SWA
 windows, 40 pooled MSDA rows) the bf16 train-mode forwards and backward
 kernels (their own C entries, qv_unit_*_mma_train64 and
-qv_unit_*_bwd_mma64) are held the same way over 5 samples and 4 blocks
-(the SWA backward's passes of two windows end short, the MSDA
-backward's passes of a sample end on blocks of one and two samples; the
-CGA and cross/tail backwards run one cluster of two CTAs a sample,
-fused_kernels.cluster_grid: 4 clusters of CGA, one ending on a second
-sample, and 2 of cross/tail, of 3 and 2 samples), with the guard
-tripped, with 12 bank rows, with their masks at dropout 0.5, and their
-routes and ERR_ARGS are checked.  The emulator runs a cluster's CTAs at
-once, each with its own NaN-filled shared memory, and a CTA reads its
-partner's as the partner left it at its last cluster barrier: a halo
-row read before that barrier is NaN
-(test_cluster_read_before_the_partners_barrier_is_nan), so a missing
-barrier or halo exchange fails the n=64 tests."""
+qv_unit_*_bwd_mma64) are held the same way over 5 samples and 4 blocks,
+the four backwards on clusters of two CTAs (fused_kernels.cluster_grid:
+SWA 2 clusters of 10 windows, passes of two, 3 and 2 a CTA; MSDA 2, of 3
+and 2 samples, a CTA's 2 and 1 or 1 and 1; CGA 4, one ending on a second
+sample; cross/tail 2, of 3 and 2 samples), with the guard tripped, with
+12 bank rows, with their gradient workspace and scratch filled with NaN
+before the launch (every field stored, none read first), with their
+masks at dropout 0.5, and their routes and ERR_ARGS are checked.  The
+emulator runs a cluster's CTAs at once, each with its own NaN-filled
+shared memory, and a CTA reads its partner's as the partner left it at
+its last cluster barrier: a halo row or a pair's sum read before that
+barrier is NaN (test_cluster_read_before_the_partners_barrier_is_nan,
+test_pair_sums_before_the_partners_barrier_are_nan), so a missing
+barrier or exchange fails the n=64 tests."""
 
 import ctypes
 import functools
@@ -71,9 +72,10 @@ B = 3
 # element moves a partial by ~5e-4 while max|partial| grows with the batch
 SAMPLES = {"tiny": B, "flagship_width": 2 * B, "tin": 5}
 GRID = K.Grid(2, 2)
-# n=64: four blocks over 5 samples (20 windows: 5 a block); the cluster
-# backwards' launches from it: CGA 4 clusters (samples 0 and 4, then one
-# each), cross/tail 2 (samples 0, 2, 4 and 1, 3)
+# n=64: four blocks over 5 samples; the cluster backwards' launches from
+# it: SWA 2 clusters (windows 0, 2, .. 18 and 1, 3, .. 19, five passes),
+# MSDA and cross/tail 2 (samples 0, 2, 4 and 1, 3), CGA 4 (samples 0 and
+# 4, then one each)
 GRID64 = K.Grid(4, 2)
 UNITS = list(K.UNITS)
 
@@ -318,6 +320,32 @@ def test_n64_train_nan_guard_and_short_bank(emu_lib, tin_case, unit):
     assert r.ok, r
 
 
+@pytest.mark.parametrize("unit", MMA_BWD)
+def test_n64_backward_workspace_may_hold_nan(emu_lib, tin_case, unit,
+                                            monkeypatch):
+    """The n=64 backwards store every field of their gradient slices, and
+    write every row of their scratch before they read it: with both
+    filled with NaN before each launch, every gradient is still within
+    tolerance, with masks and with the guard tripped (2 samples)."""
+    grads_init, common = K._Grads.__init__, K._bwd_common
+
+    def nan_workspace(self, *args, **kw):
+        grads_init(self, *args, **kw)
+        self.gws.fill_(float("nan"))
+
+    def nan_scratch(lc, bc, bank_k, bank_v, ws, grads, scratch=None):
+        if scratch is not None:
+            scratch.fill_(float("nan"))
+        common(lc, bc, bank_k, bank_v, ws, grads, scratch)
+
+    monkeypatch.setattr(K._Grads, "__init__", nan_workspace)
+    monkeypatch.setattr(K, "_bwd_common", nan_scratch)
+    r = _check_n64(emu_lib, tin_case, unit, batch=2)
+    assert r.ok, r
+    r = _check_n64(emu_lib, tin_case, unit, nan_at=(1, 3, 5), batch=2)
+    assert r.flag == 1 and r.ok, r
+
+
 @pytest.mark.parametrize("unit,width", [
     ("unit_swa", "flagship_width"), ("unit_msda", "flagship_width"),
     ("unit_cga", "flagship_width"), ("unit_swa", "tin"), ("unit_msda", "tin"),
@@ -350,12 +378,38 @@ def test_mma_forward_masks_are_the_plain_masks(emu_lib, unit, width):
             > 0.1 * eval_out.float().abs().max())
 
 
-def test_cluster_grid():
+def test_cluster_grid(monkeypatch):
     """The two-CTA-cluster backward entries launch as many clusters as
-    the train grid's SMs hold at once (cross/tail one CTA an SM, CGA
-    two), at most one a sample, a gradient slice each; every other entry
-    keeps the train grid."""
+    the train grid's SMs hold at once (SWA, MSDA and cross/tail one CTA an
+    SM, CGA two), at most one a work item (SWA's a window, four a sample;
+    the others' a sample), a gradient slice each; on a card SWA's SMs are
+    those of its windows, at most the card's; every other entry keeps the
+    train grid."""
     big, small = K.Grid(132, 528), K.Grid(4, 2)
+    for entry in ("unit_swa_bwd_mma64", "unit_msda_bwd_mma64"):
+        assert K.cluster_grid(entry, big, 1024) == (66, 528)
+        assert K.cluster_grid(entry, K.Grid(128, 528), 128) == (64, 528)
+        assert K.cluster_grid(entry, small, 5) == (2, 2)
+        assert K.cluster_grid(entry, small, 5, torch.device("cpu")) == (2, 2)
+    assert K.cluster_grid("unit_swa_bwd_mma64", K.Grid(1, 2), 1) == (1, 2)
+    assert K.cluster_grid("unit_msda_bwd_mma64", K.Grid(1, 2), 1) == (1, 2)
+    # on a card of 132 SMs at B=128 (128 blocks of the train grid): SWA's
+    # 512 windows fill every SM, 66 clusters; the others keep one SM a
+    # sample (MSDA and cross/tail 64 clusters, CGA 128, two CTAs an SM);
+    # a smaller grid stays the SMs of its windows
+    monkeypatch.setattr(K, "_sm_count", lambda device: 132)
+    card, b128 = torch.device("cuda"), K.Grid(128, 528)
+    assert K.cluster_grid("unit_swa_bwd_mma64", b128, 128, card) == (66, 528)
+    assert K.cluster_grid("unit_swa_bwd_mma64", big, 1024, card) == (66, 528)
+    assert K.cluster_grid("unit_swa_bwd_mma64", K.Grid(3, 12), 9,
+                          card) == (6, 12)
+    assert K.cluster_grid("unit_msda_bwd_mma64", b128, 128,
+                          card) == (64, 528)
+    assert K.cluster_grid("unit_cross_tail_bwd_mma64", b128, 128,
+                          card) == (64, 528)
+    assert K.cluster_grid("unit_cga_bwd_mma64", b128, 128, card) == (128, 528)
+    assert K.cluster_grid("unit_cga_bwd_mma64", K.Grid(3, 12), 9,
+                          card) == (3, 12)
     assert K.cluster_grid("unit_cross_tail_bwd_mma64", big, 1024) == (66, 528)
     assert K.cluster_grid("unit_cga_bwd_mma64", big, 1024) == (132, 528)
     assert K.cluster_grid("unit_cross_tail_bwd_mma64", K.Grid(128, 528),
@@ -367,7 +421,7 @@ def test_cluster_grid():
     assert K.cluster_grid("unit_cga_bwd_mma64", small, 1) == (1, 2)
     assert K.cluster_grid("unit_cross_tail_bwd_mma64", K.Grid(1, 2),
                           1) == (1, 2)
-    for entry in ("unit_swa_bwd_mma64", "unit_msda_bwd_mma64",
+    for entry in ("unit_swa_bwd_mma", "unit_msda_bwd_mma",
                   "unit_cga_bwd_mma", "unit_cross_tail_bwd_mma"):
         assert K.cluster_grid(entry, big, 1024) is big
 
@@ -420,3 +474,59 @@ def test_cluster_read_before_the_partners_barrier_is_nan(tmp_path):
     assert torch.isnan(out[:, 0]).all()              # before the barrier
     assert torch.equal(out[0, 1], torch.full((768,), 2.0))
     assert torch.equal(out[1, 1], torch.full((768,), 1.0))
+
+
+# A cluster of two CTAs: each leaves 600 floats (rank r: i + 1000 r) in
+# its shared memory and adds the pair's through pair_sums into out,
+# before the cluster barrier and again after it; each element is stored by
+# one CTA, which marks it in `by`
+_PAIR_PROBE = r"""
+#include "cluster.cuh"
+namespace qv {
+__global__ void pair_probe(float* out) {
+  QV_SMEM_DECL
+  const unsigned r = cluster_rank();
+  for (int i = threadIdx.x; i < 600; i += NTHREADS)
+    qv_smem[i] = i + 1000.f * r;
+  __syncthreads();
+  pair_sums(qv_smem, 600, [&](int i, float v) { out[i] = v; });
+  cluster_sync();
+  pair_sums(qv_smem, 600, [&](int i, float v) {
+    out[600 + i] = v;
+    out[1200 + i] = r;
+  });
+  cluster_sync();
+}
+}  // namespace qv
+extern "C" int pair_probe(float* out) {
+  return qv_launch_cluster(qv::pair_probe, out, 600 * 4, nullptr, 1, 2);
+}
+"""
+
+
+def test_pair_sums_before_the_partners_barrier_are_nan(tmp_path):
+    """The n=64 SWA and MSDA backwards' shared tail (pair_sums in
+    csrc/cluster.cuh): read before the cluster barrier that follows the
+    partner's writes, the pair's sums are NaN in the emulator (a mutation
+    that drops that barrier fails); after it each element is rank 0's
+    plus rank 1's, stored once, half of them by each CTA."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is needed to compile the kernels for the host")
+    src = tmp_path / "pair_probe.cu"
+    src.write_text(_PAIR_PROBE)
+    lib = tmp_path / "pair_probe.so"
+    subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC",
+                    "-DQV_EMULATE", "-x", "c++", f"-I{EMU}", f"-I{CSRC}",
+                    str(src), "-o", str(lib), "-lpthread"], check=True,
+                   capture_output=True)
+    probe = ctypes.CDLL(str(lib)).pair_probe
+    probe.argtypes = [ctypes.c_void_p]
+    out = torch.zeros(3, 600)
+    assert probe(out.data_ptr()) == 0
+    assert torch.isnan(out[0]).all()                 # before the barrier
+    assert torch.equal(out[1], 2 * torch.arange(600.0) + 1000.0)
+    by = out[2]
+    assert (by == 0).sum() == 344 and (by == 1).sum() == 256
+    assert torch.equal(by[:256], torch.zeros(256))
+    assert torch.equal(by[256:512], torch.ones(256))
