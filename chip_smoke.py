@@ -822,7 +822,7 @@ def train_unit_checks_and_timing(K, cfg, g, p, dev, launches, bsz=BATCH,
             REPLACES[unit], launches[unit], out_abs,
             cuda_ms(fwd, iters=10), cuda_ms(plain_fwd, iters=10),
             unit_train_work(unit, g, bsz, 2, p), dtype,
-            device_ms(fwd, 10, csrc_kernel(K, unit, g, dtype))))
+            device_ms(fwd, 10, csrc_kernel(K, unit, g, dtype, train=True))))
         name = f"{unit}_bwd"
         bwd_rows.append(kernel_row(
             record_name(K, unit, g, dtype, True) + suffix,
@@ -843,9 +843,10 @@ def train_unit_checks_and_timing(K, cfg, g, p, dev, launches, bsz=BATCH,
     return fwd_rows + bwd_rows
 
 
-def csrc_kernel(K, unit, g, dtype, backward=False):
-    """The csrc kernel a launch of ``unit`` (its backward) runs at
-    geometry ``g``: the tensor-core one where the route takes it."""
+def csrc_kernel(K, unit, g, dtype, backward=False, train=False):
+    """The csrc kernel a launch of ``unit`` (its backward; in train mode)
+    runs at geometry ``g``: the tensor-core one where the route takes
+    it."""
     if backward:
         entry = K.bwd_entry(unit, g, dtype)
         if entry in ("unit_msda_bwd_mma64", "unit_cga_bwd_mma64",
@@ -856,6 +857,9 @@ def csrc_kernel(K, unit, g, dtype, backward=False):
     route = {"unit_swa": K.swa_route, "unit_msda": K.msda_route,
              "unit_cga": K.cga_route,
              "unit_cross_tail": K.cross_tail_route}.get(unit)
+    if route is not None and route(g, dtype, train).endswith("_train64"):
+        return ("cross_tail_train64_kernel" if unit == "unit_cross_tail"
+                else f"{unit[5:]}_mma_kernel")
     if route is None or not route(g, dtype).endswith("_mma"):
         return f"{unit[5:]}_kernel"
     return "msda_mma16_kernel" if unit == "unit_msda" and g.n == 16 else (
@@ -1502,7 +1506,7 @@ N64_TRAIN_KERNELS = (
     ("swa_mma_kernel<1,1>", "unit_swa_mma_train64"),
     ("msda_mma_kernel<1>", "unit_msda_mma_train64"),
     ("cga_mma_kernel<1,1>", "unit_cga_mma_train64"),
-    ("cross_tail_mma_kernel<8,1>", "unit_cross_tail_mma_train64"),
+    ("cross_tail_train64_kernel", "unit_cross_tail_mma_train64"),
     ("swa_bwd_mma_kernel<4>", "unit_swa_bwd_mma64"),
     ("msda_bwd_mma64_kernel", "unit_msda_bwd_mma64"),
     ("cga_bwd_mma64_kernel", "unit_cga_bwd_mma64"),
@@ -1571,32 +1575,48 @@ def n64_train_checks(K, dev, g, p):
         smem = getattr(lib, f"qv_{entry}_smem")(None)
         print(f"{kern}: {smem} B of dynamic shared memory per block",
               flush=True)
-        if entry in K.CLUSTER_BWD:
+        if entry in K.CLUSTERS:
             per_sm, clusters = ctypes.c_int(), ctypes.c_int()
             rc = getattr(lib, f"qv_{entry}_occupancy")(
                 ctypes.byref(per_sm), ctypes.byref(clusters))
-            ok = rc == 0 and per_sm.value >= K.CLUSTER_BWD[entry]
+            ok = rc == 0 and per_sm.value >= K.CLUSTERS[entry]
             print(f"{kern}: clusters of 2 CTAs, "
                   f"{per_sm.value} CTAs resident per SM (expected "
-                  f"{K.CLUSTER_BWD[entry]}), {clusters.value} clusters at "
+                  f"{K.CLUSTERS[entry]}), {clusters.value} clusters at "
                   f"once, rc {rc}  {'ok' if ok else 'FAIL'}", flush=True)
             if not ok:
                 failed.append((kern, "occupancy"))
     if failed:
         raise AssertionError(f"n=64 training kernels disagree: {failed}")
-    cluster_bwd_times(K, dev, lib)
+    return n64_train_times(K, dev, lib)
 
 
-def cluster_bwd_times(K, dev, lib):
-    """Phase (m): the device time of the four cluster backwards
+def n64_train_times(K, dev, lib):
+    """Phase (m): the device time of the four n=64 train-mode forwards
+    (``N64_TRAIN_KERNELS[:4]``; the cross/tail one on clusters,
+    ``K.CLUSTER_FWD``) and of the four cluster backwards
     (``K.CLUSTER_BWD``) at the train path's batch and at B=1024, with
-    masks on (``kernels/time_bwd64.py``'s inputs)."""
+    masks on (``kernels/time_bwd64.py``'s inputs); returns {(unit, B):
+    the forward's device ms}."""
     import torch
 
     from qavit_tpu_torch.kernels import time_bwd64 as TB
 
+    times = {}
     for b in (TIN_BATCH, TIN_TRAIN_BIG[0]):
         g, p, train, inputs, cots = TB.setup(TIN_PRESET, b, dev)
+        grid = K.train_grid(dev, b)
+        for unit in TB.UNITS:
+            kern = csrc_kernel(K, unit, g, torch.bfloat16, train=True)
+            ms = device_ms(TB.forward(lib, unit, g, p, train, inputs[unit],
+                                      dev), 10, kern)
+            entry = f"{unit}_mma_train64"
+            launch = (f"{K.cluster_grid(entry, grid, b, dev).blocks} "
+                      f"clusters of 2 CTAs" if entry in K.CLUSTER_FWD
+                      else f"{grid.blocks} blocks")
+            print(f"time {kern} (forward, train) B={b}: device {ms:.4f} ms, "
+                  f"{launch}; card {card_line()}", flush=True)
+            times[(unit, b)] = ms
         for unit in TB.UNITS:
             kern = csrc_kernel(K, unit, g, torch.bfloat16, True)
             ms = device_ms(TB.backward(lib, unit, g, p, train, inputs[unit],
@@ -1607,9 +1627,10 @@ def cluster_bwd_times(K, dev, lib):
                   f"clusters of 2 CTAs; card {card_line()}", flush=True)
         del inputs, cots
         torch.cuda.empty_cache()
+    return times
 
 
-def n64_train_path(K, dev, g, p):
+def n64_train_path(K, dev, g, p, fwd_times=None):
     """Phase (n): the hqavit_proc_tin train step through the bench CLI with
     the counts reset just before; a float32 step refused before any
     launch; the kernel step against the plain steps on the card; the
@@ -1690,8 +1711,15 @@ def n64_train_path(K, dev, g, p):
               f"bf16, {r['steps']} steps after one warm-up), peak memory "
               f"{r['max_memory_allocated'] / 2 ** 30:.2f} GiB; card "
               f"{card_line()}", flush=True)
-    return train_unit_checks_and_timing(K, cfg, g, p, dev, launches,
+    rows = train_unit_checks_and_timing(K, cfg, g, p, dev, launches,
                                         TIN_BATCH, "@n64")
+    for unit in K.UNITS:     # the forwards' device time at B=1024, phase (m)
+        ms = (fwd_times or {}).get((unit, TIN_TRAIN_BIG[0]))
+        for row in rows:
+            if row["name"] == (f"{record_name(K, unit, g, torch.bfloat16)}"
+                               "_train@n64") and ms is not None:
+                row[f"device_ms_b{TIN_TRAIN_BIG[0]}"] = ms
+    return rows
 
 
 def augment_checks(A, aug, images, dev):
@@ -2117,11 +2145,11 @@ def main() -> int:
     say("phase (l) multi-window path: done")
 
     say("phase (m) n=64 training kernels: start")
-    n64_train_checks(K, dev, g64, p64)
+    fwd_times = n64_train_checks(K, dev, g64, p64)
     say("phase (m) n=64 training kernels: done")
 
     say("phase (n) n=64 train path: start")
-    record += n64_train_path(K, dev, g64, p64)
+    record += n64_train_path(K, dev, g64, p64, fwd_times)
     say("phase (n) n=64 train path: done")
 
     say("phase (o) data path: start")

@@ -34,9 +34,21 @@
 // CGA_PROJ masks at each element's flat index in its own sample, as
 // cga_body indexes them, and keeps the bank-write partials (mma_ops.cuh
 // bank_tile_partials, the gate's softmax over the sample's n tokens) per
-// thread over the block's tiles.
+// thread over the block's tiles.  The n = 64 training instance, a sample
+// a block at B=128, does once a block what the others amortise over
+// their tiles, so it projects the bank on the tensor cores
+// (cga_bank_proj_mma), scales both dropouts' kept values by the product
+// with 1 / keep (an IEEE division an element was 56-68% of its time,
+// PERF.md section 6) and leaves part_k to a pass after the blocks' sum
+// (bank_store_sums, qv_bank_compress).
 #pragma once
 #include "mma_ops.cuh"
+
+// The forward body's phase stamps: QV_STAMP of unit_cga.cu's array where
+// that file defines CGA_FWD_STAMP (built with -DQV_STAMPS), else nothing
+#ifndef CGA_FWD_STAMP
+#define CGA_FWD_STAMP(k)
+#endif
 
 namespace qv {
 
@@ -107,6 +119,69 @@ __device__ __forceinline__ bool cga_bank_proj(const CgaArgs& a, bf16* kbp,
     }
     (w ? vbp : kbp)[m * CG_LDB + j] = from_f<bf16>(v);
   }
+  return nan_seen;
+}
+
+// cga_bank_proj's kbp, vbp on the tensor cores: the bank rows and the two
+// kernels rounded to bf16 into `stage` (CG_BSTAGE elements of shared
+// memory, 16-byte aligned), then warp 0 the 16 k rows and warp 1 the 16 v
+// rows, [16, 192] @ [192, 16] in mma.sync (bf16 operands, float32 sums,
+// the rounding points of cga_bank_proj's FMAs), dense_out; rows past S
+// zero.  True if one is NaN.  Block-wide: one barrier, none at the end.
+constexpr int CG_LDBW = CG_CPERG + 8;       // a staged kernel's leading dim
+constexpr int CG_BSTAGE = 2 * CG_S * CG_LDX + 2 * CG_C * CG_LDBW;
+__device__ __forceinline__ bool cga_bank_proj_mma(const CgaArgs& a,
+                                                  bf16* kbp, bf16* vbp,
+                                                  bf16* stage) {
+  const int S = a.d.bank_s;
+  bf16* rows = stage;                        // [32][CG_LDX]: k, then v
+  bf16* wt = stage + 2 * CG_S * CG_LDX;      // [2][C][CG_LDBW]
+  // a fixed count a thread, unrolled: its loads from L2 in flight at once
+#pragma unroll
+  for (int i = threadIdx.x; i < 2 * CG_S * CG_C; i += NTHREADS) {
+    const int r = i / CG_C, c = i - r * CG_C, m = r % CG_S;
+    const float* x = r < CG_S ? a.bank_k : a.bank_v;
+    rows[r * CG_LDX + c] = from_f<bf16>(m < S ? rnd<bf16>(x[m * CG_C + c])
+                                              : 0.f);
+  }
+#pragma unroll
+  for (int i = threadIdx.x; i < 2 * CG_C * CG_CPERG; i += NTHREADS) {
+    const int w = i / (CG_C * CG_CPERG), e = i - w * CG_C * CG_CPERG;
+    const int k = e / CG_CPERG, j = e - k * CG_CPERG;
+    wt[(w * CG_C + k) * CG_LDBW + j] =
+        from_f<bf16>(rnd<bf16>((w ? a.bv_w : a.bk_w)[e]));
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp >= 2) return false;
+  const int g = lane >> 2, t = lane & 3;
+  const bf16* A = rows + warp * CG_S * CG_LDX;
+  const bf16* W = wt + warp * CG_C * CG_LDBW;
+  float acc[2][4] = {};
+#pragma unroll
+  for (int ks = 0; ks < CG_C / 16; ++ks) {
+    unsigned af[4], bf[4];
+    load_a(af, A + 16 * ks, CG_LDX, lane);
+    load_b_kn(bf, W + 16 * ks * CG_LDBW, CG_LDBW, lane);
+    mma_bf16_16816(acc[0], af, bf);
+    mma_bf16_16816(acc[1], af, bf + 2);
+  }
+  const float* bias = warp ? a.bv_b : a.bk_b;
+  bf16* dst = warp ? vbp : kbp;
+  bool nan_seen = false;
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int m = g + 8 * hf, c = 8 * j + 2 * t;
+      float v0 = 0.f, v1 = 0.f;
+      if (m < S) {
+        v0 = dense_out(acc[j][2 * hf], bias[c]);
+        v1 = dense_out(acc[j][2 * hf + 1], bias[c + 1]);
+        nan_seen = nan_seen || isnan(v0) || isnan(v1);
+      }
+      store_bf16x2(dst + m * CG_LDB + c, pack_bf16x2(v0, v1));
+    }
   return nan_seen;
 }
 
@@ -233,13 +308,17 @@ __device__ __forceinline__ void cga_probs(const unsigned (&qa)[4],
 // nkeys on masked.  The output's 16 rows go to out (leading dim ld, the
 // group's first channel) rounded to bf16.  TRAIN: the probabilities
 // through the attention dropout am (am.vh: the group's first virtual
-// head).  True if an output is NaN.
-template <int NKT, bool TRAIN>
+// head).  True if an output is NaN.  RECIP: a kept probability scaled
+// by the product with 1 / keep (attn_mask_r), within an ulp of the
+// quotient and no IEEE division an element (the n = 64 training
+// instance).
+template <int NKT, bool TRAIN, bool RECIP = false>
 __device__ __forceinline__ bool cga_attend(const bf16* q, const bf16* k,
                                            const bf16* v, int ld,
                                            const bf16* kb, const bf16* vb,
                                            int nkeys, AttnMask am, bf16* out) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float inv_keep = RECIP ? 1.f / am.dr.keep : 1.f;
   unsigned qa[4], kf[NKT][4], vf[NKT][4];
   load_a(qa, q, ld, lane);
 #pragma unroll
@@ -261,6 +340,7 @@ __device__ __forceinline__ bool cga_attend(const bf16* q, const bf16* k,
     for (int kk = 0; kk < NKT; ++kk) {
       unsigned pa[4];
       c_to_a<NKT>(s, kk, [&](int row, int key, float p) {
+        if constexpr (RECIP) return attn_mask_r(am, row, key, p, inv_keep);
         if constexpr (TRAIN) return attn_mask(am, row, key, p);
         return p;
       }, pa);
@@ -285,7 +365,12 @@ __device__ __forceinline__ void cga_mma(const CgaMmaArgs& m) {
   constexpr int SN = CG_ROWS / NS;         // rows of a sample
   constexpr int NKT = SN / 16 + 1;         // key tiles: own, then the bank
   static_assert(NS == 1 || NS == 4, "one sample of 64 or four of 16");
+  // the n = 64 training instance: the projected bank on the tensor cores,
+  // both dropouts as products with 1 / keep, and part_k formed after the
+  // blocks' sum (bank_store_sums, qv_bank_compress)
+  constexpr bool N64T = NS == 1 && TRAIN;
   QV_SMEM_DECL
+  CGA_FWD_STAMP(-1);
   __shared__ int bad;
   const CgaArgs& a = m.f;
   const Dims& d = a.d;
@@ -312,7 +397,16 @@ __device__ __forceinline__ void cga_mma(const CgaMmaArgs& m) {
   stage_weight(wqkv, CG_LDW, m.qkv_w16, CG_CPG, CG_QKV);
   stage_weight(wp, CG_LDX, m.proj_w16, CG_GW, C);
   cp_async_commit();
-  if (cga_bank_proj(a, kbp, vbp) && d.guard) bad = 1;
+  if constexpr (N64T) {
+    static_assert(2 * CG_BSTAGE <= 4 * BP_SCRATCH,
+                  "the bank's staging in the partials' scratch");
+    if (cga_bank_proj_mma(a, kbp, vbp, reinterpret_cast<bf16*>(scratch)) &&
+        d.guard)
+      bad = 1;
+  } else if (cga_bank_proj(a, kbp, vbp) && d.guard) {
+    bad = 1;
+  }
+  CGA_FWD_STAMP(0);
 
   const int tiles = (d.B * SN + CG_ROWS - 1) / CG_ROWS;
   // the rows of tile tl that hold samples
@@ -344,8 +438,13 @@ __device__ __forceinline__ void cga_mma(const CgaMmaArgs& m) {
   };
   // proj's dense epilogue, through the proj dropout in training (row r
   // of tile tl: the tiles' rows are the batch's in order)
+  const float inv_keep = N64T ? 1.f / d.keep : 1.f;
   auto proj_out = [&](int tl, int r, int col, float acc, float bias) {
     const float y = dense_out(acc, bias);
+    if constexpr (N64T)
+      return rnd<bf16>(drop_r(d, CGA_PROJ,
+                              (unsigned)(((size_t)tl * CG_ROWS + r) * C + col),
+                              y, inv_keep));
     if constexpr (TRAIN)
       return rnd<bf16>(
           drop(d, CGA_PROJ, (unsigned)(((size_t)tl * CG_ROWS + r) * C + col),
@@ -360,8 +459,10 @@ __device__ __forceinline__ void cga_mma(const CgaMmaArgs& m) {
     const int valid = valid_rows(tl);
     cp_async_wait<0>();
     __syncthreads();
+    CGA_FWD_STAMP(1);
     if (cga_qkv(xs, wqkv, a, q, k, v) && d.guard) bad = 1;
     __syncthreads();
+    CGA_FWD_STAMP(2);
     // xs is free: bring the next tile's rows while this one finishes
     if (tl + (int)gridDim.x < tiles) stage_x(tl + gridDim.x);
     {  // the attention: warp w the units (query tile, group) w, w + 8, w + 16
@@ -380,7 +481,7 @@ __device__ __forceinline__ void cga_mma(const CgaMmaArgs& m) {
                         grp * CG_H, SN + S, SN};
         }
         const int c0 = CG_CPERG * grp;
-        nan_seen |= cga_attend<NKT, TRAIN>(
+        nan_seen |= cga_attend<NKT, TRAIN, N64T>(
             q + 16 * mt * CG_LDQ + c0, k + kr * CG_LDQ + c0,
             v + kr * CG_LDQ + c0, CG_LDQ, kbp, vbp, SN + S, am,
             att + 16 * mt * CG_LDQ + c0);
@@ -388,6 +489,7 @@ __device__ __forceinline__ void cga_mma(const CgaMmaArgs& m) {
       if (d.guard && nan_seen) bad = 1;
     }
     __syncthreads();
+    CGA_FWD_STAMP(3);
     {  // proj = att @ W_p + b: warp w rows 16 (w % 4).., columns 96 (w / 4)..
       const int mt = warp & 3, n0 = 96 * (warp >> 2);
       float acc[12][4];
@@ -421,14 +523,23 @@ __device__ __forceinline__ void cga_mma(const CgaMmaArgs& m) {
       }
     }
     __syncthreads();
+    CGA_FWD_STAMP(4);
     store_rows(static_cast<bf16*>(a.out) + (size_t)tl * CG_ROWS * C, out,
                valid);
     if constexpr (TRAIN)
       bank_tile_partials<SN>(out, CG_LDX, valid, a.bw, S, scratch, sums);
+    CGA_FWD_STAMP(5);
   }
-  if constexpr (TRAIN)
-    bank_store_partials(sums, a.bw, S, scratch,
-                        a.bw.part + (size_t)blockIdx.x * 2 * S * C);
+  // this block's slice of the partials
+  auto store_partials = [&] {
+    float* part = a.bw.part + (size_t)blockIdx.x * 2 * S * C;
+    if constexpr (N64T)
+      bank_store_sums(sums, S, scratch, part);
+    else
+      bank_store_partials(sums, a.bw, S, scratch, part);
+  };
+  if constexpr (TRAIN) store_partials();
+  CGA_FWD_STAMP(6);
   if (d.guard)
     finish_guard(a.ws, bad, [&] {
       // the redo: a zero attention output, so every row of every sample
@@ -455,8 +566,7 @@ __device__ __forceinline__ void cga_mma(const CgaMmaArgs& m) {
           bank_tile_partials<SN>(out, CG_LDX, valid, a.bw, S, scratch,
                                  sums);
         }
-        bank_store_partials(sums, a.bw, S, scratch,
-                            a.bw.part + (size_t)blockIdx.x * 2 * S * C);
+        store_partials();
       } else {
         for (size_t i = threadIdx.x; i < (size_t)d.B * SN * C / 2;
              i += blockDim.x) {
@@ -467,6 +577,7 @@ __device__ __forceinline__ void cga_mma(const CgaMmaArgs& m) {
         }
       }
     });
+  CGA_FWD_STAMP(7);
 }
 
 }  // namespace qv

@@ -68,6 +68,36 @@ __device__ __forceinline__ void pair_sums(const float* mine, int n,
     store(i, s0[i] + s1[i]);
 }
 
+// The batch-wide NaN guard of a kernel on two-CTA clusters (common.cuh
+// finish_guard's, a cluster at a time): each CTA ORs its finding `bad`
+// into ws[1] and counts itself done in ws[0]; the cluster that holds the
+// last ticket (either of its CTAs) reads the batch-wide flag and, only if
+// it is set, runs `redo()` on both CTAs, which recompute every sample
+// with the attention output forced to zero (the pair's cluster barriers
+// included).  flags: two ints of this CTA's dynamic shared memory (the
+// ticket and the flag it read), which the partner reads between two
+// cluster barriers.  Every thread of both CTAs calls it.
+template <typename F>
+__device__ void finish_guard_pair(int* ws, int bad, int* flags, F redo) {
+  __threadfence();        // this thread's output stores before the ticket
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    if (bad) atomicOr(&ws[1], 1);
+    __threadfence();
+    flags[0] = atomicAdd(&ws[0], 1) == (int)gridDim.x - 1;
+    flags[1] = 0;
+    if (flags[0]) {
+      __threadfence();
+      flags[1] = atomicOr(&ws[1], 0);
+    }
+  }
+  cluster_sync();         // both CTAs' tickets are taken
+  const int* peer = cluster_peer(flags, cluster_rank() ^ 1u);
+  const bool last = flags[0] || peer[0], any = flags[1] || peer[1];
+  cluster_sync();         // the partner's flags are read
+  if (last && any) redo();
+}
+
 }  // namespace qv
 
 #ifndef QV_EMULATE

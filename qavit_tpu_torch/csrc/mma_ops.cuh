@@ -398,7 +398,25 @@ __device__ __forceinline__ void bank_tile_partials(const bf16* out, int ld,
   }
   __syncthreads();
   static_assert(BP_ROWS % SN == 0, "whole samples in a tile");
-  if ((int)threadIdx.x < (BP_ROWS / SN) * BP_S) {  // (sample, bank row)
+  if constexpr (SN == BP_ROWS) {   // one sample: a warp a bank row, each
+                                   // lane two of its 64 tokens
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    for (int m = warp; m < S; m += NTHREADS / 32) {
+      float* g0 = gate + lane * BP_S + m;
+      float* g1 = g0 + 32 * BP_S;
+      float mx = fmaxf(*g0, *g1);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float e0 = expf(*g0 - mx), e1 = expf(*g1 - mx);
+      float sum = e0 + e1;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      *g0 = e0 / sum;
+      *g1 = e1 / sum;
+    }
+  } else if ((int)threadIdx.x < (BP_ROWS / SN) * BP_S) {  // (sample, row)
     const int m = threadIdx.x % BP_S;
     float* gp = gate + (threadIdx.x / BP_S) * SN * BP_S + m;
     if (m < S) {
@@ -475,6 +493,45 @@ __device__ __forceinline__ void bank_store_partials(const BankSums& acc,
       if (m < S) part[m * BP_C + c] = a[m] + gsum[m] * bw.comp_b[c];
   }
   __syncthreads();
+}
+
+// This block's slice `part` [2, S, C] of the per-block sums for a
+// reduction that forms part_k after the sum (qv_bank_compress): part_v as
+// summed, and in part_k's place each bank row's gate sum in every column,
+// each element stored once.  scratch: BP_S floats.  Block-wide; ends with
+// a barrier.
+__device__ __forceinline__ void bank_store_sums(const BankSums& acc, int S,
+                                                float* scratch, float* part) {
+  const int c = threadIdx.x;
+  if (c < S) scratch[c] = acc.gate;
+  __syncthreads();
+  if (c < BP_C)
+#pragma unroll
+    for (int m = 0; m < BP_S; ++m)
+      if (m < S) {
+        part[S * BP_C + m * BP_C + c] = acc.v[m];
+        part[m * BP_C + c] = scratch[m];
+      }
+  __syncthreads();
+}
+
+// In place of the reduced sums out [2, S, C] of slices that hold part_v
+// and, in part_k's place, each bank row's gate sum in every column:
+// part_k = part_v @ Wc + (the gates' sum) bc, in float32 FMAs, a block a
+// bank row (the compression once a launch, where bank_store_partials
+// forms it once a block).
+static __global__ void __launch_bounds__(NTHREADS)
+    bank_compress_kernel(float* out, const float* wc, const float* bc,
+                         int S) {
+  __shared__ float pv[BP_C];
+  const int m = blockIdx.x, c = threadIdx.x;
+  if (c < BP_C) pv[c] = out[(S + m) * BP_C + c];
+  __syncthreads();
+  if (c >= BP_C) return;
+  float a = 0.f;
+#pragma unroll 16
+  for (int k = 0; k < BP_C; ++k) a = fmaf(pv[k], wc[k * BP_C + c], a);
+  out[m * BP_C + c] = a + out[m * BP_C + c] * bc[c];
 }
 
 // --- the backward kernels' pieces ------------------------------------------
@@ -1314,3 +1371,18 @@ __device__ __forceinline__ void key_grads(const bf16* a, int lda,
 }
 
 }  // namespace qv
+
+#ifndef QV_EMULATE
+// bank_compress_kernel over the reduced sums out [2, S, C]
+static int qv_bank_compress(float* out, const float* wc, const float* bc,
+                            int S, void* stream) {
+  qv::bank_compress_kernel<<<S, qv::NTHREADS, 0, (cudaStream_t)stream>>>(
+      out, wc, bc, S);
+  return (int)cudaGetLastError();
+}
+#else
+static int qv_bank_compress(float* out, const float* wc, const float* bc,
+                            int S, void*) {
+  return qv_emu_run(S, [&] { qv::bank_compress_kernel(out, wc, bc, S); });
+}
+#endif

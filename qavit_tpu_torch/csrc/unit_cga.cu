@@ -33,7 +33,15 @@
 // on the tensor cores (mma.sync m16n8k16, bf16 operands, float32 sums),
 // the scores in registers, one block per SM walking tiles of 64 rows
 // (four samples of 16, or one of 64); its body and layout are
-// cga_mma.cuh's.  Time: PERF.md section 6 rows 3 and 3 @n64.
+// cga_mma.cuh's.  Time: PERF.md section 6 rows 3, 3 @n64 and 3 @n64
+// train.
+#include "common.cuh"
+
+QV_STAMPS_DEFINE(cga_fwd,
+                 "weights and bank projection,x staging,q|k|v,attention,"
+                 "proj,tile partials,partials store,guard")
+#define CGA_FWD_STAMP(k) QV_STAMP(cga_fwd, k)
+
 #include "cga_mma.cuh"
 #include "unit_cga.cuh"
 
@@ -236,9 +244,11 @@ extern "C" int qv_unit_cga_mma_smem(const qv::Dims* d) {
 }
 
 // The bf16 tensor-core kernel in training at n = 64 (cga_mma_kernel<1,
-// true>, a tile a sample), then the reduction pass of the bank partials:
-// `a` and the weights as for qv_unit_cga_mma; ERR_ARGS for any other
-// geometry or type (the wrapper checks them first, cga_mma_error).
+// true>, a tile a sample), then the reduction pass of the bank partials
+// and the compression of their sum (qv_bank_compress: the blocks store
+// part_v and the gate sums, bank_store_sums): `a` and the weights as for
+// qv_unit_cga_mma; ERR_ARGS for any other geometry or type (the wrapper
+// checks them first, cga_mma_error).
 extern "C" int qv_unit_cga_mma_train64(const qv::CgaArgs* a,
                                        const void* qkv_w16,
                                        const void* proj_w16, int is_bf16,
@@ -251,11 +261,14 @@ extern "C" int qv_unit_cga_mma_train64(const qv::CgaArgs* a,
     return qv::ERR_ARGS;
   const qv::CgaMmaArgs m{*a, static_cast<const qv::bf16*>(qkv_w16),
                          static_cast<const qv::bf16*>(proj_w16)};
-  const int rc = qv_launch(qv::cga_mma_kernel<1, true>, m,
-                           qv::CG_TRAIN_BYTES, stream, d.grid);
-  if (rc != 0) return rc;
-  return qv_reduce(a->bw.part, a->bw.part_out, d.grid, 2 * d.bank_s * d.c,
+  int rc = qv_launch(qv::cga_mma_kernel<1, true>, m, qv::CG_TRAIN_BYTES,
+                     stream, d.grid);
+  if (rc == 0)
+    rc = qv_reduce(a->bw.part, a->bw.part_out, d.grid, 2 * d.bank_s * d.c,
                    d.rgrid, stream);
+  if (rc != 0) return rc;
+  return qv_bank_compress(a->bw.part_out, a->bw.comp_w, a->bw.comp_b,
+                          d.bank_s, stream);
 }
 
 extern "C" int qv_unit_cga_mma_train64_smem(const qv::Dims*) {

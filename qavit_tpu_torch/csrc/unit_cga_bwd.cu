@@ -417,8 +417,9 @@ __device__ __forceinline__ void head_probs64(const bf16* qm, const bf16* k,
 // (am.base the sample's, am.vh the head's virtual head) times V, the
 // head's four output channels rounded to bf16 to out (leading dim ld, the
 // group's first channel).  A kept probability is scaled by the product
-// with 1 / keep (attn_mask_r), where the forward divides: an IEEE
-// division an element was most of this kernel's attention time.
+// with 1 / keep (attn_mask_r), as the forward's cga_attend<5, true, true>
+// scales it: an IEEE division an element was most of this kernel's
+// attention time.
 __device__ __forceinline__ void cga_head_fwd64(const bf16* q, const bf16* k,
                                                const bf16* v, int ld,
                                                const bf16* kb,

@@ -64,8 +64,10 @@
 // kept.  The batch-wide NaN guard is kept (q, the projected bank, the
 // attention output); the redo runs every tile with a zero cross
 // attention output.  Time at B=1024 on an NVIDIA H100 80GB HBM3, 700.00
-// W: PERF.md section 6 rows 4 (n = 16) and 4 @n64.
-#include "mma_ops.cuh"
+// W: PERF.md section 6 rows 4 (n = 16) and 4 @n64.  n = 64 in training:
+// cross_tail_train64_kernel (unit_cross_tail_train64.cu), a two-CTA
+// cluster a sample (row 4 @n64 train).
+#include "cross_tail_mma.cuh"
 #include "unit_cross_tail.cuh"
 
 namespace qv {
@@ -202,41 +204,6 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 
 // --- bf16: the tensor-core kernel (n = 64 eval; n = 16 eval and train) ----
 
-struct CrossTailMmaArgs {
-  CrossTailArgs f;        // the unit's arguments (its dense kernels unread)
-  // the dense kernels rounded to bf16, side by side: [C, CT_W1] holds cq,
-  // ck, cv, cp, compress_0..3, bottleneck fc1, CCF-FFN fc1 (C input rows
-  // each); [CT_HID, CT_W2] bottleneck fc2, CCF-FFN fc2
-  const bf16* w1;
-  const bf16* w2;
-};
-
-// the geometry cross_tail_mma_kernel is written for
-// (fused_kernels.cross_tail_mma_error)
-constexpr int CT_N = 64;                // rows of a tile
-constexpr int CT_C = 192, CT_H = 4;
-constexpr int CT_S = 16;                // bank rows, at most
-constexpr int CT_HID = 96;              // bottleneck and CCF-FFN hidden
-constexpr int CT_DC = 48;               // compressed width of a branch
-static_assert(CT_C / CT_H == ATT_D, "warp_attention's head width");
-static_assert(4 * CT_DC == CT_C, "the four compressed branches fill C");
-// column offsets in w1 and w2
-constexpr int CT_CQ = 0, CT_CK = CT_C, CT_CP = 3 * CT_C, CT_COMP = 4 * CT_C;
-constexpr int CT_BN1 = CT_COMP + 4 * CT_DC, CT_FC1 = CT_BN1 + CT_HID;
-constexpr int CT_W1 = CT_FC1 + CT_HID;
-constexpr int CT_BN2 = 0, CT_FC2 = CT_C, CT_W2 = 2 * CT_C;
-// leading dims: 8 bf16 past the width (ldmatrix rows in distinct banks)
-constexpr int CT_LDX = CT_C + 8, CT_LDH = CT_HID + 8, CT_LDKV = 2 * CT_C + 8;
-// shared memory, in bf16 elements
-constexpr int CT_ROWS = CT_N * CT_LDX;          // one [64, C] buffer
-constexpr int CT_STAGES = 3;                    // ring buffers
-constexpr int CT_SMEM_BYTES =
-    2 * (2 * CT_S * CT_LDX      // projected bank k, v
-         + 6 * CT_ROWS          // xn / att / fused; x / x1; 4 branch rows
-         + 2 * CT_N * CT_LDH    // hidden rows, dwconv output
-         + CT_STAGES * RING_KS * CT_LDX);  // weight slices
-static_assert(2 * RING_KS * CT_LDKV <= 2 * CT_ROWS, "the bank's kv ring");
-
 // One block per SM walks the tiles of 64 rows of the batch's [B n, C]
 // token rows: a sample of n = 64 on its 8 x 8 grid (SIDE 8), or four
 // samples of n = 16 on their 4 x 4 grids (SIDE 4).  Every product runs
@@ -248,9 +215,10 @@ static_assert(2 * RING_KS * CT_LDKV <= 2 * CT_ROWS, "the bank's kv ring");
 // zeros and stores only its samples' rows.  In training every dropout
 // mask is indexed by the element's flat index in its sample's [B, n,
 // width] layout, which a tile's row r gives as (64 tile + r) width +
-// column, and the drop-path factors by the row's sample.  TRAIN compiles
-// the masks: the n = 16 instance (eval and training, by d.train) and the
-// n = 64 training one, so that the n = 64 eval instance carries none.
+// column, and the drop-path factors by the row's sample.  Only the n = 16
+// instance compiles the masks (eval and training, by d.train), so that
+// the n = 64 eval instance carries none; n = 64 in training is
+// cross_tail_train64_kernel's (unit_cross_tail_train64.cu).
 // The buffers of one tile:
 //   xa   xn; then the cross attention rows; then the weighted concat
 //   x1   x; then x1 = x + bottleneck; then the block output
@@ -260,11 +228,12 @@ static_assert(2 * RING_KS * CT_LDKV <= 2 * CT_ROWS, "the bank's kv ring");
 //   h    bottleneck hidden; then CCF-FFN hidden, normed in place
 //   h2   the dwconv's output, normed in place
 // While the dwconv runs, cp.async brings the next tile's five inputs.
-template <int SIDE, bool TRAINS = SIDE == WS>
+template <int SIDE>
 __global__ void __launch_bounds__(NTHREADS, 1)
     cross_tail_mma_kernel(CrossTailMmaArgs m) {
   QV_SMEM_DECL
   __shared__ int bad;
+  constexpr bool TRAINS = SIDE == WS;      // the masks compiled in
   constexpr int SN = SIDE * SIDE;          // tokens of a sample
   static_assert(CT_N % SN == 0, "whole samples in a tile");
   const CrossTailArgs& a = m.f;
@@ -686,36 +655,13 @@ extern "C" int qv_unit_cross_tail_mma(const qv::CrossTailArgs* a,
     return qv::ERR_ARGS;
   const qv::CrossTailMmaArgs m{*a, static_cast<const qv::bf16*>(w1),
                                static_cast<const qv::bf16*>(w2)};
-  return n64 ? qv_launch(qv::cross_tail_mma_kernel<8, false>, m,
+  return n64 ? qv_launch(qv::cross_tail_mma_kernel<8>, m,
                          qv::CT_SMEM_BYTES, stream, d.grid)
              : qv_launch(qv::cross_tail_mma_kernel<qv::WS>, m,
                          qv::CT_SMEM_BYTES, stream, d.grid);
 }
 
 extern "C" int qv_unit_cross_tail_mma_smem(const qv::Dims*) {
-  return qv::CT_SMEM_BYTES;
-}
-
-// The bf16 tensor-core kernel in training at n = 64 on an 8x8 grid
-// (cross_tail_mma_kernel<8, true>, a tile a sample): `a` and the packed
-// weights as for qv_unit_cross_tail_mma; ERR_ARGS for any other geometry
-// or type (the wrapper checks them first, cross_tail_mma_error).
-extern "C" int qv_unit_cross_tail_mma_train64(const qv::CrossTailArgs* a,
-                                              const void* w1, const void* w2,
-                                              int is_bf16, void* stream) {
-  const qv::Dims& d = a->d;
-  if (!is_bf16 || !d.train || d.n != qv::CT_N || d.side != 8 ||
-      d.c != qv::CT_C || d.heads != qv::CT_H || d.bank_s > qv::CT_S ||
-      d.ccf_hidden != qv::CT_HID || d.bottleneck_hidden != qv::CT_HID ||
-      d.d_c != qv::CT_DC || !d.stab_ccf || !d.stab_dw || d.grid > d.B)
-    return qv::ERR_ARGS;
-  const qv::CrossTailMmaArgs m{*a, static_cast<const qv::bf16*>(w1),
-                               static_cast<const qv::bf16*>(w2)};
-  return qv_launch(qv::cross_tail_mma_kernel<8, true>, m, qv::CT_SMEM_BYTES,
-                   stream, d.grid);
-}
-
-extern "C" int qv_unit_cross_tail_mma_train64_smem(const qv::Dims*) {
   return qv::CT_SMEM_BYTES;
 }
 

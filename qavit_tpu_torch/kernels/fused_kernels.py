@@ -23,8 +23,10 @@ raises, naming the reason (:func:`kernel_geometry_error`).  At n=64 in
 bf16 the SWA, MSDA, CGA and cross/tail units run on the tensor cores, in
 eval and in training (``swa_mma_kernel``, ``msda_mma_kernel``,
 ``cga_mma_kernel``, ``cross_tail_mma_kernel``; training through their
-own C entries ``qv_unit_*_mma_train64``), and so do their backward
-kernels (``swa_bwd_mma_kernel<4>``, ``msda_bwd_mma64_kernel``,
+own C entries ``qv_unit_*_mma_train64``, the cross/tail one's
+``cross_tail_train64_kernel`` on clusters of two CTAs,
+:data:`CLUSTER_FWD`), and so do their backward kernels
+(``swa_bwd_mma_kernel<4>``, ``msda_bwd_mma64_kernel``,
 ``cga_bwd_mma64_kernel``, ``cross_tail_bwd_mma64_kernel``, on clusters of
 two CTAs, :func:`cluster_grid`; entries ``qv_unit_*_bwd_mma64``), for the
 widths :func:`swa_mma_error`,
@@ -422,7 +424,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn = getattr(lib, f"qv_{name}_scratch")
         fn.argtypes = [ctypes.POINTER(Dims)]
         fn.restype = ctypes.c_int
-    for name in CLUSTER_BWD:      # (CTAs per SM, clusters) on the card
+    for name in CLUSTERS:         # (CTAs per SM, clusters) on the card
         fn = getattr(lib, f"qv_{name}_occupancy")
         fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
         fn.restype = ctypes.c_int
@@ -698,18 +700,22 @@ def train_grid(device: torch.device, b: int) -> "Grid":
 # resident per SM (shared memory and registers allow)
 CLUSTER_BWD = {"unit_swa_bwd_mma64": 1, "unit_msda_bwd_mma64": 1,
                "unit_cross_tail_bwd_mma64": 1, "unit_cga_bwd_mma64": 2}
+# the n=64 train-mode forward entries that do, a sample a cluster
+CLUSTER_FWD = {"unit_cross_tail_mma_train64": 2}
+CLUSTERS = {**CLUSTER_BWD, **CLUSTER_FWD}
 
 
 def cluster_grid(entry: str, grid: "Grid", b: int,
                  device: Optional[torch.device] = None) -> "Grid":
-    """The launch of backward C entry ``entry`` given the train grid
-    ``grid`` (``grid.blocks``: one block a sample, at most one an SM): for
-    a two-CTA-cluster entry, as many clusters as the SMs hold at once, at
-    most one a work item (a sample; SWA's a window), each with its own
-    gradient slice.  The SMs are ``grid.blocks``, times SWA's four windows
-    a sample on ``device``'s card, at most its SMs (so at B=128 SWA's 512
-    windows fill 132 SMs); any other entry keeps ``grid``."""
-    per_sm = CLUSTER_BWD.get(entry)
+    """The launch of C entry ``entry`` (a backward, or an n=64 train-mode
+    forward) given the train grid ``grid`` (``grid.blocks``: one block a
+    sample, at most one an SM): for a two-CTA-cluster entry
+    (:data:`CLUSTERS`), as many clusters as the SMs hold at once, at most
+    one a work item (a sample; SWA's a window), each with its own slice.
+    The SMs are ``grid.blocks``, times SWA's four windows a sample on
+    ``device``'s card, at most its SMs (so at B=128 SWA's 512 windows fill
+    132 SMs); any other entry keeps ``grid``."""
+    per_sm = CLUSTERS.get(entry)
     if per_sm is None:
         return grid
     per_sample = 4 if entry == "unit_swa_bwd_mma64" else 1   # SWA: windows
@@ -917,8 +923,10 @@ def _run_mma(lc: _Launch, a, p: Params, stream, error,
     once per call, which is the kernel's own rounding of them (cp.async
     copies them as they are).  One block per SM walks the tiles of 64
     token rows (on the host, one block walks them all); in training
-    (``train``) at most ``grid.blocks``, and a unit that writes the bank
-    (``branch``) gets the partial workspace of those blocks.  Returns the
+    (``train``) at most ``grid.blocks``, or the clusters
+    :func:`cluster_grid` gives an entry of :data:`CLUSTER_FWD`, and a unit
+    that writes the bank (``branch``) gets the partial workspace of those
+    blocks (clusters).  Returns the
     guard workspace and, in training with ``branch``, the bank partials'
     sum."""
     err = error(lc.g)
@@ -927,7 +935,9 @@ def _run_mma(lc: _Launch, a, p: Params, stream, error,
     w16 = [w.to(torch.bfloat16).contiguous() for w in weights]
     lc.held += w16
     tiles = -(-lc.b * lc.g.n // 64)
-    if train is not None:
+    if entry in CLUSTER_FWD:      # clusters of two CTAs, a sample each
+        blocks = cluster_grid(entry, grid, lc.b, lc.device).blocks
+    elif train is not None:
         blocks = min(tiles, grid.blocks)
     else:
         blocks = (min(tiles, _sm_count(lc.device))

@@ -21,7 +21,9 @@ path's logits; the tensor-core primitives' self-test (ldmatrix ->
 mma.sync against A @ B) and the n=64 bf16 SWA, MSDA, CGA and cross/tail
 kernels with a short bank and with their NaN guard tripped; the four
 n=64 bf16 backwards on two-CTA clusters (their occupancy and gradients on
-two launch grids)."""
+two launch grids); the n=64 bf16 train-mode CGA and cross/tail forwards
+at B=128 and B=1024 with masks on (the cross/tail one on two-CTA
+clusters)."""
 
 from unittest import mock
 
@@ -460,3 +462,56 @@ def test_n64_cluster_backward_on_the_card(cuda, unit):
                           torch.cuda.current_stream().cuda_stream)
         assert r.ok, r
         assert K.ROUTES[entry] == 1, K.ROUTES
+
+
+@pytest.mark.parametrize("b", [128, 1024])
+@pytest.mark.parametrize("unit", ["unit_cga", "unit_cross_tail"])
+def test_n64_train_forward_on_the_card(cuda, unit, b):
+    """The n=64 bf16 train-mode CGA and cross/tail forwards (CGA: the
+    projected bank on the tensor cores, both dropouts as products, part_k
+    formed after the blocks' sum; cross/tail: a two-CTA cluster a sample,
+    two CTAs resident an SM) against the plain version with masks on at
+    B=128 and B=1024: outputs within TOLERANCE[bf16] and bank partials
+    within PARTIAL_TOLERANCE of max|plain|, one launch through the unit's
+    ``_mma_train64`` entry and no other."""
+    import ctypes
+
+    from qavit_tpu_torch.kernels import build
+    from qavit_tpu_torch.kernels import fused_ref as R
+    from qavit_tpu_torch.kernels import unit_checks as UC
+    from qavit_tpu_torch.nn.bank import GlobalBankParams
+
+    cfg = get_preset("hqavit_proc_tin").model
+    g = make_geom(cfg)
+    gen = torch.Generator().manual_seed(23)
+    p = param_tree(init_weights(QuadBlockParams(cfg, g), gen).to(cuda))
+    bank = init_weights(GlobalBankParams(cfg.bank, g.c), gen).to(cuda)
+    bankp = {k: v.detach() for k, v in bank.write_params().items()}
+    rows = [(torch.randn(1, g.bank_s, g.c, generator=gen) * 0.5).to(cuda)
+            for _ in range(2)]
+    dtype = torch.bfloat16
+    x = torch.randn(b, g.n, g.c, generator=gen).to(cuda, dtype)
+    batch = UC.unit_inputs(p, g, dtype, x, rows)[unit]
+    tr = K.UnitTrain(R.block_rng(24, 0.1, 0.1), bankp)
+    lib = K.bind(build.load().lib)
+    entry = f"{unit}_mma_train64"
+    if entry in K.CLUSTER_FWD:
+        per_sm, clusters = ctypes.c_int(), ctypes.c_int()
+        assert getattr(lib, f"qv_{entry}_occupancy")(
+            ctypes.byref(per_sm), ctypes.byref(clusters)) == 0
+        assert per_sm.value >= K.CLUSTER_FWD[entry] and clusters.value > 0
+    K.reset_launches()
+    *outs, ws = K._FWD[unit](lib, p, *batch, g, dtype,
+                             torch.cuda.current_stream().cuda_stream, tr,
+                             K.train_grid(cuda, b))
+    torch.cuda.synchronize()
+    assert K.ROUTES[entry] == 1 and sum(K.ROUTES.values()) == 1, K.ROUTES
+    assert int(ws[1]) == 0
+    with torch.no_grad():
+        ref = K.PLAIN[unit](p, *batch, g, dtype, tr)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    n = K._N_DIFF_OUT[unit]
+    parts = list(outs[n]) if len(outs) > n else []
+    out_err, part_err = UC.forward_errors(list(outs[:n]) + parts, ref, n)
+    assert out_err <= K.TOLERANCE[dtype], out_err
+    assert part_err <= UC.PARTIAL_TOLERANCE, part_err

@@ -27,7 +27,11 @@ At hqavit_tiny_in's geometry (C=192, n=64 on an 8x8 grid, four SWA
 windows, 40 pooled MSDA rows) the bf16 train-mode forwards and backward
 kernels (their own C entries, qv_unit_*_mma_train64 and
 qv_unit_*_bwd_mma64) are held the same way over 5 samples and 4 blocks,
-the four backwards on clusters of two CTAs (fused_kernels.cluster_grid:
+the cross/tail forward on 4 clusters of two CTAs (one walking two
+samples; alone at B=1 and at B=3 on two clusters, one a sample short),
+the CGA forward's partials' workspace filled with NaN first (4 blocks,
+one of two samples), the four backwards on clusters of two CTAs
+(fused_kernels.cluster_grid:
 SWA 2 clusters of 10 windows, passes of two, 3 and 2 a CTA; MSDA 2, of 3
 and 2 samples, a CTA's 2 and 1 or 1 and 1; CGA 4, one ending on a second
 sample; cross/tail 2, of 3 and 2 samples), with the guard tripped, with
@@ -41,10 +45,12 @@ barrier is NaN (test_cluster_read_before_the_partners_barrier_is_nan,
 test_pair_sums_before_the_partners_barrier_are_nan), so a missing
 barrier or exchange fails the n=64 tests."""
 
+import contextlib
 import ctypes
 import functools
 import shutil
 import subprocess
+from unittest import mock
 from pathlib import Path
 
 import pytest
@@ -346,6 +352,79 @@ def test_n64_backward_workspace_may_hold_nan(emu_lib, tin_case, unit,
     assert r.flag == 1 and r.ok, r
 
 
+def _forward_n64(emu_lib, case, unit, batch, grid, nan_at=None):
+    """The n=64 bf16 train-mode forward alone through its entry (masks on,
+    5 samples' first ``batch``) against the plain version: (output error,
+    partials error, guard flag).  With ``nan_at`` the input holds a NaN and
+    the reference is the plain version with its attention output zeroed,
+    as the guard's redo computes it."""
+    g, p, bankp, rows, x = case
+    dtype = torch.bfloat16
+    train = K.UnitTrain(R.block_rng(1234, 0.1, 0.1), bankp)
+    inputs = list(C.unit_inputs(p, g, dtype, x[:batch].to(dtype), rows)[unit])
+    if nan_at is not None:
+        lead = 1 if unit == "unit_cross_tail" else 0   # x or xn
+        inputs[lead] = inputs[lead].clone()
+        inputs[lead][nan_at] = float("nan")
+    n = K._N_DIFF_OUT[unit]
+    K.reset_launches()
+    *outs, ws = K._FWD[unit](emu_lib, p, *inputs, g, dtype, None, train, grid)
+    assert K.ROUTES[f"{unit}_mma_train64"] == 1, K.ROUTES
+    assert sum(K.ROUTES.values()) == 1, K.ROUTES
+    ctx = (mock.patch.object(R, "attention_core", C._zero_attention)
+           if nan_at is not None else contextlib.nullcontext())
+    with ctx, torch.no_grad():
+        ref = K.PLAIN[unit](p, *inputs, g, dtype, train)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    parts = list(outs[n]) if len(outs) > n else []
+    return (*C.forward_errors(list(outs[:n]) + parts, ref, n), int(ws[1]))
+
+
+@pytest.mark.parametrize("guard", [False, True], ids=["masks", "guard"])
+def test_n64_cga_forward_partials_workspace_may_hold_nan(emu_lib, tin_case,
+                                                         guard, monkeypatch):
+    """The n=64 CGA training forward stores every field of its blocks'
+    partial slices (part_v and the gate sums; part_k is formed once after
+    the blocks' sum, bank_compress_kernel): with the slices and their sum
+    filled with NaN before the launch, its outputs and partials are within
+    tolerance over 5 samples on 4 blocks (one block two samples), and with
+    the guard tripped (the last block's redo restarts every slice)."""
+    bank_write = K._bank_write
+
+    def nan_workspace(lc, *args):
+        out = bank_write(lc, *args)
+        lc.held[-1].fill_(float("nan"))        # the per-block slices
+        out.fill_(float("nan"))
+        return out
+
+    monkeypatch.setattr(K, "_bank_write", nan_workspace)
+    out_err, part_err, flag = _forward_n64(
+        emu_lib, tin_case, "unit_cga", 5, GRID64,
+        (1, 3, 5) if guard else None)
+    assert flag == int(guard)
+    assert out_err <= K.TOLERANCE[torch.bfloat16], out_err
+    assert part_err <= C.PARTIAL_TOLERANCE, part_err
+
+
+@pytest.mark.parametrize("batch,clusters,nan_at", [
+    (1, 1, None), (3, 2, None), (3, 2, (2, 3, 5))],
+    ids=["B1", "B3_short_last_cluster", "B3_guard"])
+def test_n64_cross_tail_forward_on_clusters(emu_lib, tin_case, batch,
+                                            clusters, nan_at):
+    """The n=64 cross/tail training forward on its two-CTA clusters (a
+    sample a cluster at a time, the dwconv's halo row from the partner):
+    one sample on one cluster, and three on two clusters, the last of
+    which walks one sample fewer, masks on; with the guard tripped in the
+    last sample, the last cluster redoes all three."""
+    grid = K.Grid(clusters, 2)
+    assert K.cluster_grid("unit_cross_tail_mma_train64", grid,
+                          batch).blocks == clusters
+    out_err, _, flag = _forward_n64(emu_lib, tin_case, "unit_cross_tail",
+                                    batch, grid, nan_at)
+    assert flag == int(nan_at is not None)
+    assert out_err <= K.TOLERANCE[torch.bfloat16], out_err
+
+
 @pytest.mark.parametrize("unit,width", [
     ("unit_swa", "flagship_width"), ("unit_msda", "flagship_width"),
     ("unit_cga", "flagship_width"), ("unit_swa", "tin"), ("unit_msda", "tin"),
@@ -379,12 +458,13 @@ def test_mma_forward_masks_are_the_plain_masks(emu_lib, unit, width):
 
 
 def test_cluster_grid(monkeypatch):
-    """The two-CTA-cluster backward entries launch as many clusters as
-    the train grid's SMs hold at once (SWA, MSDA and cross/tail one CTA an
-    SM, CGA two), at most one a work item (SWA's a window, four a sample;
-    the others' a sample), a gradient slice each; on a card SWA's SMs are
-    those of its windows, at most the card's; every other entry keeps the
-    train grid."""
+    """The two-CTA-cluster entries launch as many clusters as the train
+    grid's SMs hold at once (the SWA, MSDA and cross/tail backwards one CTA
+    an SM; the CGA backward and the n=64 cross/tail train-mode forward
+    two), at most one a work item (SWA's a window, four a sample;
+    the others' a sample), a slice each; on a card SWA's SMs are those of
+    its windows, at most the card's; every other entry keeps the train
+    grid."""
     big, small = K.Grid(132, 528), K.Grid(4, 2)
     for entry in ("unit_swa_bwd_mma64", "unit_msda_bwd_mma64"):
         assert K.cluster_grid(entry, big, 1024) == (66, 528)
@@ -421,8 +501,17 @@ def test_cluster_grid(monkeypatch):
     assert K.cluster_grid("unit_cga_bwd_mma64", small, 1) == (1, 2)
     assert K.cluster_grid("unit_cross_tail_bwd_mma64", K.Grid(1, 2),
                           1) == (1, 2)
+    # the n=64 train-mode cross/tail forward: two CTAs an SM, a cluster a
+    # sample, at most one an SM of the train grid
+    entry = "unit_cross_tail_mma_train64"
+    assert K.cluster_grid(entry, b128, 128, card) == (128, 528)
+    assert K.cluster_grid(entry, big, 1024, card) == (132, 528)
+    assert K.cluster_grid(entry, small, 5) == (4, 2)
+    assert K.cluster_grid(entry, small, 1) == (1, 2)
     for entry in ("unit_swa_bwd_mma", "unit_msda_bwd_mma",
-                  "unit_cga_bwd_mma", "unit_cross_tail_bwd_mma"):
+                  "unit_cga_bwd_mma", "unit_cross_tail_bwd_mma",
+                  "unit_swa_mma_train64", "unit_msda_mma_train64",
+                  "unit_cga_mma_train64"):
         assert K.cluster_grid(entry, big, 1024) is big
 
 
