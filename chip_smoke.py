@@ -96,12 +96,13 @@ it stopped:
       version, every launch through its n=64 C entry (qv_unit_*_mma_train64,
       qv_unit_*_bwd_mma64); the same with the NaN guard tripped in one
       sample, with 12 bank rows, and at B=255 (a short last pass); the
-      eight kernels' registers, spills and shared memory, and for the four
-      backwards on two-CTA clusters (swa_bwd_mma_kernel<4>,
+      eight kernels' registers, spills and shared memory, and for the
+      seven on two-CTA clusters (the four backwards swa_bwd_mma_kernel<4>,
       msda_bwd_mma64_kernel, cga_bwd_mma64_kernel,
-      cross_tail_bwd_mma64_kernel) the CTAs resident per SM and clusters
-      at once (cudaOccupancy*), then their device time at B=128 and
-      B=1024;
+      cross_tail_bwd_mma64_kernel; the forwards swa_train64_kernel,
+      msda_train64_kernel, cross_tail_train64_kernel) the CTAs resident
+      per SM and clusters at once (cudaOccupancy*), then the eight
+      kernels' device time at B=128 and B=1024;
   (n) the n=64 train path: ``qavit_tpu_torch.cli.bench --preset
       hqavit_proc_tin --train --batch-sizes 128`` with every launch count
       set to 0 just before and read just after (each of the eight kernels
@@ -816,13 +817,15 @@ def train_unit_checks_and_timing(K, cfg, g, p, dev, launches, bsz=BATCH,
             return K._BWD[unit](lib, p, *batch, g, dtype, stream, train,
                                 grid, ws, *cots)
 
-        src = f"qavit_tpu_torch/csrc/{unit}.cu"
+        kern = csrc_kernel(K, unit, g, dtype, train=True)
+        src = (f"qavit_tpu_torch/csrc/{unit}"
+               f"{'_train64' if kern.endswith('_train64_kernel') else ''}.cu")
         fwd_rows.append(kernel_row(
             f"{record_name(K, unit, g, dtype)}_train{suffix}", src,
             REPLACES[unit], launches[unit], out_abs,
             cuda_ms(fwd, iters=10), cuda_ms(plain_fwd, iters=10),
             unit_train_work(unit, g, bsz, 2, p), dtype,
-            device_ms(fwd, 10, csrc_kernel(K, unit, g, dtype, train=True))))
+            device_ms(fwd, 10, kern)))
         name = f"{unit}_bwd"
         bwd_rows.append(kernel_row(
             record_name(K, unit, g, dtype, True) + suffix,
@@ -858,8 +861,8 @@ def csrc_kernel(K, unit, g, dtype, backward=False, train=False):
              "unit_cga": K.cga_route,
              "unit_cross_tail": K.cross_tail_route}.get(unit)
     if route is not None and route(g, dtype, train).endswith("_train64"):
-        return ("cross_tail_train64_kernel" if unit == "unit_cross_tail"
-                else f"{unit[5:]}_mma_kernel")
+        return ("cga_mma_kernel" if unit == "unit_cga"
+                else f"{unit[5:]}_train64_kernel")
     if route is None or not route(g, dtype).endswith("_mma"):
         return f"{unit[5:]}_kernel"
     return "msda_mma16_kernel" if unit == "unit_msda" and g.n == 16 else (
@@ -1503,8 +1506,8 @@ def multiwindow_path(K, dev, g, p, bank):
 
 N64_TRAIN_KERNELS = (
     # (ptxas name, its C entry for the shared memory)
-    ("swa_mma_kernel<1,1>", "unit_swa_mma_train64"),
-    ("msda_mma_kernel<1>", "unit_msda_mma_train64"),
+    ("swa_train64_kernel", "unit_swa_mma_train64"),
+    ("msda_train64_kernel", "unit_msda_mma_train64"),
     ("cga_mma_kernel<1,1>", "unit_cga_mma_train64"),
     ("cross_tail_train64_kernel", "unit_cross_tail_mma_train64"),
     ("swa_bwd_mma_kernel<4>", "unit_swa_bwd_mma64"),

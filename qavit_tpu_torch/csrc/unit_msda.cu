@@ -55,6 +55,7 @@
 // (chip_smoke.py phase l, PERF.md section 6 row 2 @n64): 0.281-0.286 ms
 // per launch, 15x its bound, against 7.60-7.62 ms for the CUDA-core
 // tiled kernel in the same runs and 2.53-2.60 ms for the plain version.
+// n = 64 in training is msda_train64_kernel's (unit_msda_train64.cu).
 #include "unit_msda.cuh"
 #include "window_mma.cuh"
 
@@ -215,18 +216,9 @@ constexpr int MM_BF16 = MM_BANK + MM_ET + MM_XS + MM_REGION + MM_KCVC +
                         MM_RING;
 constexpr int MM_SMEM_BYTES =
     MM_BF16 * 2 + MM_KEEP * (1 + 2 * MM_POOL) * 4;
-static_assert(MM_C == BP_C && MM_S == BP_S && MM_N == BP_ROWS,
-              "the bank partials' widths");
-static_assert(2 * (MM_KCVC + MM_RING) >= 4 * BP_SCRATCH,
-              "the bank partials' scratch in kc | vc and the ring");
 
-// TRAIN: the training instance.  The MSDA_ATTN and MSDA_PROJ masks at
-// each element's flat index in the sample's [B, H, 64, kv] and [B, 64,
-// C] layouts (warp_attention_train replays the attention's), proj's rows
-// kept in shared memory for the bank-write partials (bank_tile_partials
-// over the sample's 64 rows, in kc | vc's and the ring's space once proj
-// is done), the block's slice stored once at the end.
-template <bool TRAIN>
+// Eval only: n = 64 in training is msda_train64_kernel's, on two-CTA
+// clusters (unit_msda_train64.cu).
 __global__ void __launch_bounds__(NTHREADS, 1)
     msda_mma_kernel(MsdaMmaArgs m) {
   QV_SMEM_DECL
@@ -249,8 +241,6 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   int* pool_n = reinterpret_cast<int*>(ring + MM_RING);
   int* pool_src = pool_n + MM_KEEP;        // [MM_KEEP][MM_POOL]
   float* pool_w = reinterpret_cast<float*>(pool_src + MM_KEEP * MM_POOL);
-  // training: the bank partials' scratch, once proj is done
-  float* scratch = reinterpret_cast<float*>(kc);
   const bf16 zero = from_f<bf16>(0.f);
 
   if (threadIdx.x == 0) bad = 0;
@@ -302,33 +292,6 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   // the warp's queries and heads in q, attention and proj
   const int mt = warp >> 1, half = warp & 1;
   const int qcol = half * (C / 2);         // first of the warp's 96 columns
-  // training: proj's dense epilogue through the proj dropout (sample b,
-  // row r), and the warp's rows from its accumulators to device memory
-  // and to att for the partials
-  auto proj_out = [&](int b, int r, int col, float acc, float bias) {
-    return rnd<bf16>(drop(d, MSDA_PROJ,
-                          (unsigned)(((size_t)b * MM_N + r) * C + col),
-                          dense_out(acc, bias)));
-  };
-  auto proj_store = [&](int b, const float (&acc)[1][12][4]) {
-    bf16* out = static_cast<bf16*>(a.out) + ((size_t)b * MM_N + mt * 16) * C;
-#pragma unroll
-    for (int j = 0; j < 12; ++j) {
-      const int col = qcol + 8 * j + 2 * t;
-      const float b0 = a.proj_b[col], b1 = a.proj_b[col + 1];
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int r = mt * 16 + g + 8 * hf;
-        const unsigned v =
-            pack_bf16x2(proj_out(b, r, col, acc[0][j][2 * hf], b0),
-                        proj_out(b, r, col + 1, acc[0][j][2 * hf + 1], b1));
-        store_bf16x2(out + (g + 8 * hf) * C + col, v);
-        store_bf16x2(att + r * MM_LDX + col, v);
-      }
-    }
-  };
-  BankSums sums;
-  if constexpr (TRAIN) bank_sums_zero(sums);
 
   if (blockIdx.x < d.B) stage_xn(blockIdx.x);
   for (int b = blockIdx.x; b < d.B; b += gridDim.x) {
@@ -426,20 +389,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         const int vh = 2 * half + hh;
-        if constexpr (TRAIN) {
-          // the sample's mask [H, 64, kv]: the warp's rows from 16 mt
-          const AttnMask am{attn_drop(d, MSDA_ATTN),
-                            (unsigned)(b * MM_H * MM_N + 16 * mt) *
-                                (MM_LK + S),
-                            vh, MM_LK + S, MM_N};
-          nan_seen |= warp_attention_train<3>(qa[hh], kt, vt, MM_LDX,
-                                              vh * MM_D, MM_LK + S, am,
-                                              att + mt * 16 * MM_LDX, MM_LDX);
-        } else {
-          nan_seen |= warp_attention<3>(qa[hh], kt, vt, MM_LDX, vh * MM_D,
-                                        MM_LK + S, att + mt * 16 * MM_LDX,
-                                        MM_LDX);
-        }
+        nan_seen |= warp_attention<3>(qa[hh], kt, vt, MM_LDX, vh * MM_D,
+                                      MM_LK + S, att + mt * 16 * MM_LDX,
+                                      MM_LDX);
       }
       if (d.guard && nan_seen) bad = 1;
     }
@@ -449,9 +401,30 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       float acc[1][12][4];
       ring_gemm<1, 12>(att + mt * 16 * MM_LDX, MM_LDX, m.proj_w16, C, C, C,
                        ring, MM_LDX, qcol, acc);
-      if constexpr (TRAIN) {
-        proj_store(b, acc);
-      } else {
+      bf16* out = static_cast<bf16*>(a.out) + ((size_t)b * MM_N + mt * 16) * C;
+#pragma unroll
+      for (int j = 0; j < 12; ++j) {
+        const int col = qcol + 8 * j + 2 * t;
+        const float b0 = a.proj_b[col], b1 = a.proj_b[col + 1];
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          store_bf16x2(out + (g + 8 * hf) * C + col,
+                       pack_bf16x2(dense_out(acc[0][j][2 * hf], b0),
+                                   dense_out(acc[0][j][2 * hf + 1], b1)));
+      }
+    }
+  }
+  if (d.guard)
+    finish_guard(a.ws, bad, [&] {
+      // the redo: a zero attention output, so every sample's rows are
+      // proj(0), computed once
+      for (int i = threadIdx.x; i < MM_N * MM_LDX; i += blockDim.x)
+        att[i] = zero;
+      __syncthreads();
+      float acc[1][12][4];
+      ring_gemm<1, 12>(att + mt * 16 * MM_LDX, MM_LDX, m.proj_w16, C, C, C,
+                       ring, MM_LDX, qcol, acc);
+      for (int b = 0; b < d.B; ++b) {
         bf16* out =
             static_cast<bf16*>(a.out) + ((size_t)b * MM_N + mt * 16) * C;
 #pragma unroll
@@ -463,56 +436,6 @@ __global__ void __launch_bounds__(NTHREADS, 1)
             store_bf16x2(out + (g + 8 * hf) * C + col,
                          pack_bf16x2(dense_out(acc[0][j][2 * hf], b0),
                                      dense_out(acc[0][j][2 * hf + 1], b1)));
-        }
-      }
-    }
-    if constexpr (TRAIN) {
-      __syncthreads();
-      bank_tile_partials<MM_N>(att, MM_LDX, MM_N, a.bw, S, scratch, sums);
-    }
-  }
-  if constexpr (TRAIN)
-    bank_store_partials(sums, a.bw, S, scratch,
-                        a.bw.part + (size_t)blockIdx.x * 2 * S * C);
-  if (d.guard)
-    finish_guard(a.ws, bad, [&] {
-      // the redo: a zero attention output, so every sample's rows are
-      // proj(0), computed once (through the proj dropout in training;
-      // there every block's partials restart here, this block summing
-      // the whole batch's)
-      for (int i = threadIdx.x; i < MM_N * MM_LDX; i += blockDim.x)
-        att[i] = zero;
-      __syncthreads();
-      float acc[1][12][4];
-      ring_gemm<1, 12>(att + mt * 16 * MM_LDX, MM_LDX, m.proj_w16, C, C, C,
-                       ring, MM_LDX, qcol, acc);
-      if constexpr (TRAIN) {
-        for (int i = threadIdx.x; i < d.grid * 2 * S * C; i += blockDim.x)
-          a.bw.part[i] = 0.f;
-        bank_sums_zero(sums);
-        for (int b = 0; b < d.B; ++b) {
-          proj_store(b, acc);
-          __syncthreads();
-          bank_tile_partials<MM_N>(att, MM_LDX, MM_N, a.bw, S, scratch,
-                                   sums);
-        }
-        bank_store_partials(sums, a.bw, S, scratch,
-                            a.bw.part + (size_t)blockIdx.x * 2 * S * C);
-      } else {
-        for (int b = 0; b < d.B; ++b) {
-          bf16* out =
-              static_cast<bf16*>(a.out) + ((size_t)b * MM_N + mt * 16) * C;
-#pragma unroll
-          for (int j = 0; j < 12; ++j) {
-            const int col = qcol + 8 * j + 2 * t;
-            const float b0 = a.proj_b[col], b1 = a.proj_b[col + 1];
-#pragma unroll
-            for (int hf = 0; hf < 2; ++hf)
-              store_bf16x2(out + (g + 8 * hf) * C + col,
-                           pack_bf16x2(dense_out(acc[0][j][2 * hf], b0),
-                                       dense_out(acc[0][j][2 * hf + 1],
-                                                 b1)));
-          }
         }
       }
     });
@@ -583,8 +506,8 @@ extern "C" int qv_unit_msda_mma(const qv::MsdaArgs* a, const void* qkv_w16,
   const qv::MsdaMmaArgs m{*a, static_cast<const qv::bf16*>(qkv_w16),
                           static_cast<const qv::bf16*>(proj_w16)};
   if (n64)
-    return qv_launch(qv::msda_mma_kernel<false>, m, qv::MM_SMEM_BYTES,
-                     stream, d.grid);
+    return qv_launch(qv::msda_mma_kernel, m, qv::MM_SMEM_BYTES, stream,
+                     d.grid);
   const int rc = d.train ? qv_launch(qv::msda_mma16_kernel<true>, m,
                                      qv::SM_MSDA_BYTES, stream, d.grid)
                          : qv_launch(qv::msda_mma16_kernel<false>, m,
@@ -599,30 +522,4 @@ extern "C" int qv_unit_msda_mma(const qv::MsdaArgs* a, const void* qkv_w16,
 extern "C" int qv_unit_msda_mma_smem(const qv::Dims* d) {
   return d != nullptr && d->n == qv::NT ? qv::SM_MSDA_BYTES
                                         : qv::MM_SMEM_BYTES;
-}
-
-// The bf16 tensor-core kernel in training at n = 64 (msda_mma_kernel<true>,
-// a sample a tile), then the reduction pass of the bank partials: `a`
-// and the weights as for qv_unit_msda_mma; ERR_ARGS for any other
-// geometry or type (the wrapper checks them first, msda_mma_error).
-extern "C" int qv_unit_msda_mma_train64(const qv::MsdaArgs* a,
-                                        const void* qkv_w16,
-                                        const void* proj_w16, int is_bf16,
-                                        void* stream) {
-  const qv::Dims& d = a->d;
-  if (!is_bf16 || !d.train || d.n != qv::MM_N || d.nw != 4 ||
-      d.msda_keep > qv::MM_KEEP || d.c != qv::MM_C || d.heads != qv::MM_H ||
-      d.lin_k != qv::MM_LK || d.bank_s > qv::MM_S || d.grid > d.B)
-    return qv::ERR_ARGS;
-  const qv::MsdaMmaArgs m{*a, static_cast<const qv::bf16*>(qkv_w16),
-                          static_cast<const qv::bf16*>(proj_w16)};
-  const int rc = qv_launch(qv::msda_mma_kernel<true>, m, qv::MM_SMEM_BYTES,
-                           stream, d.grid);
-  if (rc != 0) return rc;
-  return qv_reduce(a->bw.part, a->bw.part_out, d.grid, 2 * d.bank_s * d.c,
-                   d.rgrid, stream);
-}
-
-extern "C" int qv_unit_msda_mma_train64_smem(const qv::Dims*) {
-  return qv::MM_SMEM_BYTES;
 }

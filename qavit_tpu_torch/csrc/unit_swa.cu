@@ -41,8 +41,10 @@
 // true>: the dropout masks and the bank-write partials); float32, and
 // bf16 at widths the tensor-core kernel is not written for, run
 // swa_kernel at n = 16.  The weights reach the kernel as bf16 (the
-// wrapper's cast is the kernel's own rounding of them).  Times at B=1024
-// on an NVIDIA H100 80GB HBM3, 700.00 W: PERF.md section 6 rows 1, 1 @n64.
+// wrapper's cast is the kernel's own rounding of them).  n = 64 in
+// training is swa_train64_kernel's (unit_swa_train64.cu).  Times at
+// B=1024 on an NVIDIA H100 80GB HBM3, 700.00 W: PERF.md section 6 rows 1,
+// 1 @n64.
 #include "unit_swa.cuh"
 #include "window_mma.cuh"
 
@@ -170,29 +172,3 @@ extern "C" int qv_unit_swa_mma_smem(const qv::Dims*) {
   return qv::SM_SMEM_BYTES;
 }
 
-// The bf16 tensor-core kernel in training at n = 64 (swa_mma_kernel<1,
-// true>, a tile a sample's four windows), then the reduction pass of the
-// bank partials: `a` and the weights as for qv_unit_swa_mma; ERR_ARGS for
-// any other geometry or type (the wrapper checks them first,
-// swa_mma_error).
-extern "C" int qv_unit_swa_mma_train64(const qv::SwaArgs* a,
-                                       const void* qkv_w16,
-                                       const void* proj_w16, int is_bf16,
-                                       void* stream) {
-  const qv::Dims& d = a->d;
-  if (!is_bf16 || !d.train || d.n != qv::SM_N || d.nw != qv::SM_NW ||
-      d.side != qv::SM_SIDE || d.c != qv::SM_C || d.heads != qv::SM_H ||
-      d.lin_k != qv::SM_LK || d.bank_s > qv::SM_S || d.grid > d.B)
-    return qv::ERR_ARGS;
-  const qv::SwaMmaArgs m{*a, static_cast<const qv::bf16*>(qkv_w16),
-                         static_cast<const qv::bf16*>(proj_w16)};
-  const int rc = qv_launch(qv::swa_mma_kernel<1, true>, m,
-                           qv::SM_SMEM_BYTES, stream, d.grid);
-  if (rc != 0) return rc;
-  return qv_reduce(a->bw.part, a->bw.part_out, d.grid, 2 * d.bank_s * d.c,
-                   d.rgrid, stream);
-}
-
-extern "C" int qv_unit_swa_mma_train64_smem(const qv::Dims*) {
-  return qv::SM_SMEM_BYTES;
-}

@@ -39,8 +39,10 @@
 // the window-major rows of a tile hold in another order that its sums
 // do not see) are kept per thread over the block's tiles, and the
 // block's slice is stored once at the end, for the reduction pass to
-// sum.  SWA trains at both geometries (swa_mma_kernel<1, true> at n =
-// 64), MSDA at n = 16 (at n = 64 it is msda_mma_kernel<true>).
+// sum.  Both train at n = 16 only (swa_mma_kernel<4, true>,
+// msda_mma16_kernel<true>): at n = 64 training is swa_train64_kernel and
+// msda_train64_kernel's, on two-CTA clusters (unit_swa_train64.cu,
+// unit_msda_train64.cu), and <1, true> is not instantiated.
 #pragma once
 #include "mma_ops.cuh"
 
@@ -101,6 +103,7 @@ __device__ __forceinline__ void window_mma(const M& m) {
   constexpr int SN = SM_N / NS;            // rows of a sample
   static_assert(NS == 1 || NS == 4, "one sample of 64 or four of 16");
   static_assert(!MSDA || NS == 4, "MSDA at n = 64 is msda_mma_kernel");
+  static_assert(NS == 4 || !TRAIN, "n = 64 trains in swa_train64_kernel");
   constexpr int ATTN_KEY = MSDA ? MSDA_ATTN : SWA_ATTN;
   constexpr int PROJ_KEY = MSDA ? MSDA_PROJ : SWA_PROJ;
   QV_SMEM_DECL

@@ -23,8 +23,9 @@ raises, naming the reason (:func:`kernel_geometry_error`).  At n=64 in
 bf16 the SWA, MSDA, CGA and cross/tail units run on the tensor cores, in
 eval and in training (``swa_mma_kernel``, ``msda_mma_kernel``,
 ``cga_mma_kernel``, ``cross_tail_mma_kernel``; training through their
-own C entries ``qv_unit_*_mma_train64``, the cross/tail one's
-``cross_tail_train64_kernel`` on clusters of two CTAs,
+own C entries ``qv_unit_*_mma_train64``, the SWA, MSDA and cross/tail
+ones' ``swa_train64_kernel``, ``msda_train64_kernel`` and
+``cross_tail_train64_kernel`` on clusters of two CTAs a sample,
 :data:`CLUSTER_FWD`), and so do their backward kernels
 (``swa_bwd_mma_kernel<4>``, ``msda_bwd_mma64_kernel``,
 ``cga_bwd_mma64_kernel``, ``cross_tail_bwd_mma64_kernel``, on clusters of
@@ -701,7 +702,8 @@ def train_grid(device: torch.device, b: int) -> "Grid":
 CLUSTER_BWD = {"unit_swa_bwd_mma64": 1, "unit_msda_bwd_mma64": 1,
                "unit_cross_tail_bwd_mma64": 1, "unit_cga_bwd_mma64": 2}
 # the n=64 train-mode forward entries that do, a sample a cluster
-CLUSTER_FWD = {"unit_cross_tail_mma_train64": 2}
+CLUSTER_FWD = {"unit_swa_mma_train64": 2, "unit_msda_mma_train64": 2,
+               "unit_cross_tail_mma_train64": 2}
 CLUSTERS = {**CLUSTER_BWD, **CLUSTER_FWD}
 
 

@@ -70,8 +70,11 @@ def _canon(name: str) -> str:
 
 
 def _defaulted(name: str) -> str:
-    """The name with a template's trailing bool arguments dropped."""
-    return re.sub(r"(, (true|false))+>", ">", name)
+    """The name with a template's trailing bool arguments dropped (a
+    template of one bool argument, the whole argument list, and the
+    return type the demangler gives a template)."""
+    name = re.sub(r"(, (true|false))+>", ">", name)
+    return re.sub(r"^void (.*)<(true|false)>$", r"\1", name)
 
 
 def pairs(mine: dict, theirs: dict):
@@ -79,7 +82,7 @@ def pairs(mine: dict, theirs: dict):
     same name, or, for a name only this one holds, the other's kernels
     whose names are the same once a template's trailing bool arguments
     are dropped (an argument one tree spells out and the other
-    defaults)."""
+    defaults, or a bool parameter one tree no longer has)."""
     out = [(n, [n]) for n in sorted(mine) if n in theirs]
     rest = [n for n in theirs if n not in mine]
     for n in sorted(set(mine) - set(theirs)):
@@ -117,6 +120,15 @@ def main(argv=None) -> int:
         print(f"sass {name} (there {other_name}): {len(mine[name])} "
               f"instructions here, {len(theirs[other_name])} there, "
               f"{'identical' if same else 'DIFFERENT'}", flush=True)
+        if not same:       # the first instructions that differ
+            diff = [(i, a, b) for i, (a, b) in
+                    enumerate(zip(mine[name], theirs[other_name])) if a != b]
+            for i, a, b in diff[:4]:
+                print(f"  {i}: here {a} | there {b}", flush=True)
+            calls = sum(a.startswith("CALL") and b.startswith("CALL")
+                        for _, a, b in diff)
+            print(f"  {len(diff)} instructions differ, {calls} of them "
+                  f"calls' targets", flush=True)
     return 1 if differ else 0
 
 

@@ -14,7 +14,7 @@ root of each tree in turns, in one call on the card:
 
 With ``--stamps`` it also builds the kernels with ``-DQV_STAMPS`` into a
 build directory of its own and prints the phase breakdown of the n=64
-backwards and of the CGA and cross/tail n=64 train-mode forwards at both
+backwards and of the four n=64 train-mode forwards at both
 batches: block 0's time in each phase of one launch (``QV_STAMP`` in
 ``csrc/common.cuh``); and the SWA and MSDA backwards' phases with the work
 a CTA has at B=128 (two passes of two windows; one sample) on 16 SMs only
@@ -39,7 +39,8 @@ FWD_CASES = (("hqavit_proc_tin", 128, True), ("hqavit_proc_tin", 1024, True),
              ("hqavit_c100", 1024, False))
 # the forwards whose n=64 train-mode phases --stamps prints, by the name of
 # their stamps array
-FWD_STAMPS = {"unit_cga": "cga_fwd", "unit_cross_tail": "cross_tail_fwd"}
+FWD_STAMPS = {"unit_swa": "swa_fwd", "unit_msda": "msda_fwd",
+              "unit_cga": "cga_fwd", "unit_cross_tail": "cross_tail_fwd"}
 
 
 def setup(preset, b, dev):
@@ -147,8 +148,8 @@ def _time_forwards(tag, lib, dev, cases=FWD_CASES) -> None:
 
 
 def _fwd_stamps(tag, kl, dev) -> None:
-    """The CGA and cross/tail n=64 train-mode forwards' phases in one
-    launch, from the stamps build."""
+    """The n=64 train-mode forwards' phases in one launch
+    (:data:`FWD_STAMPS`), from the stamps build."""
     import torch
 
     from qavit_tpu_torch.kernels import fused_kernels as K

@@ -21,8 +21,8 @@ path's logits; the tensor-core primitives' self-test (ldmatrix ->
 mma.sync against A @ B) and the n=64 bf16 SWA, MSDA, CGA and cross/tail
 kernels with a short bank and with their NaN guard tripped; the four
 n=64 bf16 backwards on two-CTA clusters (their occupancy and gradients on
-two launch grids); the n=64 bf16 train-mode CGA and cross/tail forwards
-at B=128 and B=1024 with masks on (the cross/tail one on two-CTA
+two launch grids); the four n=64 bf16 train-mode forwards at B=128 and
+B=1024 with masks on (the SWA, MSDA and cross/tail ones on two-CTA
 clusters)."""
 
 from unittest import mock
@@ -465,12 +465,13 @@ def test_n64_cluster_backward_on_the_card(cuda, unit):
 
 
 @pytest.mark.parametrize("b", [128, 1024])
-@pytest.mark.parametrize("unit", ["unit_cga", "unit_cross_tail"])
+@pytest.mark.parametrize("unit", ["unit_swa", "unit_msda", "unit_cga",
+                                  "unit_cross_tail"])
 def test_n64_train_forward_on_the_card(cuda, unit, b):
-    """The n=64 bf16 train-mode CGA and cross/tail forwards (CGA: the
-    projected bank on the tensor cores, both dropouts as products, part_k
-    formed after the blocks' sum; cross/tail: a two-CTA cluster a sample,
-    two CTAs resident an SM) against the plain version with masks on at
+    """The n=64 bf16 train-mode forwards (CGA: the projected bank on the
+    tensor cores, both dropouts as products, part_k formed after the
+    blocks' sum; SWA, MSDA and cross/tail: a two-CTA cluster a sample, two
+    CTAs resident an SM) against the plain version with masks on at
     B=128 and B=1024: outputs within TOLERANCE[bf16] and bank partials
     within PARTIAL_TOLERANCE of max|plain|, one launch through the unit's
     ``_mma_train64`` entry and no other."""

@@ -27,10 +27,11 @@ At hqavit_tiny_in's geometry (C=192, n=64 on an 8x8 grid, four SWA
 windows, 40 pooled MSDA rows) the bf16 train-mode forwards and backward
 kernels (their own C entries, qv_unit_*_mma_train64 and
 qv_unit_*_bwd_mma64) are held the same way over 5 samples and 4 blocks,
-the cross/tail forward on 4 clusters of two CTAs (one walking two
-samples; alone at B=1 and at B=3 on two clusters, one a sample short),
-the CGA forward's partials' workspace filled with NaN first (4 blocks,
-one of two samples), the four backwards on clusters of two CTAs
+the SWA, MSDA and cross/tail forwards on 4 clusters of two CTAs (one
+walking two samples; alone at B=1 and at B=3 on two clusters, one a
+sample short), the SWA, MSDA and CGA forwards' partials' workspace
+filled with NaN first (4 blocks or clusters, one of two samples), the
+four backwards on clusters of two CTAs
 (fused_kernels.cluster_grid:
 SWA 2 clusters of 10 windows, passes of two, 3 and 2 a CTA; MSDA 2, of 3
 and 2 samples, a CTA's 2 and 1 or 1 and 1; CGA 4, one ending on a second
@@ -380,15 +381,13 @@ def _forward_n64(emu_lib, case, unit, batch, grid, nan_at=None):
     return (*C.forward_errors(list(outs[:n]) + parts, ref, n), int(ws[1]))
 
 
-@pytest.mark.parametrize("guard", [False, True], ids=["masks", "guard"])
-def test_n64_cga_forward_partials_workspace_may_hold_nan(emu_lib, tin_case,
-                                                         guard, monkeypatch):
-    """The n=64 CGA training forward stores every field of its blocks'
-    partial slices (part_v and the gate sums; part_k is formed once after
-    the blocks' sum, bank_compress_kernel): with the slices and their sum
-    filled with NaN before the launch, its outputs and partials are within
-    tolerance over 5 samples on 4 blocks (one block two samples), and with
-    the guard tripped (the last block's redo restarts every slice)."""
+def _forward_n64_nan_partials(emu_lib, case, unit, guard, monkeypatch):
+    """_forward_n64 over 5 samples on GRID64 with the per-block (or
+    per-cluster) partial slices and their sum filled with NaN before the
+    launch, the guard tripped in sample 1 or not: every field of every
+    slice must be stored (part_v and the gate sums; part_k is formed once
+    after the slices' sum, bank_compress_kernel), the redo restarting
+    every slice.  Outputs and partials within tolerance."""
     bank_write = K._bank_write
 
     def nan_workspace(lc, *args):
@@ -399,11 +398,32 @@ def test_n64_cga_forward_partials_workspace_may_hold_nan(emu_lib, tin_case,
 
     monkeypatch.setattr(K, "_bank_write", nan_workspace)
     out_err, part_err, flag = _forward_n64(
-        emu_lib, tin_case, "unit_cga", 5, GRID64,
-        (1, 3, 5) if guard else None)
+        emu_lib, case, unit, 5, GRID64, (1, 3, 5) if guard else None)
     assert flag == int(guard)
     assert out_err <= K.TOLERANCE[torch.bfloat16], out_err
     assert part_err <= C.PARTIAL_TOLERANCE, part_err
+
+
+@pytest.mark.parametrize("guard", [False, True], ids=["masks", "guard"])
+def test_n64_cga_forward_partials_workspace_may_hold_nan(emu_lib, tin_case,
+                                                         guard, monkeypatch):
+    """The n=64 CGA training forward stores every field of its blocks'
+    partial slices: 5 samples on 4 blocks (one block two samples), with
+    masks, and with the guard tripped (the last block's redo)."""
+    _forward_n64_nan_partials(emu_lib, tin_case, "unit_cga", guard,
+                              monkeypatch)
+
+
+@pytest.mark.parametrize("guard", [False, True], ids=["masks", "guard"])
+@pytest.mark.parametrize("unit", ["unit_swa", "unit_msda"])
+def test_n64_window_forward_partials_workspace_may_hold_nan(
+        emu_lib, tin_case, unit, guard, monkeypatch):
+    """The n=64 SWA and MSDA training forwards on two-CTA clusters store
+    every field of their clusters' partial slices (the pair's sums in
+    rank order): 5 samples on 4 clusters (one cluster two samples), with
+    masks, and with the guard tripped (the last cluster's redo zeroes
+    every other slice)."""
+    _forward_n64_nan_partials(emu_lib, tin_case, unit, guard, monkeypatch)
 
 
 @pytest.mark.parametrize("batch,clusters,nan_at", [
@@ -423,6 +443,29 @@ def test_n64_cross_tail_forward_on_clusters(emu_lib, tin_case, batch,
                                     batch, grid, nan_at)
     assert flag == int(nan_at is not None)
     assert out_err <= K.TOLERANCE[torch.bfloat16], out_err
+
+
+@pytest.mark.parametrize("batch,clusters,nan_at", [
+    (1, 1, None), (3, 2, None), (3, 2, (2, 3, 5))],
+    ids=["B1", "B3_short_last_cluster", "B3_guard"])
+@pytest.mark.parametrize("unit", ["unit_swa", "unit_msda"])
+def test_n64_window_forward_on_clusters(emu_lib, tin_case, unit, batch,
+                                        clusters, nan_at):
+    """The n=64 SWA and MSDA training forwards on their two-CTA clusters
+    (a sample a cluster at a time; SWA's CTAs two windows each, MSDA's
+    kc | vc formed half by each CTA and exchanged, the gate's softmax
+    through the pair's maxima and sums): one sample on one cluster, and
+    three on two clusters, the last of which walks one sample fewer, masks
+    on; with the guard tripped in the last sample, the last cluster redoes
+    all three.  Outputs and bank partials within tolerance."""
+    grid = K.Grid(clusters, 2)
+    assert K.cluster_grid(f"{unit}_mma_train64", grid,
+                          batch).blocks == clusters
+    out_err, part_err, flag = _forward_n64(emu_lib, tin_case, unit, batch,
+                                           grid, nan_at)
+    assert flag == int(nan_at is not None)
+    assert out_err <= K.TOLERANCE[torch.bfloat16], out_err
+    assert part_err <= C.PARTIAL_TOLERANCE, part_err
 
 
 @pytest.mark.parametrize("unit,width", [
@@ -460,8 +503,8 @@ def test_mma_forward_masks_are_the_plain_masks(emu_lib, unit, width):
 def test_cluster_grid(monkeypatch):
     """The two-CTA-cluster entries launch as many clusters as the train
     grid's SMs hold at once (the SWA, MSDA and cross/tail backwards one CTA
-    an SM; the CGA backward and the n=64 cross/tail train-mode forward
-    two), at most one a work item (SWA's a window, four a sample;
+    an SM; the CGA backward and the n=64 SWA, MSDA and cross/tail
+    train-mode forwards two), at most one a work item (SWA's a window, four a sample;
     the others' a sample), a slice each; on a card SWA's SMs are those of
     its windows, at most the card's; every other entry keeps the train
     grid."""
@@ -501,16 +544,16 @@ def test_cluster_grid(monkeypatch):
     assert K.cluster_grid("unit_cga_bwd_mma64", small, 1) == (1, 2)
     assert K.cluster_grid("unit_cross_tail_bwd_mma64", K.Grid(1, 2),
                           1) == (1, 2)
-    # the n=64 train-mode cross/tail forward: two CTAs an SM, a cluster a
-    # sample, at most one an SM of the train grid
-    entry = "unit_cross_tail_mma_train64"
-    assert K.cluster_grid(entry, b128, 128, card) == (128, 528)
-    assert K.cluster_grid(entry, big, 1024, card) == (132, 528)
-    assert K.cluster_grid(entry, small, 5) == (4, 2)
-    assert K.cluster_grid(entry, small, 1) == (1, 2)
+    # the n=64 train-mode SWA, MSDA and cross/tail forwards: two CTAs an
+    # SM, a cluster a sample, at most one an SM of the train grid
+    for entry in ("unit_swa_mma_train64", "unit_msda_mma_train64",
+                  "unit_cross_tail_mma_train64"):
+        assert K.cluster_grid(entry, b128, 128, card) == (128, 528)
+        assert K.cluster_grid(entry, big, 1024, card) == (132, 528)
+        assert K.cluster_grid(entry, small, 5) == (4, 2)
+        assert K.cluster_grid(entry, small, 1) == (1, 2)
     for entry in ("unit_swa_bwd_mma", "unit_msda_bwd_mma",
                   "unit_cga_bwd_mma", "unit_cross_tail_bwd_mma",
-                  "unit_swa_mma_train64", "unit_msda_mma_train64",
                   "unit_cga_mma_train64"):
         assert K.cluster_grid(entry, big, 1024) is big
 
