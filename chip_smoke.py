@@ -115,7 +115,8 @@ it stopped:
       plain version, and each n=64 train kernel's time on the device and
       per call against its plain version and bound;
   (o) the data path: ``load_dataset("proc100_hard")`` generated into a
-      temporary root (seconds, shapes, dtypes, label range, class counts,
+      temporary root that phase (p) reuses (seconds, shapes, dtypes,
+      label range, class counts,
       the val arrays' sha256, not gated: numpy's vectorised cos may differ
       by an ulp between CPUs); ``augment_batch`` under the
       proc100_hard_hqa pipeline on the card at B=256 and B=1024 (finite,
@@ -132,7 +133,24 @@ it stopped:
       memory; at B=1024 one step traced: the device's busy time and idle
       share); ``qavit_tpu_torch.cli.evaluate --preset
       hqavit_proc100_hard`` over the whole 10,000-image val split (seed
-      weights: ~1% top-1; each forward unit 8 launches per forward).
+      weights: ~1% top-1; each forward unit 8 launches per forward);
+  (p) the train loop on phase (o)'s data: ``qavit_tpu_torch.cli.train
+      --preset hqavit_proc100_hard --epochs 2 --max-steps-per-epoch 4``
+      into temporary checkpoint and log directories, with every launch
+      count set to 0 just before and read just after (each unit's
+      forward 8 times per step and per validation forward, live and EMA,
+      its backward 8 times per step, all through the tensor-core
+      entries), ``training_metrics.json`` with exactly the JAX keys, 2
+      finite epochs, ``best_model`` and ``best_model_ema`` with their
+      ``meta.json``, the bank count 24 a step; then resume on the card:
+      4 steps uninterrupted twice against 2 steps, ``save_train_state``,
+      ``restore_train_state`` into a freshly built state and 2 more, the
+      same weights and batches, the resumed run's distance from an
+      uninterrupted one held to RESUME_FACTOR x the two uninterrupted
+      runs' distance + RESUME_SLACK; then ``cli.evaluate --checkpoint
+      <best_model> --tta --batches 2`` (a finite TTA top-1; the five
+      views' forwards launch each forward unit 8 times); each step's
+      seconds.
 
 Prints the kernels' JSON record and the card's name and power limit
 before the last line, and ends with
@@ -148,6 +166,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -209,6 +228,18 @@ DATA_STEPS = 5                      # phase (o): timed steps after one warm-up
 DATA_SPLITS = (50000, 10000)        # phase (o): proc100_hard's train, val
 DATA_EVAL_BATCH = 1024              # phase (o): cli.evaluate's batch
 AUG_TOLERANCE = 2e-3                # phase (o): card vs CPU, normalised units
+LOOP_EPOCHS = 2                     # phase (p): cli.train's epochs
+LOOP_STEPS = 4                      # phase (p): steps per epoch
+RESUME_STEPS = 4                    # phase (p): saved and restored halfway
+TTA_BATCHES = 2                     # phase (p): cli.evaluate --tta batches
+# phase (p): the resumed run's distance from an uninterrupted run may be
+# at most RESUME_FACTOR x the two uninterrupted runs' distance from each
+# other plus RESUME_SLACK (relative to each tensor's largest |value|):
+# zero on a deterministic card; where the kernels' float32 atomics sum in
+# another order from run to run, two pairs of runs land apart by a
+# similar amount, which the factor 2 allows
+RESUME_FACTOR = 2.0
+RESUME_SLACK = 1e-6
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"torch.float32": 67e12, "torch.bfloat16": 989e12}
 REPLACES = {
@@ -1857,11 +1888,10 @@ def data_train(K, dev, preset, aug, images, labels, batch, aug_ms):
     return ms, plain_ms, mem
 
 
-def data_path(K, dev):
-    """Phase (o): generate proc100_hard, augment it on the card, train on
-    it, evaluate its val split through the CLI."""
+def data_path(K, dev, root):
+    """Phase (o): generate proc100_hard into ``root``, augment it on the
+    card, train on it, evaluate its val split through the CLI."""
     import hashlib
-    import tempfile
 
     import numpy as np
     import torch
@@ -1875,61 +1905,275 @@ def data_path(K, dev):
     t_phase = time.perf_counter()
     preset = get_preset(DATA_PRESET)
     pipe = get_pipeline(preset.dataset)
-    with tempfile.TemporaryDirectory(prefix="qv_data_") as root:
-        say(f"phase (o) step 1: load_dataset({pipe.base_dataset!r}) into a "
-            f"temporary root")
-        t = time.perf_counter()
-        ds = load_dataset(pipe.base_dataset, root)
-        gen_s = time.perf_counter() - t
-        digest = hashlib.sha256(ds.test_images.tobytes()
-                                + ds.test_labels.tobytes()).hexdigest()
-        counts = np.bincount(ds.train_labels, minlength=ds.num_classes)
-        print(f"data: generated and cached in {gen_s:.1f} s: train "
-              f"{ds.train_images.shape} {ds.train_images.dtype}, val "
-              f"{ds.test_images.shape} {ds.test_images.dtype}, labels "
-              f"{ds.train_labels.dtype} in [{ds.train_labels.min()}, "
-              f"{ds.train_labels.max()}], class counts {counts.min()}-"
-              f"{counts.max()}, val sha256 {digest}", flush=True)
-        ok = (ds.train_images.shape == (DATA_SPLITS[0], 32, 32, 3)
-              and ds.test_images.shape == (DATA_SPLITS[1], 32, 32, 3)
-              and ds.train_images.dtype == ds.test_images.dtype == np.uint8
-              and ds.train_labels.dtype == ds.test_labels.dtype == np.int32
-              and 0 <= min(ds.train_labels.min(), ds.test_labels.min())
-              and max(ds.train_labels.max(), ds.test_labels.max()) < 100
-              and not ds.synthetic)
-        if not ok:
-            raise AssertionError("proc100_hard: unexpected shapes, dtypes or "
-                                 "labels")
-        # device-resident, as JAX keeps a dataset of 2 GiB or less
-        images = torch.from_numpy(ds.train_images).to(dev)
-        labels = torch.from_numpy(ds.train_labels).long().to(dev)
-        say("phase (o) step 2: augment_batch on the card")
-        aug_ms = augment_checks(A, pipe.aug, images, dev)
-        say("phase (o) step 3: train on augmented batches")
-        for b in DATA_BATCHES:
-            data_train(K, dev, preset, pipe.aug, images, labels, b,
-                       aug_ms[b])
-            torch.cuda.empty_cache()
-        del images, labels
-        say("phase (o) step 4: cli.evaluate over the val split")
-        reset_launches()
-        r = evaluate.main(["--preset", DATA_PRESET, "--data-root", root,
-                           "--batch-size", str(DATA_EVAL_BATCH)])
-        launches = launch_counts()
-        print(f"data eval: {r['count']} images, top-1 {r['top1']:.2f}% "
-              f"(seed weights), top-5 {r['top5']:.2f}%, loss "
-              f"{r['loss']:.4f}, {r['img_per_s']:.1f} img/s (host clock); "
-              f"launches {launches}; card {card_line()}", flush=True)
-        if not (r["count"] == DATA_SPLITS[1] and math.isfinite(r["loss"])):
-            raise AssertionError(f"data eval result out of range: {r}")
-        # the smoke forward, one untimed batch per shape, the batches
-        forwards = 1 + 2 + math.ceil(DATA_SPLITS[1] / DATA_EVAL_BATCH)
-        for name, n in launches.items():
-            want = preset.model.depth * forwards if name in K.UNITS else 0
-            if n != want:
-                raise AssertionError(f"data eval {name}: {n} launches, "
-                                     f"expected {want}")
+    say(f"phase (o) step 1: load_dataset({pipe.base_dataset!r}) into a "
+        f"temporary root")
+    t = time.perf_counter()
+    ds = load_dataset(pipe.base_dataset, root)
+    gen_s = time.perf_counter() - t
+    digest = hashlib.sha256(ds.test_images.tobytes()
+                            + ds.test_labels.tobytes()).hexdigest()
+    counts = np.bincount(ds.train_labels, minlength=ds.num_classes)
+    print(f"data: generated and cached in {gen_s:.1f} s: train "
+          f"{ds.train_images.shape} {ds.train_images.dtype}, val "
+          f"{ds.test_images.shape} {ds.test_images.dtype}, labels "
+          f"{ds.train_labels.dtype} in [{ds.train_labels.min()}, "
+          f"{ds.train_labels.max()}], class counts {counts.min()}-"
+          f"{counts.max()}, val sha256 {digest}", flush=True)
+    ok = (ds.train_images.shape == (DATA_SPLITS[0], 32, 32, 3)
+          and ds.test_images.shape == (DATA_SPLITS[1], 32, 32, 3)
+          and ds.train_images.dtype == ds.test_images.dtype == np.uint8
+          and ds.train_labels.dtype == ds.test_labels.dtype == np.int32
+          and 0 <= min(ds.train_labels.min(), ds.test_labels.min())
+          and max(ds.train_labels.max(), ds.test_labels.max()) < 100
+          and not ds.synthetic)
+    if not ok:
+        raise AssertionError("proc100_hard: unexpected shapes, dtypes or "
+                             "labels")
+    # device-resident, as JAX keeps a dataset of 2 GiB or less
+    images = torch.from_numpy(ds.train_images).to(dev)
+    labels = torch.from_numpy(ds.train_labels).long().to(dev)
+    say("phase (o) step 2: augment_batch on the card")
+    aug_ms = augment_checks(A, pipe.aug, images, dev)
+    say("phase (o) step 3: train on augmented batches")
+    for b in DATA_BATCHES:
+        data_train(K, dev, preset, pipe.aug, images, labels, b,
+                   aug_ms[b])
+        torch.cuda.empty_cache()
+    del images, labels
+    say("phase (o) step 4: cli.evaluate over the val split")
+    reset_launches()
+    r = evaluate.main(["--preset", DATA_PRESET, "--data-root", root,
+                       "--batch-size", str(DATA_EVAL_BATCH)])
+    launches = launch_counts()
+    print(f"data eval: {r['count']} images, top-1 {r['top1']:.2f}% "
+          f"(seed weights), top-5 {r['top5']:.2f}%, loss "
+          f"{r['loss']:.4f}, {r['img_per_s']:.1f} img/s (host clock); "
+          f"launches {launches}; card {card_line()}", flush=True)
+    if not (r["count"] == DATA_SPLITS[1] and math.isfinite(r["loss"])):
+        raise AssertionError(f"data eval result out of range: {r}")
+    # the smoke forward, one untimed batch per shape, the batches
+    forwards = 1 + 2 + math.ceil(DATA_SPLITS[1] / DATA_EVAL_BATCH)
+    for name, n in launches.items():
+        want = preset.model.depth * forwards if name in K.UNITS else 0
+        if n != want:
+            raise AssertionError(f"data eval {name}: {n} launches, "
+                                 f"expected {want}")
     print(f"phase (o): {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def _state_tensors(state) -> dict:
+    """Every tensor of a train state that a resume must restore."""
+    named = dict(state.model.named_parameters())
+    out = {f"param {n}": named[n].detach() for n in state.names}
+    out.update({f"buffer {n}": b for n, b in
+                state.model.named_buffers()})
+    out.update({f"mu {n}": t for n, t in zip(state.names, state.opt.mu)})
+    out.update({f"nu {n}": t for n, t in zip(state.names, state.opt.nu)})
+    out.update({f"ema {n}": t for n, t in state.ema_params.items()})
+    out["bank_count"] = state.bank_count
+    return out
+
+
+def _run_distance(a, b) -> float:
+    """The largest difference of two runs' state tensors, each relative
+    to its tensor's largest |value| (losses included)."""
+    worst = 0.0
+    for k in a:
+        x, y = a[k].double(), b[k].double()
+        scale = max(x.abs().max().item(), 1e-12)
+        worst = max(worst, (x - y).abs().max().item() / scale)
+    return worst
+
+
+def resume_check(dev, root):
+    """Phase (p) step 2: RESUME_STEPS uninterrupted steps (twice) against
+    half of them, save_train_state, restore_train_state into a freshly
+    built state, then the other half, all from the same weights and
+    batches; returns the two distances."""
+    import torch
+
+    from qavit_tpu_torch.ckpt.checkpoint import (restore_train_state,
+                                                 save_train_state)
+    from qavit_tpu_torch.cli.train import aug_seed
+    from qavit_tpu_torch.configs import get_preset
+    from qavit_tpu_torch.data import augment as A
+    from qavit_tpu_torch.data.datasets import load_dataset
+    from qavit_tpu_torch.data.pipelines import get_pipeline
+    from qavit_tpu_torch.nn.models import build_model
+    from qavit_tpu_torch.train.optim import make_schedule
+    from qavit_tpu_torch.train.state import create_train_state
+    from qavit_tpu_torch.train.steps import make_train_step
+
+    preset = get_preset(DATA_PRESET)
+    cfg, tc = preset.model, preset.train
+    pipe = get_pipeline(preset.dataset)
+    ds = load_dataset(pipe.base_dataset, root)
+    b = tc.batch_size
+    images = torch.from_numpy(ds.train_images[:RESUME_STEPS * b]).to(dev)
+    labels = torch.from_numpy(ds.train_labels[:RESUME_STEPS * b]).long()
+    batches = [(A.augment_batch(
+        images[i * b:(i + 1) * b], pipe.aug,
+        torch.Generator(device=dev).manual_seed(aug_seed(tc.seed + 1, i))),
+        labels[i * b:(i + 1) * b].to(dev)) for i in range(RESUME_STEPS)]
+    step = make_train_step(cfg, tc, make_schedule(tc, 195))
+
+    def fresh():
+        return create_train_state(build_model(cfg, dev, seed=tc.seed),
+                                  tc.use_ema, tc.ema_decay)
+
+    def run(state, lo, hi):
+        return [step(state, *batches[i], tc.seed + 1)["loss"]
+                for i in range(lo, hi)]
+
+    def record(state, losses):
+        out = {k: v.clone() for k, v in _state_tensors(state).items()}
+        out["losses"] = torch.stack([x.float() for x in losses])
+        return out
+
+    t0 = time.perf_counter()
+    runs = []
+    for _ in range(2):
+        state = fresh()
+        runs.append(record(state, run(state, 0, RESUME_STEPS)))
+    half = RESUME_STEPS // 2
+    state = fresh()
+    losses = run(state, 0, half)
+    with tempfile.TemporaryDirectory(prefix="qv_resume_") as ck:
+        t = time.perf_counter()
+        nbytes = save_train_state(ck, state, cfg, tc)
+        save_s = time.perf_counter() - t
+        del state
+        t = time.perf_counter()
+        state, _ = restore_train_state(ck, fresh())
+        load_s = time.perf_counter() - t
+    losses += run(state, half, RESUME_STEPS)
+    resumed = record(state, losses)
+    torch.cuda.synchronize()
+    d_ref = _run_distance(runs[0], runs[1])
+    d_res = _run_distance(runs[0], resumed)
+    bank = int(state.bank_count)
+    print(f"resume on the card ({DATA_PRESET}, bf16, B={b}): "
+          f"{RESUME_STEPS} steps uninterrupted twice, and {half} + save + "
+          f"restore into a fresh state + {RESUME_STEPS - half}; losses "
+          f"{[round(float(x), 6) for x in runs[0]['losses']]} and "
+          f"{[round(float(x), 6) for x in resumed['losses']]}; distance "
+          f"(largest |difference| over parameters, buffers, moments, EMA, "
+          f"bank count and losses, relative to each tensor's max) "
+          f"uninterrupted vs uninterrupted {d_ref:.3e}, resumed vs "
+          f"uninterrupted {d_res:.3e} (limit {RESUME_FACTOR} x "
+          f"{d_ref:.3e} + {RESUME_SLACK:.0e}); checkpoint {nbytes / 1e6:.1f}"
+          f" MB saved in {save_s:.2f} s, restored in {load_s:.2f} s; bank "
+          f"count {bank}; {time.perf_counter() - t0:.1f} s", flush=True)
+    if d_res > RESUME_FACTOR * d_ref + RESUME_SLACK:
+        raise AssertionError(f"the resumed run is {d_res:.3e} from the "
+                             f"uninterrupted one, two uninterrupted runs "
+                             f"{d_ref:.3e} from each other")
+    if bank != 3 * cfg.depth * RESUME_STEPS:
+        raise AssertionError(f"bank count {bank} after the resumed run")
+    return d_ref, d_res
+
+
+def train_loop_path(K, dev, root):
+    """Phase (p): ``cli.train`` for LOOP_EPOCHS epochs of LOOP_STEPS steps
+    on phase (o)'s proc100_hard, the resume check, and ``cli.evaluate
+    --checkpoint ... --tta`` on its best_model."""
+    from pathlib import Path
+
+    import torch
+
+    from qavit_tpu_torch.cli import evaluate
+    from qavit_tpu_torch.cli import train as cli_train
+    from qavit_tpu_torch.configs import get_preset
+    from qavit_tpu_torch.obs.metrics import BASE_KEYS, EMA_KEYS
+
+    t_phase = time.perf_counter()
+    preset = get_preset(DATA_PRESET)
+    cfg, tc = preset.model, preset.train
+    mma_fwd = {f"{u}_mma" for u in MMA_BWD}
+    mma_bwd = {f"{u}_bwd_mma" for u in MMA_BWD}
+    with tempfile.TemporaryDirectory(prefix="qv_train_") as out:
+        ck, lg = Path(out) / "ck", Path(out) / "lg"
+        say("phase (p) step 1: cli.train")
+        reset_launches()
+        t = time.perf_counter()
+        best = cli_train.main([
+            "--preset", DATA_PRESET, "--data-root", root, "--epochs",
+            str(LOOP_EPOCHS), "--max-steps-per-epoch", str(LOOP_STEPS),
+            "--checkpoint-dir", str(ck), "--log-dir", str(lg)])
+        train_s = time.perf_counter() - t
+        launches, routes = launch_counts(), dict(K.ROUTES)
+        d = json.loads((lg / "training_metrics.json").read_text())
+        h = d["history"]
+        steps = LOOP_EPOCHS * LOOP_STEPS
+        forwards = LOOP_EPOCHS * 2 * math.ceil(
+            DATA_SPLITS[1] / (tc.eval_batch_size or 2 * tc.batch_size))
+        fwd = cfg.depth * (steps + forwards)
+        bwd = cfg.depth * steps
+        saved = {n: json.loads((ck / n / "meta.json").read_text())
+                 for n in ("best_model", "best_model_ema")
+                 if (ck / n / "meta.json").exists()}
+        ema_file = ck / "best_model_ema" / "state.pt"
+        tree = (torch.load(ema_file, map_location="cpu", weights_only=True)
+                if ema_file.exists() else {"step": -1, "bank_count": 0})
+        print(f"train loop: {LOOP_EPOCHS} epochs x {LOOP_STEPS} steps in "
+              f"{train_s:.1f} s (host clock, the data read from phase "
+              f"(o)'s cache, {LOOP_EPOCHS * 2} passes over the val split "
+              f"included); best val {best:.2f}; history {h}; saved "
+              f"{ {n: m['metrics'] for n, m in saved.items()} }; "
+              f"best_model_ema at step {tree['step']}, bank count "
+              f"{int(tree['bank_count'])}; launches {launches}", flush=True)
+        print(f"train loop: launches per C entry {routes}", flush=True)
+        ok = {"keys": sorted(h) == sorted(BASE_KEYS + EMA_KEYS)
+              and sorted(d) == ["best_val_acc", "history", "total_time"],
+              "epochs": h["epoch"] == list(range(1, LOOP_EPOCHS + 1)),
+              "finite": all(math.isfinite(v) for k in h for v in h[k])
+              and all(len(h[k]) == LOOP_EPOCHS for k in h),
+              "best_model and best_model_ema": sorted(saved) == [
+                  "best_model", "best_model_ema"],
+              "bank count": int(tree["bank_count"]) == 3 * cfg.depth
+              * tree["step"],
+              "launches": launches == {n: fwd if n in K.UNITS else bwd
+                                       if n.endswith("_bwd") else 0
+                                       for n in launches},
+              "routes": routes == {n: fwd if n in mma_fwd else bwd
+                                   if n in mma_bwd else 0 for n in routes}}
+        print(f"train loop checks {ok}", flush=True)
+        if not all(ok.values()):
+            raise AssertionError(f"cli.train failed its checks: {ok}")
+
+        say("phase (p) step 2: resume on the card")
+        t = time.perf_counter()
+        resume_check(dev, root)
+        resume_s = time.perf_counter() - t
+        torch.cuda.empty_cache()
+
+        say("phase (p) step 3: cli.evaluate --checkpoint --tta")
+        reset_launches()
+        t = time.perf_counter()
+        r = evaluate.main(["--preset", DATA_PRESET, "--data-root", root,
+                           "--checkpoint", str(ck / "best_model"), "--tta",
+                           "--batches", str(TTA_BATCHES), "--batch-size",
+                           str(DATA_EVAL_BATCH)])
+        eval_s = time.perf_counter() - t
+        launches, routes = launch_counts(), dict(K.ROUTES)
+        # the smoke, one untimed batch, the batches, five views of each
+        forwards = 1 + 1 + TTA_BATCHES + 5 * TTA_BATCHES
+        print(f"eval --tta: top-1 {r['top1']:.2f}%, TTA top-1 "
+              f"{r['tta_top1']:.2f}% over {r['count']} images ({r['count']} "
+              f"x 5 views in {r['tta_seconds']:.2f} s, host clock); "
+              f"launches {launches}; card {card_line()}", flush=True)
+        want = {n: cfg.depth * forwards if n in K.UNITS else 0
+                for n in launches}
+        want_routes = {n: cfg.depth * forwards if n in mma_fwd else 0
+                       for n in routes}
+        if not (math.isfinite(r["tta_top1"]) and 0 <= r["tta_top1"] <= 100
+                and launches == want and routes == want_routes):
+            raise AssertionError(f"cli.evaluate --tta: {r}, launches "
+                                 f"{launches} (expected {want}), routes "
+                                 f"{routes}")
+    print(f"phase (p): cli.train {train_s:.1f} s, resume check "
+          f"{resume_s:.1f} s, cli.evaluate --tta {eval_s:.1f} s, in all "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -2155,9 +2399,15 @@ def main() -> int:
     record += n64_train_path(K, dev, g64, p64, fwd_times)
     say("phase (n) n=64 train path: done")
 
-    say("phase (o) data path: start")
-    data_path(K, dev)
-    say("phase (o) data path: done")
+    # phase (o) generates proc100_hard once; phase (p) trains on it
+    with tempfile.TemporaryDirectory(prefix="qv_data_") as root:
+        say("phase (o) data path: start")
+        data_path(K, dev, root)
+        say("phase (o) data path: done")
+
+        say("phase (p) train loop: start")
+        train_loop_path(K, dev, root)
+        say("phase (p) train loop: done")
 
     print(card_line(), flush=True)
     print(json.dumps({"kernels": record}), flush=True)

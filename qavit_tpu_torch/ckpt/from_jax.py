@@ -95,3 +95,32 @@ def load_jax_params(model: nn.Module, params: Mapping,
         for key, val in new.items():
             state[key].copy_(val)
     return model
+
+
+def jax_train_state(model: nn.Module, tree: Mapping, use_ema: bool = True):
+    """A port train state made from a JAX checkpoint's numpy trees (as
+    ``qavit_tpu.ckpt.checkpoint._restore_numpy`` gives them): the
+    weights, the BatchNorm statistics, the EMA where the tree has one
+    (else the EMA starts from the weights) and the bank count.  The
+    optimizer state and step stay fresh, so save the result with
+    ``save_train_state(..., slim=True)``: it seeds an evaluation, a
+    finetune or a transfer, not a resume."""
+    from qavit_tpu_torch.train.state import create_train_state
+
+    load_jax_params(model, tree["params"], tree.get("batch_stats"))
+    state = create_train_state(model, use_ema)
+    if use_ema and "ema_params" in tree:
+        ema = jax_state_dict(model, tree["ema_params"],
+                             tree.get("ema_batch_stats")
+                             or tree.get("batch_stats"))
+        dev = state.bank_count.device
+        with torch.no_grad():
+            for n in state.ema_params:
+                state.ema_params[n].copy_(ema[n].to(dev))
+            for n in state.ema_buffers:
+                if n in ema:
+                    state.ema_buffers[n].copy_(ema[n].to(dev))
+    state.bank_count = torch.as_tensor(
+        np.asarray(tree.get("bank_count", 0)), dtype=torch.int32,
+        device=state.bank_count.device)
+    return state

@@ -1,15 +1,19 @@
 """Evaluation entry point of the port: the eval forward of a preset over
-its dataset's test split.
+its dataset's test split (counterpart of ``qavit_tpu/cli/evaluate.py``).
 
     python -m qavit_tpu_torch.cli.evaluate --preset hqavit_proc100_hard \
-        [--data-root ./data] [--batch-size 1024] [--batches N] [--device cpu]
+        [--checkpoint DIR] [--tta] [--out-dir DIR] [--data-root ./data] \
+        [--batch-size 1024] [--batches N] [--device cpu]
     python -m qavit_tpu_torch.cli.evaluate --preset hqavit_c100 \
         --synthetic --seed 0 --batch-size 1024 --batches 4 [--device cpu]
 
-Builds the model at full width from seed-made weights (or from a
-``--weights`` file written by ``torch.save(model.state_dict())``) and
-runs a two-image smoke forward.  Without ``--synthetic`` it reads the
-preset's pipeline (``data/pipelines.py``), loads its base dataset with
+Builds the model at full width from seed-made weights, then restores a
+port checkpoint (``--checkpoint``, a directory written by
+``cli.train`` or ``ckpt/checkpoint.py``: its weights, BatchNorm
+statistics and bank count) or a ``--weights`` file written by
+``torch.save(model.state_dict())``, and runs a two-image smoke forward.
+Without ``--synthetic`` it reads the preset's pipeline
+(``data/pipelines.py``), loads its base dataset with
 ``load_dataset(base, --data-root)`` (a procedural substrate is generated
 once and cached there as ``<name>.npz``; a reader dataset whose files are
 absent gives the JAX package's synthetic fallback), uploads the test
@@ -20,32 +24,44 @@ of ``cifar100_224`` included).  ``--synthetic`` evaluates ``--batches``
 batches (default 4) of a seed-made synthetic test set at the model's
 image size instead.  One untimed batch of each batch shape comes first;
 then it prints top-1, top-5, loss and images per second (host clock over
-the evaluated batches).  Runs on the card unless ``--device cpu`` is
+the evaluated batches), and the best and worst classes by precision.
+``--tta`` adds the reference's five-view test-time augmentation
+(``eval/tta.py``) over the same batches and prints ``TTA top-1``.
+``--out-dir`` writes the confusion matrix (``.npy``, and ``.png`` where
+matplotlib is installed), the classification report and the best and
+worst classes (JSON) and the prediction grid (``.png``).  Grad-CAM and
+attention rollout (``--gradcam``, ``--rollout``) raise: they wait for
+ROADMAP.md queue 1 item 9.  Runs on the card unless ``--device cpu`` is
 given.  Serves every preset of ``configs/presets.py``: ``hqavit_c100``
 and the substrate presets of its geometry (``hqavit_proc100``,
 ``hqavit_proc100_hard``, ``hqavit_proc100_hard_finetune``,
 ``hqavit_tiny_proc10``); the depth-12 HQAViT at 64 px
 (``hqavit_tiny_in``, ``hqavit_proc_tin``: the fused units at n=64 in four
 SWA windows); and the flat 224 QAViTs (``qavit_224_v1``,
-``qavit_224_v1_proc``, ``qavit_v2``, ``qavit_v2_proc224``).  Grad-CAM, TTA
-and the plots wait for a later slice.
+``qavit_224_v1_proc``, ``qavit_v2``, ``qavit_v2_proc224``).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import time
+from pathlib import Path
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
+from qavit_tpu_torch.ckpt.checkpoint import restore_train_state
 from qavit_tpu_torch.configs import get_preset
 from qavit_tpu_torch.data.augment import eval_batch
 from qavit_tpu_torch.data.datasets import load_dataset, synthetic_dataset
 from qavit_tpu_torch.data.pipelines import get_pipeline
 from qavit_tpu_torch.device import resolve_device
-from qavit_tpu_torch.eval.metrics import evaluate
+from qavit_tpu_torch.eval import metrics as EM
+from qavit_tpu_torch.eval.tta import make_tta_preprocessors
 from qavit_tpu_torch.nn.models import build_model
+from qavit_tpu_torch.train.state import create_train_state
 from qavit_tpu_torch.train.steps import make_eval_step
 
 
@@ -67,11 +83,46 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--device", default="cuda")
     p.add_argument("--weights", default=None,
                    help="a state dict saved with torch.save")
+    p.add_argument("--checkpoint", default=None,
+                   help="a port checkpoint directory (state.pt, meta.json)")
+    p.add_argument("--tta", action="store_true",
+                   help="also the five-view test-time augmentation")
+    p.add_argument("--out-dir", default=None,
+                   help="write the confusion matrix, the per-class report, "
+                        "the best and worst classes and a prediction grid")
+    p.add_argument("--gradcam", action="store_true",
+                   help="not ported (ROADMAP.md queue 1 item 9)")
+    p.add_argument("--rollout", action="store_true",
+                   help="not ported (ROADMAP.md queue 1 item 9)")
     return p.parse_args(argv)
+
+
+def write_analysis(out_dir: Path, r: Dict, num_classes: int,
+                   images_u8: np.ndarray) -> None:
+    """The confusion matrix, the classification report, the best and
+    worst classes and the prediction grid of ``r``'s predictions."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    preds, labels = r["logits"].argmax(-1), r["labels"]
+    cm = EM.confusion_matrix(preds, labels, num_classes)
+    np.save(out_dir / "confusion_matrix.npy", cm)
+    EM.plot_confusion_matrix(cm, str(out_dir / "confusion_matrix.png"))
+    report = EM.classification_report(preds, labels, num_classes)
+    (out_dir / "classification_report.json").write_text(
+        json.dumps(report, indent=1))
+    best, worst = EM.best_worst_classes(report, 10)
+    (out_dir / "best_worst_classes.json").write_text(
+        json.dumps({"best": best, "worst": worst}, indent=1))
+    EM.visualize_predictions(images_u8[:10], preds[:10], labels[:10],
+                             str(out_dir / "predictions.png"))
+    print(f"wrote the confusion matrix, the classification report, the "
+          f"best and worst classes and the prediction grid to {out_dir}")
 
 
 def main(argv: Optional[List[str]] = None) -> Dict:
     args = parse_args(argv)
+    if args.gradcam or args.rollout:
+        raise NotImplementedError("Grad-CAM and attention rollout are not "
+                                  "ported yet (ROADMAP.md queue 1 item 9)")
     device = resolve_device(args.device)
     preset = get_preset(args.preset)
     mc = preset.model
@@ -81,6 +132,10 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     if args.weights:
         model.load_state_dict(torch.load(args.weights, map_location=device))
         print(f"loaded {args.weights}")
+    if args.checkpoint:
+        state, _ = restore_train_state(
+            args.checkpoint, create_train_state(model, use_ema=False))
+        print(f"loaded {args.checkpoint} (step {state.step})")
 
     with torch.inference_mode():
         dummy = torch.zeros(2, mc.img_size, mc.img_size, mc.in_channels,
@@ -118,13 +173,35 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t0 = time.perf_counter()
-    r = evaluate(eval_step, loader, preprocess=prep)
+    r = EM.evaluate(eval_step, loader, preprocess=prep, collect_logits=True)
     seconds = time.perf_counter() - t0          # evaluate ends in a sync
     r.update(seconds=seconds, img_per_s=r["count"] / seconds,
              device=str(device))
     print(f"top-1: {r['top1']:.2f}%  top-5: {r['top5']:.2f}%  "
           f"loss: {r['loss']:.4f}  n={r['count']}  "
           f"{r['img_per_s']:.1f} img/s on {device}", flush=True)
+    report = EM.classification_report(r["logits"].argmax(-1), r["labels"],
+                                      mc.num_classes)
+    best, worst = EM.best_worst_classes(report, 10)
+    print("best classes:", best[:5])
+    print("worst classes:", worst[:5])
+    if args.out_dir:
+        write_analysis(Path(args.out_dir), r, mc.num_classes,
+                       ds.test_images[:n])
+
+    if args.tta:
+        preps = make_tta_preprocessors(pipe.aug, seed=args.seed)
+
+        @torch.inference_mode()
+        def forward(images):
+            return model(images)[0]
+
+        t0 = time.perf_counter()
+        tta = EM.validate_tta(forward, [loader] * len(preps), preps)
+        r.update(tta_top1=tta["tta_top1"],
+                 tta_seconds=time.perf_counter() - t0)
+        print(f"TTA top-1: {tta['tta_top1']:.2f}%  n={tta['count']}  "
+              f"({len(preps)} views, {r['tta_seconds']:.2f} s)", flush=True)
     return r
 
 

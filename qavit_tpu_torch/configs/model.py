@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Any, Dict, Tuple
 
 
 @dataclass(frozen=True)
@@ -118,3 +118,18 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "ModelConfig":
+        """Inverse of :meth:`to_dict`, also of a dict read back from JSON
+        (the bank as a dict, tuples as lists)."""
+        d = dict(d)
+        if isinstance(d.get("bank"), dict):
+            d["bank"] = BankConfig(**d["bank"])
+        for k in ("dilation_factors", "stage_blocks"):
+            if k in d and isinstance(d[k], list):
+                d[k] = tuple(d[k])
+        return cls(**d)

@@ -9,7 +9,7 @@ the moments and the EMA in place.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -84,3 +84,24 @@ def ema_warmup_decay(epoch: int, warmup_epochs: int, decay_warmup: float,
     if warmup_epochs <= 0 or epoch > warmup_epochs:
         return decay
     return decay_warmup + (decay - decay_warmup) * (epoch / warmup_epochs)
+
+
+@torch.no_grad()
+def ema_distance(state: TrainState) -> Tuple[torch.Tensor, torch.Tensor]:
+    """L2 distances of the EMA parameters from the live ones and of the
+    EMA buffers from the live buffers (HQAViT_CIFAR100.py:158-180), as
+    float32 device scalars; the buffer distance is 0 without BatchNorm."""
+    model = state.model
+
+    def dist(ema: Dict[str, torch.Tensor], live) -> torch.Tensor:
+        total = torch.zeros((), dtype=torch.float32,
+                            device=state.bank_count.device)
+        for n, t in live:
+            if t.is_floating_point():
+                d = ema[n].float() - t.float()
+                total = total + (d * d).sum()
+        return torch.sqrt(total)
+
+    params = dist(state.ema_params, model.named_parameters())
+    buffers = dist(state.ema_buffers, model.named_buffers())
+    return params, buffers

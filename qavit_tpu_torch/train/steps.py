@@ -118,7 +118,7 @@ def make_train_step(mc: ModelConfig, tc: TrainingConfig,
             "loss": loss.detach(), "correct": correct,
             "count": targets.shape[0], "grad_norm": grad_norm.detach(),
             "param_norm": (global_norm(params) if tc.log_param_norm
-                           else torch.zeros(())),
+                           else torch.zeros((), device=images.device)),
             "lr": lr, "logits": logits.detach(),
         }
 
