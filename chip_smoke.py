@@ -46,7 +46,8 @@ it stopped:
       launches all through their tensor-core entries, the bank count +24
       per step);
       then the kernel step
-      against the plain step on the card at B=1024 from the same weights,
+      against the plain step on the card at B=1024 (one block a stage,
+      CHECK_DEPTH) from the same weights,
       batch and seeds: the gradients of one step in float32 and in bf16
       (beside the bf16 plain step's own distance from the float32 one),
       and bf16 losses over BF16_STEPS steps;
@@ -109,30 +110,32 @@ it stopped:
       12 times per step through its n=64 entry, the bank count +36 per
       step); a float32 step refused before any launch; the bf16 kernel
       step against the float32 and bf16 plain steps on the card (phase
-      (g)'s rule) and bf16 losses over BF16_STEPS steps; the step's time at B=128
+      (g)'s rule, one block a stage) and bf16 losses over BF16_STEPS steps; the step's time at B=128
       and at the largest of 1024, 512 and 256 that fits, with its peak
       memory; each unit through the autograd wrapper at B=128 against the
       plain version, and each n=64 train kernel's time on the device and
       per call against its plain version and bound;
-  (o) the data path: ``load_dataset("proc100_hard")`` generated into a
-      temporary root that phase (p) reuses (seconds, shapes, dtypes,
-      label range, class counts,
+  (o) the data path: proc100_hard cut to DATA_SPLITS (10,000 + 2,000
+      images) generated into a temporary root and read back by
+      ``load_dataset("proc100_hard")``, the root that phase (p) reuses
+      (seconds, shapes, dtypes, label range, class counts,
       the val arrays' sha256, not gated: numpy's vectorised cos may differ
       by an ulp between CPUs); ``augment_batch`` under the
-      proc100_hard_hqa pipeline on the card at B=256 and B=1024 (finite,
+      proc100_hard_hqa pipeline on the card at B=1024 (finite,
       [B, 32, 32, 3], the same generator seed twice bitwise equal, another
       seed different, ``apply_augment`` on the card against the CPU with
       the same drawn parameters within 2e-3; ms per batch by CUDA events
       and the device's part of it by torch.profiler); the
       hqavit_proc100_hard train step in bf16 on the device-resident train
-      split through ``IndexLoader`` + ``augment_batch`` at B=256 and
-      B=1024, with every launch count set to 0 just before (each unit's
+      split through ``IndexLoader`` + ``augment_batch`` at B=1024
+      (phases p and q train at the preset's 256), with every launch
+      count set to 0 just before (each unit's
       forward and backward kernel 8 times per step through its tensor-core
       entry, the bank count +24 per step, every loss finite; ms per step
       with and without augmentation, augmentation's share, img/s, peak
       memory; at B=1024 one step traced: the device's busy time and idle
       share); ``qavit_tpu_torch.cli.evaluate --preset
-      hqavit_proc100_hard`` over the whole 10,000-image val split (seed
+      hqavit_proc100_hard`` over the whole (cut) val split (seed
       weights: ~1% top-1; each forward unit 8 launches per forward);
   (p) the train loop on phase (o)'s data: ``qavit_tpu_torch.cli.train
       --preset hqavit_proc100_hard --epochs 2 --max-steps-per-epoch 4``
@@ -167,7 +170,25 @@ it stopped:
       took the same gradients; after the third at most FLAT_FACTOR x the
       distance of a per-tensor run from weights one ulp away); then the
       step's median ms over FLAT_TIMED steps with and without the flat
-      optimizer (CUDA events, a finding, no gate).
+      optimizer (CUDA events, a finding, no gate);
+  (r) the flat QAViT's train step, both routes: route A,
+      qavit_v2_extreme_proc100 under ``attn_impl="fused_block"`` (C=192,
+      depth 8, n=64 in four SWA windows, bf16, B=256): the kernel step
+      against the plain step on the card at CHECK_DEPTH blocks (phase
+      (g)'s rule: the bf16 gradients of one step, then bf16 losses over
+      BF16_STEPS steps) with every launch count set to 0 just before and
+      read just after (each unit's forward and backward kernel once a
+      block a step through its n=64
+      train entry); then ``qavit_tpu_torch.cli.train --preset
+      qavit_v2_extreme_proc100 --attn-impl fused_block --epochs 2
+      --max-steps-per-epoch 4`` on a proc100 cut to 2,048 + 1,024 images
+      (the launches counted: 8 forwards and backwards a step, 8 eval
+      forwards a validation forward, through the n=64 entries), a
+      checkpoint every epoch, and ``--resume`` from epoch 1's for epochs
+      2-3; route B, ``qavit_tpu_torch.cli.bench --preset
+      qavit_224_v1_proc --train --batch-sizes 256`` on the branch path
+      (no kernel launch: dropout keeps the attentions plain, as in JAX;
+      the bank count +24 a step), its ms a step and peak memory.
 
 Prints the kernels' JSON record and the card's name and power limit
 before the last line, and ends with
@@ -191,8 +212,9 @@ T0 = time.perf_counter()
 BATCH = 1024             # the main path's batch
 CHECK_BATCH = 256        # phases (c), (f)
 MAIN_BATCHES = 3         # evaluated batches in phase (d)
-TRAIN_STEPS = 3          # timed train steps in phase (g), after one warm-up
-BF16_STEPS = 3           # phases (g), (n): kernel vs plain bf16 losses
+TRAIN_STEPS = 2          # timed train steps in phases (g), (n), (r), after
+                         # one warm-up
+BF16_STEPS = 2           # phases (g), (n), (r): kernel vs plain bf16 losses
 # stated tolerances of the kernel train step against the plain step,
 # per parameter tensor, against max|plain gradient| or MODEL_GRAD_FLOOR
 # of the model's largest gradient where that is more: a gradient that is
@@ -241,9 +263,20 @@ TIN_BIG_BATCH = 1024     # phase (l): timing
 TIN_BATCHES = 2          # evaluated batches in phase (l)
 TIN_TRAIN_BIG = (1024, 512, 256)   # phase (n): the largest that fits
 DATA_PRESET = "hqavit_proc100_hard"  # phase (o)
-DATA_BATCHES = (256, 1024)          # phase (o): the preset's batch, and 1024
-DATA_STEPS = 3                      # phase (o): timed steps after one warm-up
-DATA_SPLITS = (50000, 10000)        # phase (o): proc100_hard's train, val
+# phase (o): augmentation and the train step at B=1024 (the preset's 256,
+# which phases p and q train at, left out of it to keep the smoke under 5
+# minutes)
+DATA_BATCHES = (1024,)
+DATA_STEPS = 2                      # phase (o): timed steps after one warm-up
+# phase (o): proc100_hard's train and val splits, cut from 50,000 and
+# 10,000 to keep the smoke under 5 minutes (the val split is not a
+# multiple of DATA_EVAL_BATCH, so phase (o)'s evaluation has a short last
+# batch, and phase (p)'s two TTA batches are full ones)
+DATA_SPLITS = (10000, 3000)
+# the depth of the kernel-vs-plain step checks (phases g, n, r): one
+# block a stage (HQAViT) or 4 blocks (the flat QAViT), cut to keep the
+# smoke under 5 minutes; the paths they check run at full depth
+CHECK_DEPTH = 4
 DATA_EVAL_BATCH = 1024              # phase (o): cli.evaluate's batch
 AUG_TOLERANCE = 2e-3                # phase (o): card vs CPU, normalised units
 LOOP_EPOCHS = 2                     # phase (p): cli.train's epochs
@@ -261,7 +294,12 @@ RESUME_SLACK = 1e-6
 FT_PRESET = "hqavit_proc100_hard_finetune"   # phase (q)
 FT_ACCUM = 2                        # phase (q): --grad-accum
 FLAT_STEPS = 3                      # phase (q): steps held flat vs per-tensor
-FLAT_TIMED = 10                     # phase (q): timed steps each way
+FLAT_TIMED = 5                      # phase (q): timed steps each way
+FLAT64_PRESET = "qavit_v2_extreme_proc100"   # phase (r), route A
+FLAT64_BATCH = 256                  # phase (r): route A's batch (the preset's)
+FLAT64_SPLITS = (2048, 1024)        # phase (r): proc100 cut for cli.train
+FLAT64_STEPS = 4                    # phase (r): cli.train's steps per epoch
+FLAT224_BATCH = 256                 # phase (r), route B: the preset's batch
 # phase (q): the flat optimizer against the per-tensor one, from the same
 # weights and batches.  Distances are per tensor, of the parameters,
 # Adam's two moments and the EMA, each relative to the larger of its
@@ -665,11 +703,21 @@ def grad_errors(got, ref, norm: str = "max"):
     return sorted(errs, reverse=True)
 
 
+def check_depth(cfg):
+    """``cfg`` with its depth cut for the kernel-vs-plain checks: one block
+    a non-empty stage (HQAViT), or CHECK_DEPTH blocks (the flat QAViT)."""
+    if cfg.hybrid:
+        blocks = tuple(min(b, 1) for b in cfg.stage_blocks)
+        return cfg.replace(depth=sum(blocks), stage_blocks=blocks)
+    depth = min(cfg.depth, CHECK_DEPTH)
+    return cfg.replace(depth=depth, stage_blocks=(depth,))
+
+
 def kernel_vs_plain_step(K, cfg, dev, preset="hqavit_c100", batch=BATCH):
     """The kernel train step against the plain step on the same weights,
-    batch and seeds: the gradients of one step in float32 (where the
-    kernels train in float32: n=16) and in bf16, then bf16 losses over
-    BF16_STEPS steps."""
+    batch and seeds, at ``check_depth(cfg)``: the gradients of one step in
+    float32 (where the kernels train in float32: n=16) and in bf16, then
+    bf16 losses over BF16_STEPS steps."""
     import torch
     from unittest import mock
 
@@ -681,6 +729,8 @@ def kernel_vs_plain_step(K, cfg, dev, preset="hqavit_c100", batch=BATCH):
     from qavit_tpu_torch.train.steps import loss_and_grads, make_train_step
 
     tc = get_preset(preset).train
+    cfg = check_depth(cfg)
+    print(f"kernel vs plain step checks at depth {cfg.depth}", flush=True)
     f32_kernels = K.kernel_geometry_error(make_geom(cfg), True,
                                           torch.float32) is None
     gen = torch.Generator().manual_seed(11)
@@ -1945,6 +1995,7 @@ def data_path(K, dev, root):
     from qavit_tpu_torch.data import augment as A
     from qavit_tpu_torch.data.datasets import load_dataset
     from qavit_tpu_torch.data.pipelines import get_pipeline
+    from qavit_tpu_torch.data.procgen import load_or_generate_proc100_hard
 
     t_phase = time.perf_counter()
     preset = get_preset(DATA_PRESET)
@@ -1952,6 +2003,7 @@ def data_path(K, dev, root):
     say(f"phase (o) step 1: load_dataset({pipe.base_dataset!r}) into a "
         f"temporary root")
     t = time.perf_counter()
+    load_or_generate_proc100_hard(root, *DATA_SPLITS)
     ds = load_dataset(pipe.base_dataset, root)
     gen_s = time.perf_counter() - t
     digest = hashlib.sha256(ds.test_images.tobytes()
@@ -2438,6 +2490,145 @@ def finetune_path(K, dev, root, init):
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+def flat_train_path(K, dev, root):
+    """Phase (r): the flat QAViT's train step on both routes.  Route A,
+    qavit_v2_extreme_proc100 under ``attn_impl="fused_block"`` (C=192,
+    depth 8, n=64 in four windows, bf16, B=256): the kernel step against
+    the plain step (``kernel_vs_plain_step``, at CHECK_DEPTH blocks) with
+    every launch count set to 0 just before, each unit's forward and
+    backward kernel once a block a step through its n=64 train entry;
+    then ``cli.train --attn-impl fused_block`` for 2 epochs x
+    FLAT64_STEPS steps on a proc100 cut to FLAT64_SPLITS (8 launches of
+    each a step), a checkpoint every epoch, and ``--resume`` from epoch
+    1's.  Route B, qavit_224_v1_proc on the branch path: ``cli.bench
+    --train --batch-sizes 256`` with the counts reset just before (no
+    kernel launch: training with dropout keeps every attention plain, as
+    JAX does), a finite loss, ms a step and the peak memory."""
+    import io
+    from pathlib import Path
+
+    import torch
+
+    from qavit_tpu_torch.cli import bench
+    from qavit_tpu_torch.cli import train as cli_train
+    from qavit_tpu_torch.configs import get_preset
+    from qavit_tpu_torch.configs import presets as P
+    from qavit_tpu_torch.data.procgen import load_or_generate_proc100
+
+    t_phase = time.perf_counter()
+    preset = get_preset(FLAT64_PRESET)
+    cfg = preset.model.replace(attn_impl="fused_block")
+    train64 = {f"{u}_mma_train64" for u in MMA_BWD}
+    eval64 = {f"{u}_mma" for u in MMA_BWD}
+    bwd64 = {f"{u}_bwd_mma64" for u in MMA_BWD}
+
+    say("phase (r) step 1: route A, kernel step vs plain step")
+    reset_launches()
+    kernel_vs_plain_step(K, cfg, dev, FLAT64_PRESET, FLAT64_BATCH)
+    launches, routes = launch_counts(), dict(K.ROUTES)
+    # the gradients' step and the steps, at the checks' depth
+    per = check_depth(cfg).depth * (1 + BF16_STEPS)
+    print(f"flat n=64 kernel steps ({FLAT64_PRESET}, fused_block, "
+          f"{check_depth(cfg).depth} blocks, B={FLAT64_BATCH}): launches "
+          f"{launches}; "
+          f"per C entry {routes}", flush=True)
+    want = {n: 0 if n == "flash_attention" else per for n in launches}
+    want_routes = {n: per if n in train64 | bwd64 else 0 for n in routes}
+    if launches != want or routes != want_routes:
+        raise AssertionError(f"route A launches {launches}, routes "
+                             f"{routes}, expected {want}, {want_routes} "
+                             f"(one a block a step each, n=64 entries)")
+    torch.cuda.empty_cache()
+
+    say("phase (r) step 2: route A, cli.train --attn-impl fused_block")
+    t = time.perf_counter()
+    load_or_generate_proc100(root, *FLAT64_SPLITS)
+    gen_s = time.perf_counter() - t
+    cut = P.Preset(preset.model, preset.train.replace(save_freq=1),
+                   preset.dataset)
+    with tempfile.TemporaryDirectory(prefix="qv_flat_") as out, \
+            mock.patch.dict(P.PRESETS, {FLAT64_PRESET: lambda: cut}):
+        ck, lg = Path(out) / "ck", Path(out) / "lg"
+        args = ["--preset", FLAT64_PRESET, "--attn-impl", "fused_block",
+                "--data-root", root, "--batch-size", str(FLAT64_BATCH),
+                "--max-steps-per-epoch",
+                str(FLAT64_STEPS), "--checkpoint-dir", str(ck),
+                "--log-dir", str(lg)]
+        reset_launches()
+        t = time.perf_counter()
+        cli_train.main(args + ["--epochs", "2"])
+        train_s = time.perf_counter() - t
+        launches, routes = launch_counts(), dict(K.ROUTES)
+        h = json.loads((lg / "training_metrics.json").read_text())[
+            "history"]
+        steps = 2 * FLAT64_STEPS
+        val = 2 * math.ceil(FLAT64_SPLITS[1] / (2 * FLAT64_BATCH))
+        fwd, bwd = cfg.depth * steps, cfg.depth * steps
+        print(f"flat n=64 cli.train: 2 epochs x {FLAT64_STEPS} steps in "
+              f"{train_s:.1f} s (host clock; proc100 {FLAT64_SPLITS} "
+              f"generated in {gen_s:.1f} s); history {h}; launches "
+              f"{launches}; per C entry {routes}", flush=True)
+        want = {n: (fwd + cfg.depth * val if n in K.UNITS else bwd
+                    if n.endswith("_bwd") else 0) for n in launches}
+        want_routes = {n: fwd if n in train64 else cfg.depth * val
+                       if n in eval64 else bwd if n in bwd64 else 0
+                       for n in routes}
+        ok = {"epochs": h["epoch"] == [1, 2],
+              "finite": all(math.isfinite(v) for k in h for v in h[k]),
+              "launches": launches == want, "routes": routes == want_routes}
+        print(f"flat n=64 cli.train checks {ok}", flush=True)
+        if not all(ok.values()):
+            raise AssertionError(f"route A cli.train: {ok}, launches "
+                                 f"{launches} (expected {want}), routes "
+                                 f"{routes} (expected {want_routes})")
+        t = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli_train.main(args + ["--epochs", "3", "--resume",
+                                   str(ck / "checkpoint_epoch_1")])
+        resume_s = time.perf_counter() - t
+        log = buf.getvalue()
+        h = json.loads((lg / "training_metrics.json").read_text())[
+            "history"]
+        tree = torch.load(ck / "checkpoint_epoch_3" / "state.pt",
+                          map_location="cpu", weights_only=True)
+        ok = {"resumed at epoch 2": f"at step {FLAT64_STEPS} (epoch 2)"
+              in log, "history": h["epoch"] == [1, 2, 3],
+              "step": tree["step"] == 3 * FLAT64_STEPS,
+              "bank count": int(tree["bank_count"])
+              == 3 * cfg.depth * 3 * FLAT64_STEPS,
+              "finite": all(math.isfinite(v) for k in h for v in h[k])}
+        print(f"flat n=64 --resume: epochs 2-3 in {resume_s:.1f} s; val "
+              f"{h['val_acc']}; checks {ok}", flush=True)
+        if not all(ok.values()):
+            raise AssertionError(f"route A --resume: {ok}\n{log[-2000:]}")
+    torch.cuda.empty_cache()
+
+    say("phase (r) step 3: route B, cli.bench --train on the 224 preset")
+    reset_launches()
+    row = bench.main(["--preset", FLAT_PRESET, "--train", "--batch-sizes",
+                      str(FLAT224_BATCH), "--steps", str(TRAIN_STEPS)])[0]
+    launches = launch_counts()
+    steps = TRAIN_STEPS + 1
+    depth = get_preset(FLAT_PRESET).model.depth
+    print(f"224 train step ({FLAT_PRESET}, branch path): {row['ms_per_step']:.3f} "
+          f"ms per step of {row['batch']}, {row['img_per_s']:.1f} img/s "
+          f"(CUDA events, bf16, {row['steps']} steps after one warm-up), "
+          f"losses {row['first_loss']:.4f} -> {row['last_loss']:.4f}, peak "
+          f"memory {row['max_memory_allocated'] / 2 ** 30:.2f} GiB, bank "
+          f"count {row['bank_count']}, launches {launches}; card "
+          f"{card_line()}", flush=True)
+    ok = (all(n == 0 for n in launches.values())
+          and row["bank_count"] == 3 * depth * steps
+          and all(map(math.isfinite, (row["first_loss"], row["last_loss"]))))
+    if not ok:
+        raise AssertionError(f"route B: {row}, launches {launches}")
+    torch.cuda.empty_cache()
+    print(f"phase (r): route A steps, cli.train {train_s:.1f} s, --resume "
+          f"{resume_s:.1f} s; in all {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2674,6 +2865,10 @@ def main() -> int:
         say("phase (q) finetune stage: start")
         finetune_path(K, dev, root, best)
         say("phase (q) finetune stage: done")
+
+        say("phase (r) flat QAViT train step: start")
+        flat_train_path(K, dev, root)
+        say("phase (r) flat QAViT train step: done")
 
     print(card_line(), flush=True)
     print(json.dumps({"kernels": record}), flush=True)

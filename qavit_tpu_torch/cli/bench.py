@@ -16,9 +16,13 @@ timed loss and ``torch.cuda.max_memory_allocated``.  The train-time data
 augmentation stays out, as in the JAX bench.  ``obs/analyzer.py``'s
 ``print_analysis`` (FLOPs and parameter breakdown) is printed by
 ``cli.train``, not here; the bench's MFU and the measured harness of
-``obs/analyzer`` wait for ROADMAP.md queue 1 item 11.  The flat 224
-presets run the eval forward only: their train step waits for ROADMAP.md
-queue 1 item 1.  The depth-12 ``hqavit_tiny_in`` and ``hqavit_proc_tin``
+``obs/analyzer`` wait for ROADMAP.md queue 1 item 11.  The flat presets
+train through the preset's ``attn_impl``: the 224 presets on the branch
+path (``--preset qavit_224_v1_proc --train --batch-sizes 256``; with
+dropout every attention stays on the plain path, as in JAX), and, like
+JAX's bench, the bench has no ``--attn-impl``: the flat n=64 presets
+train through the fused units under ``cli.train --attn-impl
+fused_block``.  The depth-12 ``hqavit_tiny_in`` and ``hqavit_proc_tin``
 train at n=64 (four SWA windows) in bf16 on the card (``--preset
 hqavit_proc_tin --train --batch-sizes 128``); float32 there raises before
 the first launch.  Runs on the card unless ``--device cpu``.
@@ -121,11 +125,6 @@ def bench_batch(args, device: torch.device, bs: int) -> Dict:
 
 def main(argv: Optional[List[str]] = None) -> List[Dict]:
     args = parse_args(argv)
-    if args.train and not get_preset(args.preset).model.hybrid:
-        raise NotImplementedError(
-            f"{args.preset}: the flat QAViT's train step is not ported yet "
-            f"(ROADMAP.md queue 1 item 1); drop --train to time its eval "
-            f"forward")
     if args.train:
         check_train_geometry(get_preset(args.preset).model)
     device = resolve_device(args.device)

@@ -37,8 +37,12 @@ and the substrate presets of its geometry (``hqavit_proc100``,
 ``hqavit_proc100_hard``, ``hqavit_proc100_hard_finetune``,
 ``hqavit_tiny_proc10``); the depth-12 HQAViT at 64 px
 (``hqavit_tiny_in``, ``hqavit_proc_tin``: the fused units at n=64 in four
-SWA windows); and the flat 224 QAViTs (``qavit_224_v1``,
-``qavit_224_v1_proc``, ``qavit_v2``, ``qavit_v2_proc224``).
+SWA windows); the flat 224 QAViTs (``qavit_224_v1``,
+``qavit_224_v1_proc``, ``qavit_v2``, ``qavit_v2_proc224``); and the flat
+QAViTs at 32 and 64 px (``qavit_v2_c100``, ``qavit_v2_extreme``,
+``qavit_v2_extreme_proc100``, ``qavit_v2_extreme_tin``), whose blocks
+take the preset's ``attn_impl`` (the branch path): a checkpoint trained
+under ``--attn-impl fused_block`` holds the same parameters.
 """
 
 from __future__ import annotations

@@ -38,6 +38,10 @@ micro-batches, ``--flat-optimizer`` runs AdamW, the clipping and the EMA
 on raveled vectors (a checkpoint resumes only under the setting it was
 written with), and ``--debug-grads`` keeps the per-layer gradient norms
 and prints the top layers at each ``print_freq`` boundary.
+The flat QAViT trains too: the 224 presets on the branch path (their
+proc224 split, ~1.8 GB as uint8, stays on the device), and the 32 px
+presets under ``--attn-impl fused_block`` through the n=64 units
+(``--preset qavit_v2_extreme_proc100 --attn-impl fused_block``).
 ``--no-cache`` is accepted and does nothing (JAX's compilation cache),
 so JAX's command lines run unchanged.  Flags whose path is not ported
 raise before the first step, each naming its ROADMAP.md item.  Runs on

@@ -61,6 +61,56 @@ def _qavit_v2_proc224() -> Preset:
                   p.train.replace(batch_size=256), "proc224")
 
 
+def _qavit_v2_c100() -> Preset:
+    """QAViTv2-C100 @32 (QAViTv2_CIFAR100.py:41): the flat model at 64
+    tokens, four SWA windows of 16."""
+    model = ModelConfig(
+        name="qavit_v2_c100",
+        img_size=32, patch_size=4, num_classes=100,
+        embed_dim=192, depth=8, num_heads=4,
+        window_size=4, dilation_factors=(1, 2), linformer_k=32,
+        hybrid=False, use_token_learner=False, stage_blocks=(8,),
+    )
+    train = TrainingConfig(
+        batch_size=256, epochs=300, warmup_epochs=20, base_lr=6e-4,
+        weight_decay=0.05, label_smoothing=0.1, max_grad_norm=1.0,
+        subtree_clip_norm=None, use_ema=False,
+        use_mixup=False, use_cutmix=False,
+    )
+    return Preset(model, train, "cifar100")
+
+
+def _qavit_v2_extreme() -> Preset:
+    """QAViTv2-EXTREME @32 (QAViTV2_EXTREME.py:41,1259): DeiT aug, bf16,
+    the per-layer dwconv clip and the single-draw mixup/cutmix split."""
+    p = _qavit_v2_c100()
+    train = p.train.replace(
+        use_mixup=True, use_cutmix=True, mix_style="extreme",
+        mixup_alpha=0.2, cutmix_alpha=1.0, mixup_prob=0.8, cutmix_prob=0.2,
+        max_grad_norm=1.0, subtree_clip_norm=0.1,
+        subtree_clip_keys=("dwconv",),
+    )
+    return Preset(p.model.replace(name="qavit_v2_extreme"), train,
+                  "cifar100_deit")
+
+
+def _qavit_v2_extreme_tin() -> Preset:
+    """QAViTv2-EXTREME at TinyImageNet's shape (64 px, patch 4: 256
+    tokens in 16 windows, 200 classes) on the proc_tin substrate."""
+    p = _qavit_v2_extreme()
+    model = p.model.replace(name="qavit_v2_extreme_tin", img_size=64,
+                            num_classes=200)
+    return Preset(model, p.train, "proc_tin")
+
+
+def _qavit_v2_extreme_proc100() -> Preset:
+    """The EXTREME recipe on the proc100 substrate (JAX trained it under
+    ``--attn-impl fused_block``: the n=64 units)."""
+    p = _qavit_v2_extreme()
+    return Preset(p.model.replace(name="qavit_v2_extreme_proc100"),
+                  p.train, "proc100_deit")
+
+
 def _hqavit_c100() -> Preset:
     """HQA-ViT CIFAR-100 flagship (HQAViT_CIFAR100.py:43-123)."""
     return Preset(ModelConfig(name="hqavit_c100"), TrainingConfig(),
@@ -150,6 +200,10 @@ PRESETS = {
     "qavit_v2": _qavit_v2,
     "qavit_224_v1_proc": _qavit_224_v1_proc,
     "qavit_v2_proc224": _qavit_v2_proc224,
+    "qavit_v2_c100": _qavit_v2_c100,
+    "qavit_v2_extreme": _qavit_v2_extreme,
+    "qavit_v2_extreme_tin": _qavit_v2_extreme_tin,
+    "qavit_v2_extreme_proc100": _qavit_v2_extreme_proc100,
     "hqavit_c100": _hqavit_c100,
     "hqavit_tiny_in": _hqavit_tiny_in,
     "hqavit_proc_tin": _hqavit_proc_tin,

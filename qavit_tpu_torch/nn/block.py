@@ -10,10 +10,12 @@ Two forms of the QuadAttentionBlock, as in the JAX package:
   (which equal the flax reference path).  In training (an ``rng`` given)
   each block draws its masks from its own seed and its drop-path rate,
   and writes the bank three times.
-* :class:`BranchQuadBlock`, the flax branch path (``nn/block.py:77-119``,
-  eval only): the four branch modules of ``nn/branches.py``, whose
-  attentions go through the per-shape dispatch of
-  ``kernels/attention.py``, then the block tail.
+* :class:`BranchQuadBlock`, the flax branch path (``nn/block.py:77-119``):
+  the four branch modules of ``nn/branches.py``, whose attentions go
+  through the per-shape dispatch of ``kernels/attention.py``, then the
+  block tail.  In training (an ``rng`` given) the branches drop out and
+  write the bank (SWA, MSDA, CGA), and the tail draws its dropout and
+  drop-path masks from ``rng``'s generator.
 
 :func:`flat_block` chooses between them for the flat QAViT as
 ``nn/block.py:58-75`` does.  HQAViT's TokenLearner blocks always take the
@@ -48,7 +50,8 @@ from qavit_tpu_torch.nn.branches import (ChannelGroupAttention,
                                          CrossAttentionBranch,
                                          MultiScaleDilatedAttention,
                                          SpatialWindowAttention)
-from qavit_tpu_torch.nn.layers import Dense, DropoutRng, LayerNorm, param_tree
+from qavit_tpu_torch.nn.layers import (Dense, DropoutRng, DropPath, LayerNorm,
+                                       keep_mask, param_tree)
 
 Carry = Tuple[torch.Tensor, BankState]
 
@@ -88,15 +91,18 @@ class QuadAttentionBlock(QuadBlockParams):
 
 
 class BranchQuadBlock(QuadBlockParams):
-    """pre-norm -> SWA, MSDA, CGA, cross (each reading the bank) ->
-    per-branch LN + compress -> softmax fusion -> bottleneck MLP ->
-    residual -> norm2 -> CCF-FFN -> residual, eval only.  The tail is
-    ``fused_ref.tail_ref`` without masks (the same function as the flax
-    tail in eval)."""
+    """pre-norm -> SWA, MSDA, CGA, cross (each reading the bank, the
+    first three writing it in training) -> per-branch LN + compress ->
+    softmax fusion -> bottleneck MLP -> residual -> norm2 -> CCF-FFN ->
+    residual.  The tail is ``fused_ref.tail_ref``, the flax tail's
+    function; in training its masks are flax ``Dropout``'s (the bottleneck
+    MLP's two, the CCF-FFN's) and ``DropPath``'s (``drop_path1``,
+    ``drop_path2``) at the block's rate, drawn from ``rng``."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, drop_path: float = 0.0):
         self.dims = block_dims(cfg)
         super().__init__(cfg, self.dims)
+        self.drop_path = DropPath(drop_path)
 
     def branches(self, cfg: ModelConfig, dims: BlockDims):
         return (SpatialWindowAttention(cfg, dims),
@@ -104,24 +110,43 @@ class BranchQuadBlock(QuadBlockParams):
                 ChannelGroupAttention(cfg, dims),
                 CrossAttentionBranch(cfg, dims))
 
-    def forward(self, carry: Carry, dtype) -> Carry:
+    def forward(self, carry: Carry, dtype, rng: Optional[DropoutRng] = None,
+                bank_write: Optional[dict] = None) -> Carry:
+        """``rng`` (training) with ``bank_write``, the bank's write
+        projections (``GlobalBankParams.write_params``)."""
         x, state = carry
         x = x.to(dtype)
         p = param_tree(self)
         xn = R.layer_norm(x, p["norm1"], dtype)
-        outs = [branch(xn, state, dtype) for branch in
-                (self.swa, self.msda, self.cga, self.cross_attn)]
-        return R.tail_ref(p, x, outs, self.dims, dtype), state
+        outs = []
+        for branch in (self.swa, self.msda, self.cga, self.cross_attn):
+            out, state = branch(xn, state, dtype, rng, bank_write)
+            outs.append(out)
+        return R.tail_ref(p, x, outs, self.dims, dtype,
+                          self._tail_masks(x, dtype, rng)), state
+
+    def _tail_masks(self, x: torch.Tensor, dtype, rng: Optional[DropoutRng]):
+        """(bn1, bn2, dp1, ffn, dp2) of ``tail_ref``, drawn in that
+        order; all None in eval."""
+        if rng is None:
+            return (None,) * 5
+        b, n, c = x.shape
+        d, dev = self.dims, x.device
+        bn1 = keep_mask((b, n, d.bottleneck_hidden), d.dropout, rng, dev)
+        bn2 = keep_mask((b, n, c), d.dropout, rng, dev)
+        dp1 = self.drop_path.mask(b, dtype, rng, dev)
+        ffn = keep_mask((b, n, c), d.dropout, rng, dev)
+        return bn1, bn2, dp1, ffn, self.drop_path.mask(b, dtype, rng, dev)
 
 
 def flat_block(cfg: ModelConfig, drop_path: float = 0.0) -> nn.Module:
     """The flat QAViT's block: the fused units when ``attn_impl`` is
     "fused_block" and they cover the geometry, else the branch path
     (``nn/block.py:58-75``).  ``drop_path`` is the block's stochastic
-    depth rate, which only the fused block's training reads."""
+    depth rate, which both blocks read in training."""
     if cfg.attn_impl == "fused_block" and make_geom(cfg) is not None:
         return QuadAttentionBlock(cfg, drop_path)
-    return BranchQuadBlock(cfg)
+    return BranchQuadBlock(cfg, drop_path)
 
 
 class TokenLearner(nn.Module):

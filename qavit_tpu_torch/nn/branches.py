@@ -1,15 +1,22 @@
-"""The four Quad-Attention branches, eval forward
+"""The four Quad-Attention branches
 (counterpart of ``qavit_tpu/nn/branches.py``).
 
 Each branch is its parameter holder from ``kernels/fused_params.py``
-(the JAX tree's paths) with a forward ``branch(x, state, dtype) -> out``
-that follows the flax module's arithmetic and rounding points.  Nothing
-writes to the bank in eval (``qavit_tpu/nn/bank.py:110``), so the state
-only supplies the bank rows the branches read.  Every attention goes
-through :func:`guarded_attention`, hence through the dispatch of
-``kernels/attention.py``: at 224 the MSDA and cross attentions (196
-queries, head width 48) take the flash kernel on the card, SWA (49
-queries per window) and CGA (head width 4) the plain path.
+(the JAX tree's paths) with a forward
+``branch(x, state, dtype, rng=None, write=None) -> (out, state)`` that
+follows the flax module's arithmetic and rounding points.  In eval (no
+``rng``) nothing writes to the bank (``qavit_tpu/nn/bank.py:110``), so
+the state only supplies the bank rows the branches read.  In training
+each attention drops probabilities at ``cfg.dropout`` (a counter-hash
+mask salted by ``rng.salt()``), each proj output is dropped out from
+``rng``'s generator, and SWA, MSDA and CGA then write their LayerNormed
+output to the bank (with the bank's write projections ``write``), so
+the next branch reads the updated rows.  Every attention
+goes through :func:`guarded_attention`, hence through the dispatch of
+``kernels/attention.py``: in eval at 224 the MSDA and cross attentions
+(196 queries, head width 48) take the flash kernel on the card, SWA (49
+queries per window) and CGA (head width 4) the plain path; in training
+with dropout every attention takes the plain path, as in JAX.
 """
 
 from __future__ import annotations
@@ -25,10 +32,11 @@ from qavit_tpu_torch.kernels.attention import attention
 from qavit_tpu_torch.kernels.fused_params import (BlockDims, CGAParams,
                                                   CrossParams, MSDAParams,
                                                   SWAParams)
-from qavit_tpu_torch.kernels.fused_ref import (dense, merge_heads, mm,
+from qavit_tpu_torch.kernels.fused_ref import (bank_write_partial, dense,
+                                               layer_norm, merge_heads, mm,
                                                split_heads)
-from qavit_tpu_torch.nn.bank import BankState
-from qavit_tpu_torch.nn.layers import param_tree
+from qavit_tpu_torch.nn.bank import BankState, finish_bank_update
+from qavit_tpu_torch.nn.layers import DropoutRng, dropout, param_tree
 
 
 def guarded_attention(q, k, v, *, dropout: float, train: bool,
@@ -76,10 +84,24 @@ def _bank_heads(state: BankState, batch: int, heads: int, dtype
         v.reshape(batch, s, heads, c // heads)
 
 
-def _attend(cfg: ModelConfig, q, k, v, impl: Optional[str] = None):
-    return guarded_attention(q, k, v, dropout=cfg.dropout, train=False,
-                             rng=None, impl=impl or cfg.attn_impl,
-                             guard=cfg.guard_nans)
+def _attend(cfg: ModelConfig, q, k, v, rng: Optional[DropoutRng],
+            impl: Optional[str] = None):
+    train = rng is not None
+    return guarded_attention(
+        q, k, v, dropout=cfg.dropout, train=train,
+        rng=rng.salt() if train and cfg.dropout > 0 else None,
+        impl=impl or cfg.attn_impl, guard=cfg.guard_nans)
+
+
+def _write(cfg: ModelConfig, p, out: torch.Tensor, state: BankState, dtype,
+           write: Optional[dict]) -> BankState:
+    """A writing branch's tail in training: its output LayerNormed
+    (``norm``) and written to the bank (``qavit_tpu/nn/bank.py:101-140``);
+    in eval (no ``write``) the state unchanged."""
+    if write is None:
+        return state
+    pk, pv = bank_write_partial(write, layer_norm(out, p["norm"], dtype))
+    return finish_bank_update(cfg.bank, state, pk, pv, out.shape[0])
 
 
 class SpatialWindowAttention(SWAParams):
@@ -91,8 +113,10 @@ class SpatialWindowAttention(SWAParams):
         super().__init__(cfg.embed_dim, dims)
         self.cfg = cfg
 
-    def forward(self, x: torch.Tensor, state: BankState, dtype
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, state: BankState, dtype,
+                rng: Optional[DropoutRng] = None,
+                write: Optional[dict] = None
+                ) -> Tuple[torch.Tensor, BankState]:
         cfg, p = self.cfg, param_tree(self)
         b, n, c = x.shape
         h = w = math.isqrt(n)
@@ -112,10 +136,12 @@ class SpatialWindowAttention(SWAParams):
         k_c, v_c = linformer(p["linformer"], k, v, ws * ws, dtype)
         kb, vb = _bank_heads(state, bw, cfg.num_heads, dtype)
         out = _attend(cfg, q, torch.cat([k_c, kb], 1),
-                      torch.cat([v_c, vb], 1))
-        out = dense(merge_heads(out), p["proj"], dtype)
+                      torch.cat([v_c, vb], 1), rng)
+        out = dropout(dense(merge_heads(out), p["proj"], dtype), cfg.dropout,
+                      rng)
         out = out.reshape(b, nh, nw, ws, ws, c).permute(0, 1, 3, 2, 4, 5)
-        return out.reshape(b, hp, wp, c)[:, :h, :w].reshape(b, n, c)
+        out = out.reshape(b, hp, wp, c)[:, :h, :w].reshape(b, n, c)
+        return out, _write(cfg, p, out, state, dtype, write)
 
 
 class MultiScaleDilatedAttention(MSDAParams):
@@ -128,8 +154,10 @@ class MultiScaleDilatedAttention(MSDAParams):
         super().__init__(cfg, dims)
         self.cfg = cfg
 
-    def forward(self, x: torch.Tensor, state: BankState, dtype
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, state: BankState, dtype,
+                rng: Optional[DropoutRng] = None,
+                write: Optional[dict] = None
+                ) -> Tuple[torch.Tensor, BankState]:
         cfg, p = self.cfg, param_tree(self)
         b, n, c = x.shape
         h = w = math.isqrt(n)
@@ -152,8 +180,10 @@ class MultiScaleDilatedAttention(MSDAParams):
         q = split_heads(mm(x.to(dtype), kernel[:, :c], dtype) + bias[:c],
                         cfg.num_heads)
         out = _attend(cfg, q, torch.cat([k_c, kb], 1),
-                      torch.cat([v_c, vb], 1))
-        return dense(merge_heads(out), p["proj"], dtype)
+                      torch.cat([v_c, vb], 1), rng)
+        out = dropout(dense(merge_heads(out), p["proj"], dtype), cfg.dropout,
+                      rng)
+        return out, _write(cfg, p, out, state, dtype, write)
 
 
 class ChannelGroupAttention(CGAParams):
@@ -165,8 +195,10 @@ class ChannelGroupAttention(CGAParams):
         super().__init__(cfg.embed_dim, dims)
         self.cfg = cfg
 
-    def forward(self, x: torch.Tensor, state: BankState, dtype
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, state: BankState, dtype,
+                rng: Optional[DropoutRng] = None,
+                write: Optional[dict] = None
+                ) -> Tuple[torch.Tensor, BankState]:
         cfg, p = self.cfg, param_tree(self)
         b, n, c = x.shape
         g = cfg.num_channel_groups
@@ -181,23 +213,28 @@ class ChannelGroupAttention(CGAParams):
                   .expand(b * g, s, cperg)
                   for name, t in (("k", state.k), ("v", state.v)))
         out = _attend(cfg, q, torch.cat([k, split_heads(kb, heads)], 1),
-                      torch.cat([v, split_heads(vb, heads)], 1), impl="xla")
+                      torch.cat([v, split_heads(vb, heads)], 1), rng,
+                      impl="xla")
         out = merge_heads(out).reshape(b, g, n, cperg).permute(
             0, 2, 1, 3).reshape(b, n, comp_c)
-        return dense(out, p["proj"], dtype)
+        out = dropout(dense(out, p["proj"], dtype), cfg.dropout, rng)
+        return out, _write(cfg, p, out, state, dtype, write)
 
 
 class CrossAttentionBranch(CrossParams):
     """Cross attention of the tokens onto the bank (``branches.py:
     279-315``): K and V are Dense of the bank rows, computed once and
-    broadcast to the batch as a stride-0 view."""
+    broadcast to the batch as a stride-0 view; it reads the bank and
+    never writes it."""
 
     def __init__(self, cfg: ModelConfig, dims: BlockDims):
         super().__init__(cfg.embed_dim)
         self.cfg = cfg
 
-    def forward(self, x: torch.Tensor, state: BankState, dtype
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, state: BankState, dtype,
+                rng: Optional[DropoutRng] = None,
+                write: Optional[dict] = None
+                ) -> Tuple[torch.Tensor, BankState]:
         cfg, p = self.cfg, param_tree(self)
         b = x.shape[0]
         heads = cfg.num_heads
@@ -205,5 +242,7 @@ class CrossAttentionBranch(CrossParams):
         k, v = (split_heads(dense(t.to(dtype), p[f"{name}_proj"], dtype),
                             heads).expand(b, -1, -1, -1)
                 for name, t in (("k", state.k), ("v", state.v)))
-        out = _attend(cfg, q, k, v)
-        return dense(merge_heads(out), p["proj"], dtype)
+        out = _attend(cfg, q, k, v, rng)
+        out = dropout(dense(merge_heads(out), p["proj"], dtype), cfg.dropout,
+                      rng)
+        return out, state

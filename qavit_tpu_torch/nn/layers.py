@@ -36,15 +36,20 @@ def normal_(t: torch.Tensor, std: float, gen: torch.Generator) -> None:
 
 class DropoutRng:
     """The random state of one train forward, from one integer seed:
-    a ``torch.Generator`` on the activations' device for the dropout masks
-    outside the fused blocks, and one seed per fused block (the blocks'
-    masks come from a counter hash, ``fused_ref.block_rng``)."""
+    a ``torch.Generator`` on the activations' device for the dropout and
+    drop-path masks outside the fused blocks, one seed per fused block
+    (the blocks' masks come from a counter hash, ``fused_ref.block_rng``)
+    and one salt per attention dropout of the branch path (the counter-hash
+    masks of ``kernels/attention.py``).  None of these is ``jax.random``'s
+    draw: the masks differ from JAX's by design (ROADMAP.md, the known
+    divergences)."""
 
     def __init__(self, seed: int, device):
         self.seed = int(seed)
         self.device = torch.device(device)
         self._gen: Optional[torch.Generator] = None
         self._blocks = 0
+        self._salts = 0
 
     def generator(self) -> torch.Generator:
         if self._gen is None:
@@ -57,36 +62,62 @@ class DropoutRng:
         self._blocks += 1
         return (self.seed << 20) + self._blocks
 
+    def salt(self) -> int:
+        """The next attention dropout's 32-bit salt, a hash of the whole
+        seed and a counter (no host sync, unlike a draw from the
+        generator)."""
+        self._salts += 1
+        base = R.fmix32(self.seed & R._M32) ^ R.fmix32(
+            (self.seed >> 32) & R._M32 ^ 0x5BD1E995)
+        return R.fmix32((base + self._salts * R._GOLDEN) & R._M32)
+
+
+def keep_mask(shape, rate: float, rng: Optional[DropoutRng],
+              device) -> Optional[torch.Tensor]:
+    """flax ``nn.Dropout``'s keep mask: True with probability 1 - rate,
+    drawn from ``rng``'s generator; None in eval (no ``rng``) or at rate
+    0."""
+    if rng is None or rate <= 0.0:
+        return None
+    return torch.rand(shape, generator=rng.generator(), device=device) >= rate
+
 
 def dropout(x: torch.Tensor, rate: float,
             rng: Optional[DropoutRng]) -> torch.Tensor:
     """flax ``nn.Dropout``: keep with probability 1 - rate, scale kept
     values by 1 / (1 - rate); the identity without ``rng`` (eval)."""
-    if rng is None or rate <= 0.0:
-        return x
-    keep = torch.rand(x.shape, generator=rng.generator(),
-                      device=x.device) >= rate
-    return torch.where(keep, x.float() / R.keep_f32(rate), 0.0).to(x.dtype)
+    return R.dropout(x, rate, keep_mask(x.shape, rate, rng, x.device))
 
 
 class DropPath(nn.Module):
     """Stochastic depth: one Bernoulli keep per sample, kept samples
-    scaled by 1 / keep_prob (``qavit_tpu/nn/layers.py:33-52``).  The
-    fused blocks draw theirs in-kernel; this one serves the rest."""
+    divided by keep_prob rounded to the activations' dtype, as
+    ``qavit_tpu/nn/layers.py:33-52`` divides by
+    ``keep_prob.astype(x.dtype)``.  The fused blocks draw theirs
+    in-kernel; this one serves the rest (the RRCV side path, the branch
+    block's tail)."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = float(rate)
 
+    def mask(self, batch: int, dtype: torch.dtype,
+             rng: Optional[DropoutRng], device) -> Optional[torch.Tensor]:
+        """The prescaled float32 mask [B, 1, 1] (0 or 1 / keep_prob) that
+        ``fused_ref.drop_path`` applies; None in eval or at rate 0."""
+        if rng is None or self.rate == 0.0:
+            return None
+        keep = torch.rand((batch, 1, 1), generator=rng.generator(),
+                          device=device) >= self.rate
+        keep_prob = torch.tensor(R.keep_f32(self.rate), dtype=dtype).float()
+        return torch.where(keep, 1.0 / keep_prob.to(device), 0.0)
+
     def forward(self, x: torch.Tensor,
                 rng: Optional[DropoutRng]) -> torch.Tensor:
-        if rng is None or self.rate == 0.0:
+        m = self.mask(x.shape[0], x.dtype, rng, x.device)
+        if m is None:
             return x
-        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        keep = torch.rand(shape, generator=rng.generator(),
-                          device=x.device) >= self.rate
-        return torch.where(keep, x.float() / R.keep_f32(self.rate),
-                           0.0).to(x.dtype)
+        return R.drop_path(x, m.reshape((-1,) + (1,) * (x.dim() - 1)))
 
 
 class Dense(nn.Module):

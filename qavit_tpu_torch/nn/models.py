@@ -6,9 +6,9 @@ The JAX package stacks blocks with ``nn.scan``; here a stack is an
 ``nn.ModuleList`` (``blocks``, ``stage{i}_blocks``) and the bridge
 unstacks the scan axis.  Images are NHWC, normalised float; the forward
 returns float32 logits and the bank state after the forward (unchanged
-in eval; for HQAViT in training after three writes per block, for the
-train step to copy into the parameters).  QAViT serves the eval forward;
-its train step waits for a later slice (ROADMAP queue 1 item 1).
+in eval; in training after three writes per block, for the train step to
+copy into the parameters).  Both models train: ``train=True`` with
+``rng``, the step's ``DropoutRng``.
 """
 
 from __future__ import annotations
@@ -40,7 +40,8 @@ def drop_path_rates(cfg: ModelConfig) -> np.ndarray:
 
 class QAViT(nn.Module):
     """Flat Quad-Attention ViT (QAViT.py:654-699): patch embedding and
-    position embedding, ``depth`` quad blocks, LN, mean-pool, head."""
+    position embedding, ``pos_drop``, ``depth`` quad blocks (``flat_block``:
+    the fused units or the branch path), LN, mean-pool, head."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -63,16 +64,19 @@ class QAViT(nn.Module):
                 return_features: bool = False
                 ) -> Tuple[torch.Tensor, BankState]:
         """Logits (or, with ``return_features``, the pooled features) and
-        the bank state."""
-        if train:
-            raise NotImplementedError(
-                "the flat QAViT's train step is not ported yet (ROADMAP "
-                "queue 1 item 1)")
+        the bank state.  ``train`` needs ``rng``, the step's dropout state
+        (one draw of each block's masks from it, block after block);
+        ``bank_count`` is the persistent bank write count."""
+        if train and rng is None:
+            raise ValueError("a train forward needs rng=DropoutRng(...)")
+        rng = rng if train else None
         dtype = compute_dtype(self.cfg)
         t = self.patch_embed(x.to(dtype), dtype) + self.pos_embed.to(dtype)
+        t = dropout(t, self.cfg.dropout, rng)
         state = bank_init_state(self.global_bank, bank_count)
+        bank_write = self.global_bank.write_params() if train else None
         for block in self.blocks:
-            t, state = block((t, state), dtype)
+            t, state = block((t, state), dtype, rng, bank_write)
         pooled = self.norm(t, dtype).float().mean(dim=1).to(dtype)
         if return_features:
             return pooled.float(), state

@@ -4,7 +4,7 @@ start (counterpart of ``qavit_tpu/obs/analyzer.py:18-147``; the
 ArchitectureAnalyzer of QAViTv2.py:104-346).
 
 Parameters are grouped under the JAX package's module paths
-(``train/optim.py`` ``jax_path``: a stage's blocks are one group, as
+(``train/optim.py`` ``jax_path``: a stack's blocks are one group, as
 JAX's scanned leaf is), so the breakdown reads as JAX's does.  The
 measured harness (``benchmark_fn``, ``batch_size_sweep``,
 ``device_memory_stats``) waits for ROADMAP.md queue 1 item 11.

@@ -39,7 +39,7 @@ def leaf_names(names: Sequence[str]) -> List[str]:
 @torch.no_grad()
 def grad_stats(names: Sequence[str], grads: Sequence[torch.Tensor]
                ) -> Dict[str, torch.Tensor]:
-    """Per-JAX-leaf gradient norms (a stage's blocks merged), their
+    """Per-JAX-leaf gradient norms (a stack's blocks merged), their
     global norm and NaN / Inf flags, all on the gradients' device with no
     host sync: ``per_leaf`` is one ``[L]`` float32 tensor in the order of
     :func:`leaf_names`."""

@@ -6,7 +6,7 @@ float32 vector of every parameter in ``TrainState.names`` order
 (``flat_optim.py:78-127``):
 
 1. the subtree pre-clip of the ``subtree_clip_keys`` leaves, each JAX leaf
-   (a stage's blocks merged, ``optim._groups``) by its own norm;
+   (a stack's blocks merged, ``optim._groups``) by its own norm;
 2. one global-norm reduction over the raveled gradients and the clip;
 3. Adam's moments as two ``[P]`` vectors, with the bias correction;
 4. decoupled weight decay through the ``NO_WD_KEYS`` mask, folded into a

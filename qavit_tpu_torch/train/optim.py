@@ -7,9 +7,11 @@ parameter outside ``NO_WD_KEYS``, then the LR-group multiplier (which so
 scales the weight-decay term too), then the scheduled learning rate
 (``optim.py:174-205``).  Parameters are named as ``model.named_parameters``
 names them; a name's JAX path is the same with ``/`` for ``.`` and the
-block index of ``stage{i}_blocks.{j}`` dropped, because the JAX package
-stacks a stage's blocks into one leaf.  The per-tensor pre-clip therefore
-takes one norm over the blocks of a stage, as the JAX leaf does.
+block index of ``stage{i}_blocks.{j}`` (HQAViT) or ``blocks.{j}`` (the
+flat QAViT) dropped, because the JAX package stacks a stage's blocks into
+one scanned leaf (``qavit_tpu/nn/models.py`` ``_scan_stack``).  The
+per-tensor pre-clip therefore takes one norm over the blocks of a stack,
+as the JAX leaf does.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from qavit_tpu_torch.configs.training import TrainingConfig
 # writing branch's post-proj LayerNorm): no weight decay
 NO_WD_KEYS = ("write_norm", "write_compression", "write_gate",
               "swa/norm/", "msda/norm/", "cga/norm/")
-_BLOCK = re.compile(r"(stage\d+_blocks)\.\d+\.")
+_BLOCK = re.compile(r"(^blocks|stage\d+_blocks)\.\d+\.")
 
 
 def jax_path(name: str) -> str:
@@ -172,7 +174,7 @@ def format_lr_group_table(names: Sequence[str], tc: TrainingConfig
                           ) -> List[str]:
     """The startup table of ``qavit_tpu/cli/train.py:244-257``, as JAX
     prints it: for each multiplier, largest first, the number of JAX
-    leaves that take it (a stage's blocks are one leaf) and the module
+    leaves that take it (a stack's blocks are one leaf) and the module
     path of the first of them in JAX's leaf order (sorted keys); no lines
     without LR groups."""
     mult = lr_group_multipliers(tc)

@@ -44,15 +44,19 @@ def _not_ported(what: str, item: str):
 
 
 def check_train_geometry(mc: ModelConfig) -> None:
-    """Raise unless the fused units' backward kernels take ``mc``'s block
-    geometry (HQAViT; the flat QAViT's train step raises on its own, queue
-    1 item 1): n=16 in one SWA window (hqavit_c100) or n=64 in four
-    (hqavit_tiny_in, hqavit_proc_tin).  The working dtype is checked at
-    each launch: on the card n=64 trains in bf16 only, while the CPU's
-    plain units take both dtypes."""
-    if not mc.hybrid:
+    """Raise unless the fused units' backward kernels take the geometry of
+    the blocks ``mc`` trains through the fused units: HQAViT's always, the
+    flat QAViT's under ``attn_impl="fused_block"`` when ``make_geom``
+    covers its grid (``flat_block``).  The kernels take n=16 in one SWA
+    window (hqavit_c100) and n=64 in four (hqavit_tiny_in,
+    hqavit_proc_tin, qavit_v2_extreme_proc100); the flat branch path has
+    no kernel geometry to check.  The working dtype is checked at each
+    launch: on the card n=64 trains in bf16 only, while the CPU's plain
+    units take both dtypes."""
+    fused = mc.hybrid or mc.attn_impl == "fused_block"
+    geom = make_geom(mc) if fused else None
+    if geom is None and not mc.hybrid:
         return
-    geom = make_geom(mc)
     err = ("no fused-block geometry" if geom is None
            else kernel_geometry_error(geom, train=True))
     if err is not None:

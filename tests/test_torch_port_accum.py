@@ -23,16 +23,9 @@ from qavit_tpu_torch.train.optim import make_schedule
 from qavit_tpu_torch.train.state import create_train_state
 from qavit_tpu_torch.train.steps import make_train_step
 from torch_port_common import port_cfg
+from torch_port_common import one_thread  # noqa: F401 (autouse)
 
 ROUNDOFF = S.ROUNDOFF
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module",

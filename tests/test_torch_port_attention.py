@@ -18,6 +18,7 @@ from qavit_tpu_torch.kernels import attention as A
 from qavit_tpu_torch.kernels import flash_attention as FA
 from qavit_tpu_torch.kernels import fused_ref as R
 from torch_port_common import assert_close
+from torch_port_common import one_thread  # noqa: F401 (autouse)
 
 SHAPES = {"msda": (2, 196, 80, 4, 48), "cross": (2, 196, 16, 4, 48)}
 

@@ -12,6 +12,7 @@ from qavit_tpu.configs import get_preset as jax_get_preset
 from qavit_tpu_torch.ckpt.from_jax import jax_state_dict, load_jax_params
 from qavit_tpu_torch.nn.models import HQAViT
 from torch_port_common import jax_bundle, port_cfg
+from torch_port_common import one_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

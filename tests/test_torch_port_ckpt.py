@@ -46,22 +46,11 @@ from qavit_tpu_torch.train.optim import make_schedule
 from qavit_tpu_torch.train.state import create_train_state
 from qavit_tpu_torch.train.steps import make_train_step
 from torch_port_common import F32, jax_bundle, port_cfg, to_np
+from torch_port_common import one_thread  # noqa: F401 (autouse)
 
 B = 4
 JAX_STATE_KEYS = ["bank_count", "batch_stats", "ema_batch_stats",
                   "ema_decay", "ema_params", "opt_state", "params", "step"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread, as ``test_torch_port_train_pieces.py`` runs
-    its full-size steps: many small ops, which the suite's parallel
-    workers slow down many times over when each spreads them over every
-    core."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -143,7 +143,7 @@ def test_unknown_names_raise():
     with pytest.raises(KeyError):
         TPL.get_pipeline("proc100_hard")
     with pytest.raises(KeyError):
-        get_preset("qavit_v2_extreme_proc100")
+        get_preset("no_such_preset")
 
 
 def test_stats_and_subsample_per_class_match_jax():

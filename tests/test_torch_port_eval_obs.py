@@ -44,22 +44,11 @@ from qavit_tpu_torch.eval import tta as TT
 from qavit_tpu_torch.nn.models import HQAViT, build_model
 from qavit_tpu_torch.obs import analyzer as AN
 from qavit_tpu_torch.train.state import create_train_state
+from torch_port_common import one_thread  # noqa: F401 (autouse)
 
 B = 6
 PIPE = "proc100_hard_hqa"
 VIEW_ATOL = float(np.spacing(np.float32(1.0))) / 0.25
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread, as ``test_torch_port_train_pieces.py`` runs
-    its full-size steps: many small ops, which the suite's parallel
-    workers slow down many times over when each spreads them over every
-    core."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _images(seed=0, b=B, size=32):

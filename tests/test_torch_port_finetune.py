@@ -49,20 +49,10 @@ from qavit_tpu_torch.train.optim import (AdamState, adam_init, adamw_update,
 from qavit_tpu_torch.train.state import create_train_state, ema_update
 from qavit_tpu_torch.train.steps import make_train_step
 from torch_port_common import jax_bundle, port_cfg
+from torch_port_common import one_thread  # noqa: F401 (autouse)
 
 LR_PRESETS = ("hqavit_c100_finetune", "hqavit_proc100_hard_finetune",
               "hqavit_tiny_cifar10", "hqavit_tiny_proc10")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread, as the other train-step files run: many small
-    ops, which the suite's parallel workers slow down when each spreads
-    them over every core."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _path(path) -> str:

@@ -31,6 +31,7 @@ from qavit_tpu_torch.data import procgen as TP
 from qavit_tpu_torch.nn.models import HQAViT
 from test_torch_port_train_loop import B, REL, _jax_loop, _narrow
 from torch_port_common import jax_bundle, port_cfg
+from torch_port_common import one_thread  # noqa: F401 (autouse)
 
 CASES = {
     "grad_accum": (dict(gradient_accumulation_steps=2), ["--grad-accum",
@@ -40,14 +41,6 @@ CASES = {
     "layerwise": (dict(lr_groups="layerwise", schedule="warm_restarts",
                        warm_restart_t0_epochs=1, base_lr=1e-4), []),
 }
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("case", sorted(CASES))

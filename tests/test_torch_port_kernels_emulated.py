@@ -19,9 +19,6 @@ batch-wide NaN guard here; that nvcc accepts them and that they agree on
 the card is checked by chip_smoke.py and the tests marked ``cuda``."""
 
 import ctypes
-import shutil
-import subprocess
-from pathlib import Path
 
 import pytest
 import torch
@@ -30,26 +27,19 @@ from qavit_tpu_torch.configs import get_preset
 from qavit_tpu_torch.kernels import flash_attention as FA
 from qavit_tpu_torch.kernels import fused_kernels as K
 from qavit_tpu_torch.kernels import mma_selftest as MS
-from qavit_tpu_torch.kernels.build import CSRC
 from qavit_tpu_torch.kernels.fused_params import QuadBlockParams
 from qavit_tpu_torch.kernels.fused_ref import make_geom
 from qavit_tpu_torch.nn.layers import init_weights, param_tree
+from torch_port_emulation import emulation_library
+from torch_port_emulation import two_cores  # noqa: F401 (autouse)
+from torch_port_common import one_thread  # noqa: F401 (autouse)
 
-EMU = Path(__file__).resolve().parent / "cuda_emulation"
 B = 2
 
 
 @pytest.fixture(scope="module")
 def emu_lib(tmp_path_factory):
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("g++ is needed to compile the kernels for the host")
-    out = tmp_path_factory.mktemp("qv_emu") / "libqv_emu.so"
-    cmd = [gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-DQV_EMULATE",
-           "-x", "c++", f"-I{EMU}", *map(str, sorted(CSRC.glob("*.cu"))),
-           "-o", str(out), "-lpthread"]
-    subprocess.run(cmd, check=True, capture_output=True)
-    return K.bind(ctypes.CDLL(str(out)))
+    return emulation_library(tmp_path_factory)
 
 
 def _cfg(width):

@@ -15,6 +15,7 @@ from qavit_tpu_torch.ckpt.from_jax import load_jax_params
 from qavit_tpu_torch.nn import block as TB
 from qavit_tpu_torch.nn import hybrid as TH
 from torch_port_common import assert_close, random_tree
+from torch_port_common import one_thread  # noqa: F401 (autouse)
 
 # (embed, cnn c2, c3, c4, rrcv channels, image size, token grid)
 WIDTHS = {"tiny": (48, 8, 12, 16, 8, 16, 4),

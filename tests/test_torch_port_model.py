@@ -12,6 +12,7 @@ from qavit_tpu_torch.kernels import fused_kernels as K
 from qavit_tpu_torch.nn.models import HQAViT
 from torch_port_common import (assert_close, flagship_width_depth2,
                                jax_bundle, port_cfg)
+from torch_port_common import one_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("which", ["tiny", "flagship_width_depth2"])

@@ -23,6 +23,7 @@ from qavit_tpu_torch.nn.models import HQAViT
 from torch_port_common import (BF16_VS_F32, BF16_VS_JAX, assert_close,
                                flagship_width_depth2, jax_bundle,
                                narrow_tiny_in, port_cfg, to_np)
+from torch_port_common import one_thread  # noqa: F401 (autouse)
 
 TIN_PRESETS = ("hqavit_tiny_in", "hqavit_proc_tin")
 B = 2

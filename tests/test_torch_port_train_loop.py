@@ -59,21 +59,10 @@ from qavit_tpu_torch.nn.models import HQAViT
 from qavit_tpu_torch.obs.metrics import BASE_KEYS, EMA_KEYS, TrainingLogger
 from qavit_tpu_torch.obs.monitor import GradientMonitor, check_for_nan
 from torch_port_common import jax_bundle, port_cfg
+from torch_port_common import one_thread  # noqa: F401 (autouse)
 
 REL = 1e-4
 B = 4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread, as ``test_torch_port_train_pieces.py`` runs
-    its full-size steps: many small ops, which the suite's parallel
-    workers slow down many times over when each spreads them over every
-    core."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _epoch_metrics(rs, epoch):

@@ -32,6 +32,7 @@ from qavit_tpu_torch.kernels.fused_params import QuadBlockParams
 from qavit_tpu_torch.nn.layers import param_tree
 from torch_port_common import (block_tree, flagship_width_depth2, jax_bundle,
                                narrow_tiny_in, port_cfg, to_np)
+from torch_port_common import one_thread  # noqa: F401 (autouse)
 
 B = 3
 

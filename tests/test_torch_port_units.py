@@ -20,6 +20,7 @@ from qavit_tpu_torch.nn.layers import param_tree
 from torch_port_common import (assert_close, block_tree,
                                flagship_width_depth2, jax_bundle,
                                multiwindow_depth2, port_cfg)
+from torch_port_common import one_thread  # noqa: F401 (autouse)
 
 B = 3
 

@@ -9,6 +9,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from qavit_tpu.configs import get_preset as jax_get_preset
@@ -28,6 +29,18 @@ BF16_REL_TO_MAX = 2.0 ** -6
 # 0.94-0.95x of JAX's own distance on seeds 7 and 11)
 BF16_VS_JAX = 2.0
 BF16_VS_F32 = 1.5
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for the module's tests: the suite runs on
+    several workers at once, and PyTorch's default of a thread per core in
+    each of them oversubscribes the cores (imported by a test module, it
+    applies to that module)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def flagship_width_depth2():
@@ -55,6 +68,26 @@ def narrow_tiny_in(dtype: str = "float32"):
         embed_dim=48, depth=4, stage_blocks=(1, 1, 1, 1), linformer_k=8,
         cnn_c2=8, cnn_c3=12, cnn_c4=16, rrcv_channels=8, dtype=dtype,
         attn_impl="fused_block")
+
+
+def flat_fused64(dtype: str = "float32"):
+    """qavit_v2_extreme's token geometry (32 px, patch 4: 64 tokens in
+    four SWA windows of 16, 40 pooled MSDA rows) under
+    ``attn_impl="fused_block"``, narrow and shallow: C=48 with 4 heads,
+    depth 2."""
+    return jax_get_preset("qavit_v2_extreme").model.replace(
+        embed_dim=48, depth=2, stage_blocks=(2,), linformer_k=8,
+        dtype=dtype, attn_impl="fused_block")
+
+
+def flat_branch49(dtype: str = "float32"):
+    """The 224 v1 QAViT's branch path at a small grid: 56 px, patch 8
+    (49 tokens, one SWA window of 49, dilations 1, 2, 3), bank v1,
+    unstabilised CCF-FFN with the dwconv bias; C=48 with 4 heads, depth
+    2."""
+    return jax_get_preset("qavit_224_v1").model.replace(
+        img_size=56, patch_size=8, embed_dim=48, depth=2, stage_blocks=(2,),
+        linformer_k=8, msda_pad_len=32, dtype=dtype)
 
 
 def port_cfg(jcfg) -> ModelConfig:

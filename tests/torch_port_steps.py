@@ -1,13 +1,15 @@
 """Whole train steps of the port against the JAX package's
 ``make_train_step`` with ``make_optimizer``, for the finetune stage's
-options (``test_torch_port_finetune.py``, ``test_torch_port_accum.py``):
-the ``tiny_cfg`` model on the same seed-made weights
-(``ckpt/from_jax.py``) and batch, mixing off, dropout and drop-path 0,
-1 and 3 steps.  Compared: each step's loss, ``grad_norm``, ``correct``
-and ``count``; every parameter (the bank rows included), Adam's two
-moments (the flat ones split per tensor), the EMA, ``bank_count`` and
-the BatchNorm statistics; under ``debug_grads`` each step's per-leaf
-gradient norms.
+options (``test_torch_port_finetune.py``, ``test_torch_port_accum.py``)
+and the flat QAViT's recipe (``test_torch_port_flat_train_steps.py``):
+a model of either family (HQAViT, e.g. ``tiny_cfg``, or the flat QAViT)
+on the same seed-made weights (``ckpt/from_jax.py``) and batch, mixing
+off, dropout and drop-path 0, 1 and 3 steps.  Compared: each step's
+loss, ``grad_norm``, ``correct`` and ``count``; every parameter (the bank
+rows included), Adam's two moments (the flat ones split per tensor), the
+EMA, ``bank_count`` and the BatchNorm statistics (HQAViT's; the flat
+QAViT has none); under ``debug_grads`` each step's per-leaf gradient
+norms.
 
 Tolerance (float32): rtol 1e-4 and an atol of 1e-5 x the largest |value|
 of the tensor, with the roundoff-leaf allowance of
@@ -34,7 +36,7 @@ from qavit_tpu.train.steps import make_train_step as jax_train_step
 from qavit_tpu_torch.ckpt.from_jax import (_leaves, _torch_entry, _unstack,
                                            jax_state_dict, load_jax_params)
 from qavit_tpu_torch.configs.training import TrainingConfig
-from qavit_tpu_torch.nn.models import HQAViT
+from qavit_tpu_torch.nn.models import HQAViT, QAViT
 from qavit_tpu_torch.obs.monitor import leaf_names
 from qavit_tpu_torch.train import flat_optim as F
 from qavit_tpu_torch.train.optim import (jax_path, make_schedule,
@@ -69,7 +71,27 @@ CASES = {
                                    lr_groups="layerwise",
                                    gradient_accumulation_steps=2), 4,
                               False),
+    # qavit_v2_extreme's recipe with mixing off: its weight decay, label
+    # smoothing and global clip, the per-tensor pre-clip of every dwconv
+    # leaf (one norm over the stacked blocks, as JAX's leaf).  At C=48 the
+    # dwconv leaves' gradient norms read 0.02-0.1 on the first step, so
+    # the recipe's 0.1 would hardly bind; at 0.05 it clips some leaves and
+    # not others
+    "extreme": (dict(base_lr=6e-4, weight_decay=0.05, label_smoothing=0.1,
+                     max_grad_norm=1.0, subtree_clip_norm=0.05,
+                     subtree_clip_keys=("dwconv",)), 2, True),
+    "extreme_flat": (dict(base_lr=6e-4, weight_decay=0.05,
+                          label_smoothing=0.1, max_grad_norm=1.0,
+                          subtree_clip_norm=0.05,
+                          subtree_clip_keys=("dwconv",),
+                          flat_optimizer=True), 2, True),
 }
+
+# a leaf whose JAX gradient is zero in exact arithmetic, in each family:
+# TokenUpMix's bias before its LN; the cross branch's key bias (a bias
+# added to every key shifts all scores of a query alike)
+ROUNDOFF_LEAF = {True: "stage1_blocks.0.token_upmix.upsample_attn.bias",
+                 False: "blocks.0.cross_attn.k_proj.bias"}
 
 
 def _jax_tree_to_port(model, tree, bstats):
@@ -86,11 +108,12 @@ def _leaf_map(model, params):
     return out
 
 
-def run_case(case, tiny_cfg):
+def run_case(case, cfg):
     """(case, model, configs, {steps: (JAX state, JAX metrics, port
-    snapshot, port metrics)}) after 1 and 3 steps from the same start."""
+    snapshot, port metrics)}) after 1 and 3 steps from the same start,
+    for the JAX ModelConfig ``cfg`` of either family."""
     fields, b, debug = CASES[case]
-    jcfg = tiny_cfg.replace(dropout=0.0, drop_path=0.0)
+    jcfg = cfg.replace(dropout=0.0, drop_path=0.0)
     tcj = JaxTC(batch_size=b, epochs=2, warmup_epochs=1, use_mixup=False,
                 use_cutmix=False, use_ema=True, **fields)
     tct = TrainingConfig(**dataclasses.asdict(tcj))
@@ -103,12 +126,13 @@ def run_case(case, tiny_cfg):
     sched = jax_schedule(tcj, STEPS_PER_EPOCH)
     tx = make_optimizer(tcj, STEPS_PER_EPOCH, sched)
     jstate = jax_create_state(variables["params"], tx,
-                              variables["batch_stats"], use_ema=True,
+                              variables.get("batch_stats"), use_ema=True,
                               ema_decay=tcj.ema_decay)
     jstep = jax_train_step(jmodel, tx, jcfg, tcj, sched, debug_grads=debug)
 
-    model = load_jax_params(HQAViT(port_cfg(jcfg)), variables["params"],
-                            variables["batch_stats"])
+    family = HQAViT if jcfg.hybrid else QAViT
+    model = load_jax_params(family(port_cfg(jcfg)), variables["params"],
+                            variables.get("batch_stats"))
     pstate = create_train_state(model, True, tct.ema_decay,
                                 flat=tct.flat_optimizer)
     pstep = make_train_step(port_cfg(jcfg), tct,
@@ -171,7 +195,7 @@ def check_case(runs, steps):
     top = max(float(mu[n].abs().max()) for n in snap["names"])
     roundoff = {n for n in snap["names"]
                 if 0 < float(mu[n].abs().max()) <= ROUNDOFF * top}
-    assert "stage1_blocks.0.token_upmix.upsample_attn.bias" in roundoff
+    assert ROUNDOFF_LEAF[jcfg.hybrid] in roundoff
     ref = _jax_tree_to_port(model, jstate.params, bstats)
     for k, v in snap["state_dict"].items():
         if k.endswith("num_batches_tracked"):
@@ -203,3 +227,24 @@ def check_case(runs, steps):
             assert sorted(want) == sorted(order)
             want = np.array([want[n] for n in order])
             close(pm[i]["per_leaf"], want, f"per_leaf step {i} ({case})")
+
+
+def check_pre_clip_binds(runs):
+    """The pre-clip is active at these weights: in JAX's first step a
+    dwconv leaf is clipped (at the n=64 geometry some are and some are
+    not), so the steps hold the port's grouping to JAX's.  The per-tensor
+    path logs the norms after both clips (the global one divides every
+    leaf alike), the flat path before them."""
+    case, model, tcj, jcfg, variables, out = runs
+    jm = out[1][1][0]
+    dw = np.array([float(v) for p, v in jm["per_leaf"].items()
+                   if "dwconv" in p])
+    clip = tcj.subtree_clip_norm
+    if not tcj.flat_optimizer:
+        gn = float(jm["grad_norm"])
+        dw = dw / min(1.0, tcj.max_grad_norm / (gn + 1e-6))
+        assert abs(dw.max() - clip) <= 1e-4 * clip, dw
+    else:
+        assert dw.max() > clip, dw
+    if jcfg.attn_impl == "fused_block":
+        assert dw.min() < clip, dw
