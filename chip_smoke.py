@@ -188,7 +188,22 @@ it stopped:
       2-3; route B, ``qavit_tpu_torch.cli.bench --preset
       qavit_224_v1_proc --train --batch-sizes 256`` on the branch path
       (no kernel launch: dropout keeps the attentions plain, as in JAX;
-      the bank count +24 a step), its ms a step and peak memory.
+      the bank count +24 a step), its ms a step and peak memory;
+  (s) the 96 px STL stage: one ``hqavit_tiny_proc_stl`` train step (96
+      px, 576 tokens taken down to 16 learned ones in each block, bf16,
+      B=128) and one SimCLR step (``simclr_stl10``'s SimCLRNet, B=64 a
+      view, 128 images), each with every launch count set to 0 just before
+      and read just after (each n=16 unit's forward and backward kernel 8
+      times a step through its tensor-core entry, the bank count +24); each
+      step's kernels against the plain versions on the card at
+      CHECK_DEPTH (phase (g)'s rule on the gradients; the supervised
+      step's bf16 losses over BF16_STEPS steps, the NT-Xent loss within
+      BF16_LOSS_TOLERANCE); ``hqavit_v2_c100``'s eval logits (the
+      ConvNeXt stem, no BatchNorm) through the kernels against the plain
+      versions, bf16 and float32, 8 launches of each forward unit; a 32 px
+      checkpoint saved from seed weights and loaded into the 96 px model,
+      its ``pos_embed`` (8 x 8 -> 24 x 24, bicubic on the card) against the
+      same resize on the CPU within STL_RESIZE_TOLERANCE.
 
 Prints the kernels' JSON record and the card's name and power limit
 before the last line, and ends with
@@ -300,6 +315,13 @@ FLAT64_BATCH = 256                  # phase (r): route A's batch (the preset's)
 FLAT64_SPLITS = (2048, 1024)        # phase (r): proc100 cut for cli.train
 FLAT64_STEPS = 4                    # phase (r): cli.train's steps per epoch
 FLAT224_BATCH = 256                 # phase (r), route B: the preset's batch
+STL_PRESET = "hqavit_tiny_proc_stl"          # phase (s)
+STL_BATCH = 128                     # phase (s): the preset's batch
+SIMCLR_BATCH = 64                   # phase (s): images a view (128 a step)
+V2_BATCH = 256                      # phase (s): hqavit_v2_c100's eval batch
+# phase (s): the resized pos_embed on the card against the CPU's, relative
+# to its largest |value| (two float32 matmuls in another order)
+STL_RESIZE_TOLERANCE = 1e-5
 # phase (q): the flat optimizer against the per-tensor one, from the same
 # weights and batches.  Distances are per tensor, of the parameters,
 # Adam's two moments and the EMA, each relative to the larger of its
@@ -713,13 +735,92 @@ def check_depth(cfg):
     return cfg.replace(depth=depth, stage_blocks=(depth,))
 
 
+def check_step_grads(grads, f32_kernels, what):
+    """Phase (g)'s rule on one step's gradients, ``grads[dtype, mode] =
+    (loss, {name: gradient})``: the float32 kernel gradients (where the
+    kernels train in float32) within MODEL_GRAD_TOLERANCE of the plain
+    ones, and per parameter the bf16 kernel gradients' l2 distance from
+    the float32 plain ones at most BF16_GRAD_FACTOR x the bf16 plain
+    step's own distance + BF16_GRAD_SLACK (leaves whose float32 plain
+    gradient is roundoff left out)."""
+    lp32, gp32 = grads["float32", "plain"]
+    (l16, g16), (lp16, gp16) = grads["bfloat16", "kernel"], grads[
+        "bfloat16", "plain"]
+    top = max(t.abs().max().item() for t in gp32.values())
+    zero = sorted(n for n, t in gp32.items()
+                  if t.abs().max().item() <= ROUNDOFF * top)
+    print(f"{len(zero)} of {len(gp32)} parameters have a float32 gradient "
+          f"<= {ROUNDOFF:.0e} of the largest ({top:.3e}), left out of the "
+          f"bf16 check: {zero[:6]}{' ...' if len(zero) > 6 else ''}",
+          flush=True)
+    for name in zero:
+        del g16[name], gp16[name]
+    if f32_kernels:
+        l32, g32 = grads["float32", "kernel"]
+        errs = grad_errors(g32, gp32)
+        ok = errs[0][0] <= MODEL_GRAD_TOLERANCE and math.isfinite(l32)
+        print(f"train step float32 kernels vs plain, {what}: loss "
+              f"{l32:.6f} vs {lp32:.6f}; worst gradient errors relative to "
+              f"their scale "
+              f"{[(n, '%.2e' % r, '%.2e' % e) for r, e, n in errs[:3]]}, "
+              f"tolerance {MODEL_GRAD_TOLERANCE:.0e}  "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError("float32 train-step gradients disagree")
+        del g32
+    ref32 = {n: gp32[n] for n in gp16}
+    d_k = {n: r for r, _, n in grad_errors(g16, ref32, "l2")}
+    d_p = {n: r for r, _, n in grad_errors(gp16, ref32, "l2")}
+    margin = sorted(((d_k[n] / (BF16_GRAD_FACTOR * d_p[n] + BF16_GRAD_SLACK),
+                      n) for n in d_k), reverse=True)
+    ok = margin[0][0] <= 1.0 and math.isfinite(l16)
+    print(f"train step bf16, {what}: loss kernels {l16:.6f}, plain "
+          f"{lp16:.6f}, float32 plain {lp32:.6f}; per parameter, l2 distance "
+          f"from the float32 plain gradient relative to its scale, kernels "
+          f"vs plain bf16, worst against the limit "
+          f"{[(n, '%.2e' % d_k[n], '%.2e' % d_p[n]) for _, n in margin[:4]]}"
+          f"; largest for the kernels "
+          f"{[(n, '%.2e' % d_k[n], '%.2e' % d_p[n]) for n in sorted(d_k, key=d_k.get)[-3:]]}"
+          f"; limit {BF16_GRAD_FACTOR:g} x plain + {BF16_GRAD_SLACK:g}, "
+          f"worst at {margin[0][0]:.2f} of it  {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise AssertionError("bf16 train-step gradients disagree")
+
+
+def collect_grads(K, cfg, build, loss_and_grad, f32_kernels=True):
+    """One step's loss and gradients through the kernels and through
+    their plain versions, in float32 (where the kernels train in float32)
+    and in bf16, as ``check_step_grads`` takes them: ``build(mc)`` makes
+    the model of config ``mc``, ``loss_and_grad(model, mc)`` returns the
+    loss and the gradients in ``model.named_parameters()``' order."""
+    import torch
+
+    grads = {}
+    for dtype_name in ("float32", "bfloat16"):
+        mc = cfg.replace(dtype=dtype_name)
+        for mode in ("kernel", "plain"):
+            if mode == "kernel" and dtype_name == "float32" and not f32_kernels:
+                continue
+            model = build(mc)
+            names = [n for n, _ in model.named_parameters()]
+            with (mock.patch.multiple(K, **K.PLAIN) if mode == "plain"
+                  else contextlib.nullcontext()):
+                loss, gr = loss_and_grad(model, mc)
+            gr = [torch.zeros_like(p) if g is None else g
+                  for g, p in zip(gr, model.parameters())]
+            grads[dtype_name, mode] = (float(loss.detach()),
+                                       dict(zip(names, gr)))
+            del model, gr
+    return grads
+
+
 def kernel_vs_plain_step(K, cfg, dev, preset="hqavit_c100", batch=BATCH):
     """The kernel train step against the plain step on the same weights,
     batch and seeds, at ``check_depth(cfg)``: the gradients of one step in
     float32 (where the kernels train in float32: n=16) and in bf16, then
     bf16 losses over BF16_STEPS steps."""
     import torch
-    from unittest import mock
 
     from qavit_tpu_torch.configs import get_preset
     from qavit_tpu_torch.kernels.fused_ref import make_geom
@@ -737,65 +838,16 @@ def kernel_vs_plain_step(K, cfg, dev, preset="hqavit_c100", batch=BATCH):
     imgs = torch.randn(batch, cfg.img_size, cfg.img_size, 3,
                        generator=gen).to(dev)
     tgts = torch.randint(0, cfg.num_classes, (batch,), generator=gen).to(dev)
-    grads = {}
-    for dtype_name in ("float32", "bfloat16"):
-        mc = cfg.replace(dtype=dtype_name)
-        for mode in ("kernel", "plain"):
-            if mode == "kernel" and dtype_name == "float32" and not f32_kernels:
-                continue
-            model = build_model(mc, dev, seed=0)
-            names = [n for n, _ in model.named_parameters()]
-            with (mock.patch.multiple(K, **K.PLAIN) if mode == "plain"
-                  else contextlib.nullcontext()):
-                loss, _, _, gr = loss_and_grads(model, names, imgs, tgts,
-                                                12345, 0, mc, tc)
-            grads[dtype_name, mode] = (float(loss.detach()),
-                                       dict(zip(names, gr)))
-            del model, gr
-    lp32, gp32 = grads["float32", "plain"]
-    (l16, g16), (lp16, gp16) = grads["bfloat16", "kernel"], grads[
-        "bfloat16", "plain"]
-    top = max(t.abs().max().item() for t in gp32.values())
-    zero = sorted(n for n, t in gp32.items()
-                  if t.abs().max().item() <= ROUNDOFF * top)
-    print(f"{len(zero)} of {len(gp32)} parameters have a float32 gradient "
-          f"<= {ROUNDOFF:.0e} of the largest ({top:.3e}), left out of the "
-          f"bf16 check: {zero[:6]}{' ...' if len(zero) > 6 else ''}",
-          flush=True)
-    for name in zero:
-        del g16[name], gp16[name]
-    if f32_kernels:
-        l32, g32 = grads["float32", "kernel"]
-        errs = grad_errors(g32, gp32)
-        ok = errs[0][0] <= MODEL_GRAD_TOLERANCE and math.isfinite(l32)
-        print(f"train step float32 kernels vs plain, B={batch}: loss "
-              f"{l32:.6f} vs {lp32:.6f}; worst gradient errors relative to "
-              f"their scale "
-              f"{[(n, '%.2e' % r, '%.2e' % e) for r, e, n in errs[:3]]}, "
-              f"tolerance {MODEL_GRAD_TOLERANCE:.0e}  "
-              f"{'ok' if ok else 'FAIL'}", flush=True)
-        if not ok:
-            raise AssertionError("float32 train-step gradients disagree")
-        del g32
-    ref32 = {n: gp32[n] for n in gp16}
-    d_k = {n: r for r, _, n in grad_errors(g16, ref32, "l2")}
-    d_p = {n: r for r, _, n in grad_errors(gp16, ref32, "l2")}
-    margin = sorted(((d_k[n] / (BF16_GRAD_FACTOR * d_p[n] + BF16_GRAD_SLACK),
-                      n) for n in d_k), reverse=True)
-    ok = margin[0][0] <= 1.0 and math.isfinite(l16)
-    print(f"train step bf16, B={batch}: loss kernels {l16:.6f}, plain "
-          f"{lp16:.6f}, float32 plain {lp32:.6f}; per parameter, l2 distance "
-          f"from the float32 plain gradient relative to its scale, kernels "
-          f"vs plain bf16, worst against the limit "
-          f"{[(n, '%.2e' % d_k[n], '%.2e' % d_p[n]) for _, n in margin[:4]]}"
-          f"; largest for the kernels "
-          f"{[(n, '%.2e' % d_k[n], '%.2e' % d_p[n]) for n in sorted(d_k, key=d_k.get)[-3:]]}"
-          f"; limit {BF16_GRAD_FACTOR:g} x plain + {BF16_GRAD_SLACK:g}, "
-          f"worst at {margin[0][0]:.2f} of it  {'ok' if ok else 'FAIL'}",
-          flush=True)
-    if not ok:
-        raise AssertionError("bf16 train-step gradients disagree")
-    del grads, gp32, g16, gp16
+    def supervised(model, mc):
+        names = [n for n, _ in model.named_parameters()]
+        loss, _, _, gr = loss_and_grads(model, names, imgs, tgts, 12345, 0,
+                                        mc, tc)
+        return loss, gr
+
+    grads = collect_grads(K, cfg, lambda mc: build_model(mc, dev, seed=0),
+                          supervised, f32_kernels)
+    check_step_grads(grads, f32_kernels, f"B={batch}")
+    del grads
     # bf16: the preset's train step for BF16_STEPS steps, both ways
     losses = {}
     for mode in ("kernel", "plain"):
@@ -2629,6 +2681,172 @@ def flat_train_path(K, dev, root):
           flush=True)
 
 
+def stl_path(K, dev):
+    """Phase (s): the 96 px STL stage.  One hqavit_tiny_proc_stl train
+    step and one SimCLR step at full width and depth with the counts
+    reset just before each (each n=16 unit's forward and backward 8 times
+    a step, through the tensor-core entries), their kernels against the
+    plain versions at CHECK_DEPTH, hqavit_v2_c100's eval logits kernels
+    against plain, and the 32 -> 96 px transfer's pos_embed resize on the
+    card against the CPU's."""
+    import torch
+    from pathlib import Path
+
+    from qavit_tpu_torch.ckpt import checkpoint as C
+    from qavit_tpu_torch.configs import get_preset
+    from qavit_tpu_torch.nn.layers import DropoutRng, resize_pos_embed
+    from qavit_tpu_torch.nn.models import build_model
+    from qavit_tpu_torch.train import simclr as TS
+    from qavit_tpu_torch.train.optim import make_schedule
+    from qavit_tpu_torch.train.state import create_train_state
+    from qavit_tpu_torch.train.steps import make_train_step
+
+    t_phase = time.perf_counter()
+    mma = {f"{u}_mma" for u in MMA_BWD} | {f"{u}_bwd_mma" for u in MMA_BWD}
+
+    def counted(what, depth, run):
+        """Run ``run`` with the counts reset just before; check one
+        forward and one backward launch a block, each through its n=16
+        tensor-core entry."""
+        reset_launches()
+        t = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t)
+        launches, routes = launch_counts(), dict(K.ROUTES)
+        print(f"{what}: one step in {ms:.1f} ms (host clock, first call), "
+              f"launches {launches}; per C entry {routes}", flush=True)
+        want = {n: 0 if n == "flash_attention" else depth for n in launches}
+        want_routes = {n: depth if n in mma else 0 for n in routes}
+        if launches != want or routes != want_routes:
+            raise AssertionError(f"{what}: launches {launches}, routes "
+                                 f"{routes}, expected {want}, {want_routes}")
+        return out
+
+    say("phase (s) step 1: the 96 px train step")
+    preset = get_preset(STL_PRESET)
+    cfg, tc = preset.model, preset.train
+    gen = torch.Generator().manual_seed(23)
+    imgs = torch.randn(STL_BATCH, cfg.img_size, cfg.img_size, 3,
+                       generator=gen).to(dev)
+    tgts = torch.randint(0, cfg.num_classes, (STL_BATCH,),
+                         generator=gen).to(dev)
+    state = create_train_state(build_model(cfg, dev, seed=0), tc.use_ema,
+                               tc.ema_decay)
+    step = make_train_step(cfg, tc, make_schedule(tc, 5000 // STL_BATCH))
+    m = counted(f"{STL_PRESET} train step (bf16, B={STL_BATCH})", cfg.depth,
+                lambda: step(state, imgs, tgts, 3))
+    loss, bank = float(m["loss"]), int(state.bank_count)
+    print(f"{STL_PRESET} train step: loss {loss:.4f}, bank count {bank}",
+          flush=True)
+    if bank != 3 * cfg.depth or not math.isfinite(loss):
+        raise AssertionError(f"96 px train step: loss {loss}, bank {bank}")
+    del state, step, m
+    kernel_vs_plain_step(K, cfg, dev, STL_PRESET, STL_BATCH)
+    torch.cuda.empty_cache()
+
+    say("phase (s) step 2: the SimCLR step")
+    sc = get_preset("simclr_stl10").model
+    views = [torch.randn(SIMCLR_BATCH, sc.img_size, sc.img_size, 3,
+                         generator=gen).to(dev) for _ in range(2)]
+    state = create_train_state(TS.build_simclr(sc, dev, seed=0),
+                               use_ema=False)
+    step = TS.make_simclr_train_step(TS.simclr_schedule(0.005, 95, 285))
+    m = counted(f"SimCLR step (bf16, 2 x {SIMCLR_BATCH} images)", sc.depth,
+                lambda: step(state, views[0], views[1], 0))
+    loss, bank = float(m["loss"]), int(state.bank_count)
+    chance = math.log(2 * SIMCLR_BATCH - 1)
+    print(f"SimCLR step: NT-Xent {loss:.4f} (chance ln(2B - 1) = "
+          f"{chance:.4f}), grad norm {float(m['grad_norm']):.4f}, bank "
+          f"count {bank}", flush=True)
+    if bank != 3 * sc.depth or not math.isfinite(loss):
+        raise AssertionError(f"SimCLR step: loss {loss}, bank {bank}")
+    del state, step, m
+    ccfg = check_depth(sc)
+    images = torch.cat(views)
+
+    def contrastive(net, mc):
+        net.train()
+        z, _ = net(images, train=True, rng=DropoutRng(77, dev))
+        lv = TS.nt_xent_loss(z)
+        return lv, torch.autograd.grad(lv, list(net.parameters()),
+                                       allow_unused=True)
+
+    grads = collect_grads(K, ccfg,
+                          lambda mc: TS.build_simclr(mc, dev, seed=0),
+                          contrastive)
+    losses = {k: v[0] for k, v in grads.items()}
+    err = max(abs(losses[d, "kernel"] - losses[d, "plain"])
+              / abs(losses[d, "plain"]) for d in ("float32", "bfloat16"))
+    ok = err <= BF16_LOSS_TOLERANCE
+    print(f"SimCLR NT-Xent kernels vs plain at depth {ccfg.depth}: "
+          f"{losses}, worst relative {err:.2e}, tolerance "
+          f"{BF16_LOSS_TOLERANCE:.0e}  {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("SimCLR losses disagree")
+    check_step_grads(grads, True, f"SimCLR, 2 x {SIMCLR_BATCH} images")
+    del grads
+    torch.cuda.empty_cache()
+
+    say("phase (s) step 3: hqavit_v2_c100 eval logits, kernels vs plain")
+    v2 = get_preset("hqavit_v2_c100").model
+    x = torch.randn(V2_BATCH, v2.img_size, v2.img_size, 3,
+                    generator=gen).to(dev)
+    model_tol = {"bfloat16": 2.0 ** -4, "float32": 1e-4}
+    for dtype_name in ("bfloat16", "float32"):
+        model = build_model(v2.replace(dtype=dtype_name), dev, seed=0)
+        if list(model.buffers()):
+            raise AssertionError("hqavit_v2_c100 holds BatchNorm buffers")
+        with torch.inference_mode():
+            reset_launches()
+            lk, _ = model(x)
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            with mock.patch.multiple(K, **K.PLAIN):
+                lp, _ = model(x)
+        err = (lk - lp).abs().max().item()
+        bound = model_tol[dtype_name] * lp.abs().max().item()
+        want = {n: v2.depth if n in K.UNITS else 0 for n in launches}
+        ok = (bool(torch.isfinite(lk).all()) and err <= bound
+              and launches == want
+              and tuple(lk.shape) == (V2_BATCH, v2.num_classes))
+        print(f"hqavit_v2_c100 logits kernels vs plain, {dtype_name}, "
+              f"B={V2_BATCH}: max_abs_err {err:.3e} tolerance {bound:.3e}, "
+              f"launches {launches}  {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"hqavit_v2_c100 {dtype_name} logits")
+        del model
+    torch.cuda.empty_cache()
+
+    say("phase (s) step 4: the 32 -> 96 px transfer")
+    src_cfg = get_preset("hqavit_proc100_hard").model
+    src = build_model(src_cfg, dev, seed=0)
+    with tempfile.TemporaryDirectory(prefix="qv_stl_") as out:
+        C.save_train_state(Path(out) / "ck32", create_train_state(src,
+                                                                  False),
+                           src_cfg)
+        dst = build_model(cfg, dev, seed=1)
+        C.load_for_transfer(Path(out) / "ck32", dst, drop_head=True)
+    want = resize_pos_embed(src.pos_embed.detach().cpu(), cfg.grid_size)
+    got = dst.pos_embed.detach().cpu()
+    err = (got - want).abs().max().item()
+    bound = STL_RESIZE_TOLERANCE * want.abs().max().item()
+    same = torch.equal(dst.stage1_blocks[0].quad_block.swa.qkv.kernel,
+                       src.stage1_blocks[0].quad_block.swa.qkv.kernel)
+    ok = (tuple(got.shape) == (1, cfg.num_patches, cfg.embed_dim)
+          and err <= bound and same)
+    print(f"transfer 32 -> 96 px: pos_embed {tuple(src.pos_embed.shape)} -> "
+          f"{tuple(got.shape)} on the card vs the CPU resize, max_abs_err "
+          f"{err:.3e} tolerance {bound:.3e}; block weights copied {same}  "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the 32 -> 96 px transfer disagrees")
+    del src, dst
+    torch.cuda.empty_cache()
+    print(f"phase (s): {time.perf_counter() - t_phase:.1f} s; card "
+          f"{card_line()}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2869,6 +3087,10 @@ def main() -> int:
         say("phase (r) flat QAViT train step: start")
         flat_train_path(K, dev, root)
         say("phase (r) flat QAViT train step: done")
+
+    say("phase (s) 96 px STL stage: start")
+    stl_path(K, dev)
+    say("phase (s) 96 px STL stage: done")
 
     print(card_line(), flush=True)
     print(json.dumps({"kernels": record}), flush=True)

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import tempfile
 from pathlib import Path
@@ -241,14 +242,17 @@ def load_for_transfer(path, model: nn.Module, drop_head="auto",
     ``drop_head`` is True / False / "auto": "auto" keeps the head exactly
     when its shapes match the model's (a same-task finetune), True always
     keeps the model's own head (a new task).  ``use_ema`` starts from the
-    checkpoint's EMA weights where it has them.  The BatchNorm running
-    statistics are merged too (the EMA's with ``use_ema``).  A
-    position embedding of another grid and ``simclr`` raise: their paths
-    are not ported."""
-    if simclr:
-        raise NotImplementedError(
-            "a SimCLR checkpoint's backbone is not ported yet (ROADMAP.md "
-            "queue 1 item 8)")
+    checkpoint's EMA weights where it has them.  A ``pos_embed`` of
+    another grid is resized bicubically to the model's
+    (``nn/layers.py`` ``resize_pos_embed``; its repeat / truncate fallback
+    for a grid that is not square).  The BatchNorm running statistics are
+    merged too (the EMA's with ``use_ema``).  ``simclr`` takes the
+    backbone out of a SimCLRNet checkpoint (``train/simclr.py``
+    ``extract_backbone_params``; the projection head is left behind) and,
+    as JAX's ``--init-from-simclr`` path, merges no BatchNorm
+    statistics."""
+    from qavit_tpu_torch.nn.layers import resize_pos_embed
+
     tree, _ = _load(path, next(model.parameters()).device)
     params = tree["params"]
     if use_ema:
@@ -258,6 +262,10 @@ def load_for_transfer(path, model: nn.Module, drop_head="auto",
         else:
             print("transfer: --init-ema requested but checkpoint has no "
                   "ema_params; falling back to raw params")
+    if simclr:
+        from qavit_tpu_torch.train.simclr import extract_backbone_params
+
+        params = extract_backbone_params(params)
     named = dict(model.named_parameters())
     if drop_head == "auto":
         def heads(d):
@@ -272,16 +280,20 @@ def load_for_transfer(path, model: nn.Module, drop_head="auto",
         for n, v in params.items():
             if n not in named or (drop_head and n.startswith("head")):
                 continue
-            if n == "pos_embed" and v.shape != named[n].shape:
-                raise NotImplementedError(
-                    f"transfer: pos_embed {tuple(v.shape)} -> "
-                    f"{tuple(named[n].shape)} needs the bicubic resize, "
-                    f"not ported yet (ROADMAP.md queue 1 item 7, "
-                    f"resize_pos_embed)")
-            if v.shape == named[n].shape:
-                named[n].copy_(v)
-        src = ((tree.get("ema_batch_stats") if use_ema else None)
-               or tree.get("batch_stats") or {})
+            dst = named[n]
+            if n == "pos_embed" and v.shape != dst.shape:
+                new_grid = math.isqrt(dst.shape[1])
+                print(f"transfer: bicubic pos_embed resize "
+                      f"{tuple(v.shape)} -> {tuple(dst.shape)} (grid "
+                      f"{math.isqrt(v.shape[1])} -> {new_grid}, "
+                      f"HQAViT_Tiny_stl10.py:250-282)")
+                dst.copy_(resize_pos_embed(v.float(), new_grid))
+                continue
+            if v.shape == dst.shape:
+                dst.copy_(v)
+        src = {} if simclr else (
+            (tree.get("ema_batch_stats") if use_ema else None)
+            or tree.get("batch_stats") or {})
         merged = 0
         for n, b in model.named_buffers():
             if n in src and src[n].shape == b.shape:

@@ -6,13 +6,16 @@ or a restored checkpoint gives them.  Leaves map by path; on the way
 the bridge
 * unstacks the ``nn.scan`` leading axis of ``stage{i}_blocks`` (HQAViT)
   and ``blocks`` (the flat QAViT) into ``stage{i}_blocks.{j}`` and
-  ``blocks.{j}``,
+  ``blocks.{j}``, at the top of the tree or under a scope (SimCLRNet's
+  ``HQAViT_0`` / ``QAViT_0``),
 * transposes convolution kernels HWIO -> OIHW (``nn.Conv2d``),
 * renames BatchNorm ``scale``/``bias``/``mean``/``var`` to
   ``weight``/``bias``/``running_mean``/``running_var``,
 * keeps Dense kernels ``[in, out]``, the layout the port stores.
-A JAX leaf the model lacks, a model entry the trees lack, or a shape
-that disagrees raises.
+The v2 stem's SpatialLayerNorm ``scale`` / ``bias`` ([H, W, C]), the
+LayerScale ``gamma`` and SimCLR's ``proj_fc1`` / ``proj_fc2`` map as they
+are.  A JAX leaf the model lacks, a model entry the trees lack, or a
+shape that disagrees raises.
 """
 
 from __future__ import annotations
@@ -38,11 +41,12 @@ def _leaves(tree: Mapping, path: Tuple[str, ...] = ()) -> Iterator:
 
 
 def _unstack(path, arr) -> Iterator:
-    if path and _SCAN.match(path[0]):
-        for i in range(arr.shape[0]):
-            yield (path[0], str(i)) + path[1:], arr[i]
-    else:
+    at = next((i for i, k in enumerate(path[:-1]) if _SCAN.match(k)), None)
+    if at is None:
         yield path, arr
+    else:
+        for i in range(arr.shape[0]):
+            yield path[:at + 1] + (str(i),) + path[at + 1:], arr[i]
 
 
 def _torch_entry(model: nn.Module, path: Tuple[str, ...], arr: np.ndarray):

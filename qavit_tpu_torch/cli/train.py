@@ -3,8 +3,8 @@
     python -m qavit_tpu_torch.cli.train --preset hqavit_proc100_hard \
         [--epochs N] [--warmup-epochs N] [--batch-size B] [--data-root DIR] \
         [--checkpoint-dir DIR] [--log-dir DIR] [--resume DIR] \
-        [--init-from DIR] [--grad-accum K] [--flat-optimizer] \
-        [--debug-grads] [--device cpu]
+        [--init-from DIR | --init-from-simclr DIR] [--grad-accum K] \
+        [--flat-optimizer] [--debug-grads] [--device cpu]
 
 The JAX trainer's single-card, device-resident path
 (``qavit_tpu/cli/train.py`` :161-197, :284-298, :324-455): the preset and
@@ -30,7 +30,10 @@ the loader's ``RandomState(seed)`` starts anew in each process, so a
 resumed run's first epoch takes the order of epoch 1 (ROADMAP.md, the
 known divergences of the JAX reference).  ``--init-from`` (with
 ``--drop-head``, ``--init-ema``) starts from another checkpoint's
-weights; ``--retain NAME`` exports a slim ``best_model`` to
+weights (a ``pos_embed`` of another grid resized bicubically, the 32 ->
+96 px transfer), ``--init-from-simclr`` from the backbone of a
+``cli.pretrain_simclr`` checkpoint (the head new, no BatchNorm
+statistics taken, as JAX's :236-243); ``--retain NAME`` exports a slim ``best_model`` to
 ``checkpoints_keep/NAME``.  A preset with LR groups (the finetune and
 transfer presets) prints JAX's group table at startup (``qavit_tpu/cli/
 train.py:244-257``).  ``--grad-accum K`` splits each batch into K
@@ -101,7 +104,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    help="checkpoint to start from (head kept when its "
                         "shapes match, see --drop-head)")
     p.add_argument("--init-from-simclr", default=None,
-                   help="not ported (ROADMAP.md queue 1 item 8)")
+                   help="a cli.pretrain_simclr checkpoint: its backbone "
+                        "initialises the model (projection head dropped, "
+                        "classifier fresh)")
     p.add_argument("--drop-head", action="store_true",
                    help="with --init-from: always keep the new head")
     p.add_argument("--init-ema", action="store_true",
@@ -165,8 +170,6 @@ def refuse_unported(args: argparse.Namespace, device: torch.device) -> None:
     if args.loader == "native":
         _not_ported("--loader native (the C++ ring batcher)",
                     "queue 1 item 3")
-    if args.init_from_simclr:
-        _not_ported("--init-from-simclr", "queue 1 item 8")
     if device.type == "cuda" and torch.cuda.device_count() > 1:
         _not_ported(f"training on {torch.cuda.device_count()} cards (one "
                     f"card: set CUDA_VISIBLE_DEVICES)", "queue 1 item 10")
@@ -241,6 +244,10 @@ def main(argv: Optional[List[str]] = None) -> float:
         load_for_transfer(args.init_from, model,
                           drop_head=True if args.drop_head else "auto",
                           use_ema=args.init_ema)
+    elif args.init_from_simclr:
+        print(f"SimCLR backbone init from {args.init_from_simclr}")
+        load_for_transfer(args.init_from_simclr, model, drop_head=True,
+                          simclr=True)
     for line in format_lr_group_table(
             [n for n, _ in model.named_parameters()], tc):
         print(line)

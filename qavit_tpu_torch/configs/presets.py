@@ -1,5 +1,5 @@
 """Presets the port serves (its own copy of ``qavit_tpu/configs/
-presets.py``, limited to what the port runs)."""
+presets.py``: every preset the JAX package defines)."""
 
 from __future__ import annotations
 
@@ -117,6 +117,15 @@ def _hqavit_c100() -> Preset:
                   "cifar100_hqa")
 
 
+def _hqavit_v2_c100() -> Preset:
+    """HQAViTv2 (HQAViTv2_CIFAR100.py): the ConvNeXt-Tiny patchify stem
+    (no BatchNorm) in place of the conv/BN stem."""
+    p = _hqavit_c100()
+    return Preset(p.model.replace(name="hqavit_v2_c100",
+                                  stem_kind="convnext"), p.train,
+                  "cifar100_hqa")
+
+
 def _hqavit_tiny_in() -> Preset:
     """HQAViT-IN-Tiny @64 (HQAViT_IN_Tiny.py:49-84): depth 12 [2,2,6,2],
     64 learned tokens (the fused units at n=64, four SWA windows), 200
@@ -195,6 +204,43 @@ def _hqavit_tiny_proc10() -> Preset:
                   "proc10")
 
 
+def _hqavit_tiny_stl10() -> Preset:
+    """The STL-10 transfer at 96 px (HQAViT_Tiny_stl10.py): 24 x 24
+    patches, 10 classes, differential LR; built natively at 96 px (the
+    v1 stem's maps land on the 24 x 24 token grid), a 32 px checkpoint's
+    position embedding resized bicubically on transfer."""
+    p = _hqavit_c100()
+    model = p.model.replace(name="hqavit_tiny_stl10", img_size=96,
+                            num_classes=10)
+    train = p.train.replace(
+        epochs=50, warmup_epochs=5, base_lr=5e-5, schedule="cosine",
+        lr_groups="differential", head_lr_multiplier=10.0, batch_size=128,
+    )
+    return Preset(model, train, "stl10")
+
+
+def _simclr_stl10() -> Preset:
+    """The SimCLR pretrain on STL-10's unlabeled split (``cli.pretrain_
+    simclr``, which takes its model; its optimizer and schedule are the
+    CLI's own)."""
+    p = _hqavit_tiny_stl10()
+    train = p.train.replace(
+        epochs=100, warmup_epochs=5, base_lr=0.0424, schedule="cosine",
+        label_smoothing=0.0, use_mixup=False, use_cutmix=False,
+        lr_groups=None, use_ema=False, batch_size=256,
+    )
+    return Preset(p.model.replace(name="simclr_stl10"), train,
+                  "stl10_unlabeled")
+
+
+def _hqavit_tiny_proc_stl() -> Preset:
+    """Labeled proc_stl (5k labels at 96 px, 100 classes), from scratch or
+    from a SimCLR backbone (``--init-from-simclr``)."""
+    p = _hqavit_tiny_stl10()
+    model = p.model.replace(name="hqavit_tiny_proc_stl", num_classes=100)
+    return Preset(model, p.train.replace(base_lr=2e-4), "proc_stl")
+
+
 PRESETS = {
     "qavit_224_v1": _qavit_224_v1,
     "qavit_v2": _qavit_v2,
@@ -205,6 +251,7 @@ PRESETS = {
     "qavit_v2_extreme_tin": _qavit_v2_extreme_tin,
     "qavit_v2_extreme_proc100": _qavit_v2_extreme_proc100,
     "hqavit_c100": _hqavit_c100,
+    "hqavit_v2_c100": _hqavit_v2_c100,
     "hqavit_tiny_in": _hqavit_tiny_in,
     "hqavit_proc_tin": _hqavit_proc_tin,
     "hqavit_proc100": _hqavit_proc100,
@@ -213,6 +260,9 @@ PRESETS = {
     "hqavit_proc100_hard_finetune": _hqavit_proc100_hard_finetune,
     "hqavit_tiny_cifar10": _hqavit_tiny_cifar10,
     "hqavit_tiny_proc10": _hqavit_tiny_proc10,
+    "hqavit_tiny_stl10": _hqavit_tiny_stl10,
+    "hqavit_tiny_proc_stl": _hqavit_tiny_proc_stl,
+    "simclr_stl10": _simclr_stl10,
 }
 
 

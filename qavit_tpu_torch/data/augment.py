@@ -46,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from qavit_tpu_torch.kernels.fused_ref import fmix32
+from qavit_tpu_torch.nn.resize import resize as jax_resize
 
 Params = Dict[str, torch.Tensor]
 
@@ -440,14 +441,10 @@ def normalize(img01: torch.Tensor, mean: Sequence[float],
 
 
 def resize(img: torch.Tensor, size: int) -> torch.Tensor:
-    """Bilinear resize of [B, H, W, C] to ``size`` x ``size`` (half-pixel
-    centres, antialiased when shrinking, as ``jax.image.resize``)."""
-    if img.shape[1] == size and img.shape[2] == size:
-        return img
-    x = F.interpolate(img.permute(0, 3, 1, 2), size=(size, size),
-                      mode="bilinear", align_corners=False,
-                      antialias=size < img.shape[1])
-    return x.permute(0, 2, 3, 1).contiguous()
+    """Bilinear resize of [B, H, W, C] to ``size`` x ``size``, as
+    ``jax.image.resize`` (``nn/resize.py``)."""
+    b, _, _, c = img.shape
+    return jax_resize(img, (b, size, size, c), "bilinear")
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,15 @@
 """HQA-ViT hybrid CNN side path (counterpart of ``qavit_tpu/nn/hybrid.py``):
-ConvNeXtBlock (:21), the v1 conv/BN stem CNNStemV1 (:49-92), LMFAdapter
-(:157), RRCV (:187) and SplitFusion (:215).  Feature maps are NHWC, as
-in the JAX package; each convolution runs as an OIHW ``nn.Conv2d``
-through :func:`conv_nhwc`.  In training (an ``rng`` given) the stem's
+ConvNeXtBlock (:21, with the v2 stem's LayerScale ``gamma``), the v1
+conv/BN stem CNNStemV1 (:49-92), SpatialLayerNorm (:95), the v2
+ConvNeXt-patchify stem CNNStemConvNeXt (:116), LMFAdapter (:157), RRCV
+(:187) and SplitFusion (:215).  Feature maps are NHWC, as in the JAX
+package; each convolution runs as an OIHW ``nn.Conv2d`` through
+:func:`conv_nhwc`.  In training (an ``rng`` given) the v1 stem's
 BatchNorm normalises with the batch statistics and updates its running
-statistics as flax does, and SplitFusion drops out its concat branch.
-The ConvNeXt-patchify stem waits for a later slice.
+statistics as flax does, the ConvNeXt blocks drop paths at their rates,
+and SplitFusion drops out its concat branch.  LMFA resamples a map that
+is off the token grid bilinearly, as ``jax.image.resize`` does
+(``nn/resize.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import torch.nn.functional as F
 from qavit_tpu_torch.nn.dwconv import depthwise_conv2d
 from qavit_tpu_torch.nn.layers import (Dense, DropoutRng, DropPath, LayerNorm,
                                        conv_nhwc, dropout)
+from qavit_tpu_torch.nn.resize import resize
 
 BN_MOMENTUM = 0.9        # flax: running = 0.9 * running + 0.1 * batch
 
@@ -28,21 +33,27 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 class ConvNeXtBlock(nn.Module):
-    """dw7x7 -> LN(eps 1e-6) -> Dense 4x -> GELU -> Dense -> residual."""
+    """dw7x7 -> LN(eps 1e-6) -> Dense 4x -> GELU -> Dense [-> x gamma,
+    LayerScale from ``layer_scale_init``] -> drop path -> residual."""
 
-    def __init__(self, dim: int, drop_path: float = 0.0):
+    def __init__(self, dim: int, drop_path: float = 0.0,
+                 layer_scale_init: Optional[float] = None):
         super().__init__()
         self.dwconv = depthwise_conv2d(dim, 7)
         self.norm = LayerNorm(dim, eps=1e-6)
         self.pwconv1 = Dense(dim, 4 * dim)
         self.pwconv2 = Dense(4 * dim, dim)
-        # the flax block's default rate; the v1 stem and RRCV keep it at 0
+        if layer_scale_init is not None:       # 1e-6 in the v2 stem
+            self.gamma = nn.Parameter(torch.full((dim,), layer_scale_init))
+        # the v1 stem and RRCV keep the flax block's default rate, 0
         self.drop_path = DropPath(drop_path)
 
     def forward(self, x: torch.Tensor, dtype,
                 rng: Optional[DropoutRng] = None) -> torch.Tensor:
         y = self.norm(conv_nhwc(self.dwconv, x, dtype), dtype)
         y = self.pwconv2(_gelu(self.pwconv1(y, dtype)), dtype)
+        if hasattr(self, "gamma"):
+            y = y * self.gamma.to(y.dtype)
         return x + self.drop_path(y, rng)
 
 
@@ -108,11 +119,71 @@ class CNNStemV1(nn.Module):
         return f2, f3, f4
 
 
+class SpatialLayerNorm(nn.Module):
+    """torch ``nn.LayerNorm([C, H, W])``: each sample normalised over all
+    of (H, W, C) in float32 (population variance), then a per-position
+    affine ``scale`` / ``bias`` of shape [H, W, C]."""
+
+    def __init__(self, h: int, w: int, c: int, eps: float = 1e-6):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(h, w, c))
+        self.bias = nn.Parameter(torch.zeros(h, w, c))
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor, dtype) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean((1, 2, 3), keepdim=True)
+        var = (xf - mean).square().mean((1, 2, 3), keepdim=True)
+        y = (xf - mean) * torch.rsqrt(var + self.eps)
+        return (y * self.scale + self.bias).to(dtype)
+
+
+class CNNStemConvNeXt(nn.Module):
+    """v2 ConvNeXt-Tiny-style lateral CNN: a 4x4 stride-4 patchify conv and
+    a SpatialLayerNorm, then stages of LayerScale ConvNeXt blocks (2 at
+    c2; 3 at c3 with drop-path rates 0, 0.1, 0.1; 2 at c4 at 0.1 each),
+    each later stage entered through a SpatialLayerNorm and a 1x1 conv.
+    All three maps are (img_size / 4)^2; no BatchNorm."""
+
+    LAYER_SCALE = 1e-6
+
+    def __init__(self, c2: int, c3: int, c4: int, in_channels: int = 3,
+                 img_size: int = 32):
+        super().__init__()
+        hw, ls = img_size // 4, self.LAYER_SCALE
+        self.stem_conv = nn.Conv2d(in_channels, c2, 4, stride=4)
+        self.stem_norm = SpatialLayerNorm(hw, hw, c2)
+        for i in range(2):
+            self.add_module(f"stage2_block{i}", ConvNeXtBlock(c2, 0.0, ls))
+        self.down2_norm = SpatialLayerNorm(hw, hw, c2)
+        self.down2_conv = nn.Conv2d(c2, c3, 1)
+        for i, dp in enumerate((0.0, 0.1, 0.1)):
+            self.add_module(f"stage3_block{i}", ConvNeXtBlock(c3, dp, ls))
+        self.down3_norm = SpatialLayerNorm(hw, hw, c3)
+        self.down3_conv = nn.Conv2d(c3, c4, 1)
+        for i, dp in enumerate((0.1, 0.1)):
+            self.add_module(f"stage4_block{i}", ConvNeXtBlock(c4, dp, ls))
+
+    def forward(self, x: torch.Tensor, dtype,
+                rng: Optional[DropoutRng] = None):
+        y = self.stem_norm(conv_nhwc(self.stem_conv, x, dtype), dtype)
+        for i in range(2):
+            y = getattr(self, f"stage2_block{i}")(y, dtype, rng)
+        f2 = y
+        y = conv_nhwc(self.down2_conv, self.down2_norm(f2, dtype), dtype)
+        for i in range(3):
+            y = getattr(self, f"stage3_block{i}")(y, dtype, rng)
+        f3 = y
+        y = conv_nhwc(self.down3_conv, self.down3_norm(f3, dtype), dtype)
+        for i in range(2):
+            y = getattr(self, f"stage4_block{i}")(y, dtype, rng)
+        return f2, f3, y
+
+
 class LMFAdapter(nn.Module):
     """CNN map -> tokens: {dw3x3, dw5x5, identity} concat -> 1x1 proj ->
-    LN -> GELU.  The v1 stem's maps already sit on the token grid, so the
-    JAX package's bilinear resize never runs for the presets the port
-    serves; another grid raises."""
+    bilinear resize to the token grid (when the map is off it) -> LN ->
+    GELU."""
 
     def __init__(self, in_channels: int, embed_dim: int, target_hw: int):
         super().__init__()
@@ -124,14 +195,14 @@ class LMFAdapter(nn.Module):
 
     def forward(self, feat: torch.Tensor, dtype) -> torch.Tensor:
         b, h, w, _ = feat.shape
-        if h != self.target_hw or w != self.target_hw:
-            raise NotImplementedError(
-                f"LMFAdapter: a {h}x{w} map needs the resize to "
-                f"{self.target_hw}x{self.target_hw}, not ported yet")
+        t = self.target_hw
         f1 = conv_nhwc(self.dwconv_3x3, feat, dtype)
         f2 = conv_nhwc(self.dwconv_5x5, feat, dtype)
         f_cat = torch.cat([f1, f2, feat.to(dtype)], dim=-1)
-        tokens = conv_nhwc(self.proj, f_cat, dtype).reshape(b, h * w, -1)
+        f_proj = conv_nhwc(self.proj, f_cat, dtype)
+        if h != t or w != t:
+            f_proj = resize(f_proj, (b, t, t, f_proj.shape[-1]), "bilinear")
+        tokens = f_proj.reshape(b, t * t, -1)
         return _gelu(self.norm(tokens, dtype))
 
 

@@ -276,3 +276,23 @@ def param_tree(module: nn.Module) -> dict:
             node = node.setdefault(key, {})
         node[leaf] = t
     return tree
+
+
+def resize_pos_embed(pos_embed: torch.Tensor, new_grid: int) -> torch.Tensor:
+    """A ``[1, N, C]`` position embedding on a new square grid: bicubic,
+    as ``jax.image.resize`` (``nn/resize.py``), when N is a square; else
+    JAX's repeat / truncate fallback (``qavit_tpu/nn/layers.py:228-242``;
+    reference HQAViT_Tiny_stl10.py:250-283)."""
+    from qavit_tpu_torch.nn.resize import resize
+
+    _, n, c = pos_embed.shape
+    old_grid = math.isqrt(n)
+    new_n = new_grid * new_grid
+    if old_grid * old_grid != n:
+        if new_n > n:
+            reps = new_n // n + 1
+            return pos_embed.repeat(1, reps, 1)[:, :new_n]
+        return pos_embed[:, :new_n]
+    grid = pos_embed.reshape(old_grid, old_grid, c)
+    out = resize(grid, (new_grid, new_grid, c), "bicubic")
+    return out.reshape(1, new_n, c).to(pos_embed.dtype)

@@ -24,7 +24,8 @@ from qavit_tpu_torch.device import resolve_device
 from qavit_tpu_torch.nn.bank import (BankState, GlobalBankParams,
                                      bank_init_state)
 from qavit_tpu_torch.nn.block import QuadBlockWithTokenLearner, flat_block
-from qavit_tpu_torch.nn.hybrid import RRCV, CNNStemV1, LMFAdapter, SplitFusion
+from qavit_tpu_torch.nn.hybrid import (RRCV, CNNStemConvNeXt, CNNStemV1,
+                                       LMFAdapter, SplitFusion)
 from qavit_tpu_torch.nn.layers import (DENSE_STD, Dense, DropoutRng,
                                        LayerNorm, PatchEmbed, dropout,
                                        init_weights, normal_)
@@ -84,19 +85,22 @@ class QAViT(nn.Module):
 
 
 class HQAViT(nn.Module):
-    """CNN lateral stem + LMFA/RRCV laterals fused by SplitFusion before
-    stages 2-4 of TokenLearner quad blocks."""
+    """CNN lateral stem (``cfg.stem_kind``: "v1", the conv/BN stem, else
+    the ConvNeXt-patchify stem) + LMFA/RRCV laterals fused by SplitFusion
+    before stages 2-4 of TokenLearner quad blocks."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.stem_kind != "v1":
-            raise NotImplementedError(f"stem {cfg.stem_kind!r} is not ported "
-                                      f"yet (v1 only)")
         self.cfg = cfg
         c, hw = cfg.embed_dim, cfg.grid_size
         self.global_bank = GlobalBankParams(cfg.bank, c)
-        self.cnn_stem = CNNStemV1(cfg.cnn_c2, cfg.cnn_c3, cfg.cnn_c4,
-                                  cfg.in_channels)
+        if cfg.stem_kind == "v1":
+            self.cnn_stem = CNNStemV1(cfg.cnn_c2, cfg.cnn_c3, cfg.cnn_c4,
+                                      cfg.in_channels)
+        else:
+            self.cnn_stem = CNNStemConvNeXt(cfg.cnn_c2, cfg.cnn_c3,
+                                            cfg.cnn_c4, cfg.in_channels,
+                                            cfg.img_size)
         for i, cin in ((2, cfg.cnn_c2), (3, cfg.cnn_c3), (4, cfg.cnn_c4)):
             self.add_module(f"lmfa{i}", LMFAdapter(cin, c, hw))
             self.add_module(f"rrcv{i}", RRCV(c, cfg.rrcv_channels,
@@ -124,10 +128,13 @@ class HQAViT(nn.Module):
         normal_(self.pos_embed, DENSE_STD, gen)
 
     def forward(self, x: torch.Tensor, train: bool = False, bank_count=0,
-                rng: Optional[DropoutRng] = None
+                rng: Optional[DropoutRng] = None,
+                return_features: bool = False
                 ) -> Tuple[torch.Tensor, BankState]:
-        """Logits and the bank state.  ``train`` needs ``rng``, the step's
-        dropout state; ``bank_count`` is the persistent bank write count."""
+        """Logits (or, with ``return_features``, the pooled features in
+        float32, as SimCLR takes them) and the bank state.  ``train``
+        needs ``rng``, the step's dropout state; ``bank_count`` is the
+        persistent bank write count."""
         if train and rng is None:
             raise ValueError("a train forward needs rng=DropoutRng(...)")
         rng = rng if train else None
@@ -153,6 +160,8 @@ class HQAViT(nn.Module):
                 t, state = block((t, state), dtype, rng, bank_write)
 
         pooled = self.norm(t, dtype).float().mean(dim=1).to(dtype)
+        if return_features:
+            return pooled.float(), state
         return self.head(pooled, dtype).float(), state
 
 

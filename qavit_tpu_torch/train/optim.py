@@ -29,12 +29,13 @@ from qavit_tpu_torch.configs.training import TrainingConfig
 # writing branch's post-proj LayerNorm): no weight decay
 NO_WD_KEYS = ("write_norm", "write_compression", "write_gate",
               "swa/norm/", "msda/norm/", "cga/norm/")
-_BLOCK = re.compile(r"(^blocks|stage\d+_blocks)\.\d+\.")
+_BLOCK = re.compile(r"(^|\.)(blocks|stage\d+_blocks)\.\d+\.")
 
 
 def jax_path(name: str) -> str:
-    """The JAX leaf path of a parameter name (scan axis merged)."""
-    return _BLOCK.sub(r"\1.", name).replace(".", "/")
+    """The JAX leaf path of a parameter name (scan axis merged), also
+    under a scope such as SimCLRNet's ``HQAViT_0`` / ``QAViT_0``."""
+    return _BLOCK.sub(r"\1\2.", name).replace(".", "/")
 
 
 def make_schedule(tc: TrainingConfig, steps_per_epoch: int

@@ -214,14 +214,18 @@ def test_load_for_transfer_head_rule_ema_and_bn(cfg, tmp_path):
     for n, b in m.named_buffers():
         assert torch.equal(b, src.ema_buffers[n]), n
 
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    # a supervised checkpoint has no SimCLR backbone scope (JAX's KeyError)
+    with pytest.raises(KeyError, match="no backbone scope"):
         C.load_for_transfer(tmp_path / "src", fresh(), simclr=True)
+    # a position embedding of another grid is resized bicubically (8 x 8
+    # -> 4 x 4 here; tests/test_torch_port_resize.py holds it to JAX's)
+    from qavit_tpu_torch.nn.layers import resize_pos_embed
     m = fresh()
     with torch.no_grad():
-        m.pos_embed = torch.nn.Parameter(torch.zeros(1, 7, cfg.embed_dim))
-    with pytest.raises(NotImplementedError,
-                       match="queue 1 item 7.*resize_pos_embed"):
-        C.load_for_transfer(tmp_path / "src", m)
+        m.pos_embed = torch.nn.Parameter(torch.zeros(1, 16, cfg.embed_dim))
+    C.load_for_transfer(tmp_path / "src", m)
+    assert torch.equal(m.pos_embed,
+                       resize_pos_embed(named_src["pos_embed"].detach(), 4))
 
 
 def test_jax_trees_round_trip_to_the_jax_logits(tiny_cfg, tmp_path):

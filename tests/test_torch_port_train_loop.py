@@ -280,7 +280,6 @@ def test_slice_matches_jax(tmp_path, monkeypatch):
     (["--steps-per-call", "2"], "queue 3 item 2"),
     (["--data-placement", "host"], "queue 1 item 3"),
     (["--loader", "native"], "queue 1 item 3"),
-    (["--init-from-simclr", "x"], "queue 1 item 8"),
 ])
 def test_unported_flags_raise_before_any_step(tmp_path, flags, item):
     argv = ["--preset", "hqavit_proc100_hard", "--device", "cpu",
