@@ -146,8 +146,9 @@ it stopped:
       entries), ``training_metrics.json`` with exactly the JAX keys, 2
       finite epochs, ``best_model`` and ``best_model_ema`` with their
       ``meta.json``, the bank count 24 a step; then resume on the card:
-      4 steps uninterrupted twice against 2 steps, ``save_train_state``,
-      ``restore_train_state`` into a freshly built state and 2 more, the
+      RESUME_STEPS steps uninterrupted twice against half of them,
+      ``save_train_state``, ``restore_train_state`` into a freshly built
+      state and the other half, the
       same weights and batches, the resumed run's distance from an
       uninterrupted one held to RESUME_FACTOR x the two uninterrupted
       runs' distance + RESUME_SLACK; then ``cli.evaluate --checkpoint
@@ -203,7 +204,26 @@ it stopped:
       versions, bf16 and float32, 8 launches of each forward unit; a 32 px
       checkpoint saved from seed weights and loaded into the 96 px model,
       its ``pos_embed`` (8 x 8 -> 24 x 24, bicubic on the card) against the
-      same resize on the CPU within STL_RESIZE_TOLERANCE.
+      same resize on the CPU within STL_RESIZE_TOLERANCE;
+  (t) Grad-CAM and attention rollout through the fused units' eval-mode
+      backward: each unit's eval forward under autograd (``_eval_unit``,
+      the same eval kernel as an inference forward) and its backward
+      kernel in eval mode (no masks, no bank partials) against autograd
+      through the plain version at hqavit_c100's geometry (n=16, B=1 and
+      B=1024) and hqavit_proc_tin's (n=64, B=1 and B=128), bf16, and each
+      eval-mode backward's device time against its bound at both batches;
+      then, with every launch count set to 0 just before and read just
+      after, ``qavit_tpu_torch.cli.evaluate --preset hqavit_c100
+      --synthetic --gradcam --rollout --gradcam-images 4
+      --rollout-images 4`` (each forward unit 8 launches a forward, each
+      backward 8 a Grad-CAM image, all through the tensor-core entries;
+      the PNGs counted); Grad-CAM of 4 images of hqavit_c100, 1 of
+      hqavit_proc_tin and 1 of qavit_224_v1_proc (the flash kernel) at full
+      width from seed-0 weights, kernels against the plain versions: the
+      class equal and the CAM within GRADCAM_FACTOR x the plain path's own
+      bf16-vs-float32 CAM distance, ms per image; the rollout of one image
+      of hqavit_c100 and of qavit_224_v1_proc; ``cli.verify_gpu
+      --batch-sizes 64,256`` printing ``VERDICT: PASS``.
 
 Prints the kernels' JSON record and the card's name and power limit
 before the last line, and ends with
@@ -296,7 +316,9 @@ DATA_EVAL_BATCH = 1024              # phase (o): cli.evaluate's batch
 AUG_TOLERANCE = 2e-3                # phase (o): card vs CPU, normalised units
 LOOP_EPOCHS = 2                     # phase (p): cli.train's epochs
 LOOP_STEPS = 4                      # phase (p): steps per epoch
-RESUME_STEPS = 4                    # phase (p): saved and restored halfway
+# phase (p): saved and restored halfway (2, to keep the smoke with phase
+# (t) near 5 minutes)
+RESUME_STEPS = 2
 TTA_BATCHES = 2                     # phase (p): cli.evaluate --tta batches
 # phase (p): the resumed run's distance from an uninterrupted run may be
 # at most RESUME_FACTOR x the two uninterrupted runs' distance from each
@@ -309,7 +331,7 @@ RESUME_SLACK = 1e-6
 FT_PRESET = "hqavit_proc100_hard_finetune"   # phase (q)
 FT_ACCUM = 2                        # phase (q): --grad-accum
 FLAT_STEPS = 3                      # phase (q): steps held flat vs per-tensor
-FLAT_TIMED = 5                      # phase (q): timed steps each way
+FLAT_TIMED = 3                      # phase (q): timed steps each way
 FLAT64_PRESET = "qavit_v2_extreme_proc100"   # phase (r), route A
 FLAT64_BATCH = 256                  # phase (r): route A's batch (the preset's)
 FLAT64_SPLITS = (2048, 1024)        # phase (r): proc100 cut for cli.train
@@ -319,6 +341,13 @@ STL_PRESET = "hqavit_tiny_proc_stl"          # phase (s)
 STL_BATCH = 128                     # phase (s): the preset's batch
 SIMCLR_BATCH = 64                   # phase (s): images a view (128 a step)
 V2_BATCH = 256                      # phase (s): hqavit_v2_c100's eval batch
+GRADCAM_IMAGES = {"hqavit_c100": 4, TIN_PRESET: 1, FLAT_PRESET: 1}  # (t)
+# phase (t): a Grad-CAM through the kernels may be at most GRADCAM_FACTOR x
+# the plain path's own bf16-vs-float32 CAM distance from the plain bf16 one
+GRADCAM_FACTOR = 2.0
+EVAL_VJP_BATCHES = {16: (1, BATCH), 64: (1, TIN_BATCH)}           # (t)
+INTERP_EVAL_BATCH = 256             # phase (t): cli.evaluate's batch
+VERIFY_BATCHES = "64,256"           # phase (t): cli.verify_gpu's sweep
 # phase (s): the resized pos_embed on the card against the CPU's, relative
 # to its largest |value| (two float32 matmuls in another order)
 STL_RESIZE_TOLERANCE = 1e-5
@@ -2847,6 +2876,243 @@ def stl_path(K, dev):
           f"{card_line()}", flush=True)
 
 
+def eval_vjp_checks(K, dev, g, p, bank, batches, suffix):
+    """Phase (t): at each batch in ``batches``, each unit's eval forward
+    under autograd (``_eval_unit``: the inference forward's kernel, bit
+    for bit) and its eval-mode backward kernel against autograd through
+    the plain eval version (bf16); then each eval-mode backward's call and
+    device time at every batch, against its plain version and bound.
+    Returns [(backward name, kernel row)] at the largest batch (row names
+    + ``suffix``; the launches are set by the caller) and the device ms at
+    B=1 by unit."""
+    import torch
+
+    from qavit_tpu_torch.kernels import build
+    from qavit_tpu_torch.kernels import unit_checks as UC
+
+    dtype = torch.bfloat16
+    gen = torch.Generator().manual_seed(24)
+    lib = K.bind(build.load().lib)
+    stream = torch.cuda.current_stream().cuda_stream
+    rows, small = [], {}
+    for b in batches:
+        x = (torch.randn(b, g.n, g.c, generator=gen) * 2).to(dev, dtype)
+        inputs = UC.unit_inputs(p, g, dtype, x, bank)
+        grid = K.train_grid(dev, b)
+        for unit in K.UNITS:
+            batch = [t.detach() for t in inputs[unit]]
+            n = K._N_DIFF_OUT[unit]
+            cots = UC.random_cotangents(unit, batch, dtype, gen)
+            leaves = [t.clone().requires_grad_(True) for t in batch]
+            weights = [t for _, t in K.unit_params(unit, p)]
+            with torch.inference_mode():
+                inf = K._eval_unit(unit, p, batch, g, dtype)
+            got = K._eval_unit(unit, p, leaves, g, dtype)
+            got = got if isinstance(got, tuple) else (got,)
+            inf = inf if isinstance(inf, tuple) else (inf,)
+            same = all(torch.equal(a, c) for a, c in zip(got, inf))
+            gk = torch.autograd.grad(got, leaves + weights, cots,
+                                     allow_unused=True)
+            ref = K.PLAIN[unit](p, *leaves, g, dtype)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            out_err = max(K.max_abs_err(a, c) / max(
+                c.float().abs().max().item(), 1e-30)
+                for a, c in zip(got[:n], ref[:n]))
+
+            def plain_bwd():
+                return torch.autograd.grad(ref[:n], leaves + weights, cots,
+                                           retain_graph=True,
+                                           allow_unused=True)
+
+            gp = plain_bwd()
+            pairs = [(a, c) for a, c in zip(gk, gp) if c is not None]
+            grad_abs, grad_rel, grads_ok = K.compare_grads(pairs, dtype)
+            ok = grads_ok and same and out_err <= K.TOLERANCE[dtype]
+            print(f"check {unit} eval VJP n={g.n} B={b} {dtype}: outputs "
+                  f"{out_err:.2e} (tolerance {K.TOLERANCE[dtype]:.2e}), "
+                  f"equal to the inference forward {same}, gradients "
+                  f"relative {grad_rel:.2e} (tolerance "
+                  f"{K.GRAD_TOLERANCE[dtype]:.2e})  {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            if not ok:
+                raise AssertionError(f"{unit}: the eval-mode VJP disagrees "
+                                     f"at n={g.n} B={b}")
+            ws = K._FWD[unit](lib, p, *batch, g, dtype, stream,
+                              keep_ws=True)[-1]
+
+            def bwd():
+                return K._BWD[unit](lib, p, *batch, g, dtype, stream, None,
+                                    grid, ws, *cots)
+
+            kern = csrc_kernel(K, unit, g, dtype, True)
+            dms = device_ms(bwd, 10, kern)
+            if b == 1:
+                small[unit] = dms
+                print(f"time {unit}_bwd eval n={g.n} B=1: kernel on the "
+                      f"device {dms:.4f} ms, bound "
+                      f"{1e3 * bwd_bound_ms(unit, g, 1, p):.2f} us",
+                      flush=True)
+                continue
+            name = f"{unit}_bwd"
+            rows.append((name, kernel_row(
+                f"{record_name(K, unit, g, dtype, True)}_eval{suffix}",
+                f"qavit_tpu_torch/csrc/{name}.cu", REPLACES[name], 0,
+                grad_abs, cuda_ms(bwd, iters=10),
+                cuda_ms(plain_bwd, iters=10), unit_bwd_work(unit, g, b, 2, p),
+                dtype, dms)))
+            del ref, leaves, gk, gp
+    return rows, small
+
+
+def bwd_bound_ms(unit, g, b, p):
+    """The bound of a unit's bf16 backward at batch b, in ms."""
+    nbytes, flops = unit_bwd_work(unit, g, b, 2, p)
+    return max(1e3 * nbytes / HBM_BYTES_PER_S,
+               1e3 * flops / PEAK_FLOPS["torch.bfloat16"])
+
+
+def gradcam_vs_plain(K, dev, preset, n_images):
+    """Phase (t): Grad-CAM of the first ``n_images`` synthetic test images
+    of ``preset`` at full width (seed-0 weights) through the kernels,
+    against the plain versions in bf16 and float32 on the card.  Returns
+    the ms per image through the kernels (host clock, synchronised)."""
+    import torch
+
+    from qavit_tpu_torch.configs import get_preset
+    from qavit_tpu_torch.data.augment import eval_batch
+    from qavit_tpu_torch.data.datasets import synthetic_dataset
+    from qavit_tpu_torch.data.pipelines import get_pipeline
+    from qavit_tpu_torch.interpret import attention_rollout, grad_cam
+    from qavit_tpu_torch.kernels import flash_attention as FA
+    from qavit_tpu_torch.nn.models import build_model
+
+    pr = get_preset(preset)
+    cfg = pr.model
+    ds = synthetic_dataset(pr.dataset, cfg.img_size, cfg.num_classes,
+                           n_train=0, n_test=n_images, seed=0)
+    images = eval_batch(torch.from_numpy(ds.test_images).to(dev),
+                        get_pipeline(pr.dataset).aug)
+    m16 = build_model(cfg, dev, seed=0)
+    m32 = build_model(cfg.replace(dtype="float32"), dev, seed=0)
+
+    def plain():
+        return (mock.patch.multiple(K, **K.PLAIN) if cfg.hybrid
+                else mock.patch.object(FA, "flash_attention", FA.plain))
+
+    grad_cam(m16, images[0])                 # warm-up (plans, kernels)
+    ms = []
+    for i in range(n_images):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cam, cls = grad_cam(m16, images[i])
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        with plain():
+            cam16, cls16 = grad_cam(m16, images[i])
+            cam32, _ = grad_cam(m32, images[i], class_idx=cls16)
+        own = float(abs(cam16 - cam32).max())
+        dist = float(abs(cam - cam16).max())
+        ok = (cls == cls16 and cam.shape == (cfg.img_size, cfg.img_size)
+              and bool((cam >= 0).all() and (cam <= 1).all())
+              and dist <= GRADCAM_FACTOR * own + 1e-6)
+        print(f"check grad-cam {preset} image {i}: class {cls} (plain "
+              f"{cls16}), CAM kernels vs plain bf16 {dist:.3e}, plain bf16 "
+              f"vs float32 {own:.3e} (limit {GRADCAM_FACTOR:g}x), "
+              f"{ms[-1]:.1f} ms  {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"{preset}: Grad-CAM through the kernels "
+                                 f"disagrees with the plain one")
+    if preset != TIN_PRESET:
+        sal = attention_rollout(m16, images[0])
+        # min-max normalised on the token grid, then upsampled: in [0, 1]
+        ok = (sal.shape == (cfg.img_size, cfg.img_size)
+              and bool(sal.min() >= 0 and sal.max() <= 1 + 1e-5)
+              and sal.max() >= 0.5)
+        print(f"check rollout {preset}: shape {sal.shape}, range "
+              f"[{sal.min():.3f}, {sal.max():.3f}]  {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            raise AssertionError(f"{preset}: rollout out of range")
+    del m16, m32
+    return sum(ms) / len(ms)
+
+
+def interpret_path(K, dev, g, p, bank, g64, p64, bank64):
+    """Phase (t): the eval-mode VJP checks and times at n=16 and n=64;
+    ``cli.evaluate --gradcam --rollout`` with the counts reset just before
+    and read just after; Grad-CAM kernels vs plain on three presets;
+    ``cli.verify_gpu``.  Returns the kernel rows."""
+    import torch
+    from pathlib import Path
+
+    from qavit_tpu_torch.cli import evaluate, verify_gpu
+    from qavit_tpu_torch.configs import get_preset
+
+    t_phase = time.perf_counter()
+    say("phase (t) step 1: the eval-mode VJP of each unit")
+    rows16, small16 = eval_vjp_checks(K, dev, g, p, bank,
+                                      EVAL_VJP_BATCHES[16], "")
+    rows64, small64 = eval_vjp_checks(K, dev, g64, p64, bank64,
+                                      EVAL_VJP_BATCHES[64], "@n64")
+
+    say("phase (t) step 2: cli.evaluate --gradcam --rollout")
+    n_img = GRADCAM_IMAGES["hqavit_c100"]
+    with tempfile.TemporaryDirectory(prefix="qv_interp_") as out:
+        reset_launches()
+        r = evaluate.main(["--preset", "hqavit_c100", "--synthetic",
+                           "--batch-size", str(INTERP_EVAL_BATCH),
+                           "--batches", "1",
+                           "--gradcam", "--gradcam-images", str(n_img),
+                           "--rollout", "--rollout-images", str(n_img),
+                           "--out-dir", out])
+        launches, routes = launch_counts(), dict(K.ROUTES)
+        pngs = sorted(q.relative_to(out).as_posix()
+                      for q in Path(out).rglob("*.png"))
+    depth = get_preset("hqavit_c100").model.depth
+    forwards = 3 + 2 * n_img     # smoke, untimed, 1 batch, Grad-CAM, rollout
+    want = {n: depth * (forwards if n in K.UNITS else n_img)
+            if n.startswith("unit_") else 0 for n in launches}
+    want_routes = {n: depth * n_img if n.endswith("_bwd_mma") else
+                   depth * forwards if n.endswith("_mma") else 0
+                   for n in routes}
+    cams = [q for q in pngs if q.startswith("gradcam/gradcam_")]
+    rolls = [q for q in pngs if q.startswith("rollout_")]
+    print(f"cli.evaluate --gradcam --rollout: {r['count']} images, "
+          f"{len(cams)} Grad-CAM and {len(rolls)} rollout PNGs, e.g. "
+          f"{cams[:1]} {rolls[:1]}; launches {launches}; per C entry "
+          f"{ {k: v for k, v in routes.items() if v} }", flush=True)
+    if launches != want or routes != want_routes or len(cams) != 2 * n_img \
+            or len(rolls) != 2 * n_img:
+        raise AssertionError(f"cli.evaluate --gradcam --rollout: launches "
+                             f"{launches}, routes {routes}, PNGs {pngs}; "
+                             f"expected {want}, {want_routes}")
+    for name, row in rows16:
+        row["launches"] = launches[name]
+
+    say("phase (t) step 3: Grad-CAM kernels vs plain, rollout")
+    per_image = {}
+    for pr, k in GRADCAM_IMAGES.items():
+        reset_launches()
+        per_image[pr] = gradcam_vs_plain(K, dev, pr, k)
+        if pr == TIN_PRESET:      # n=64: the launches of one Grad-CAM image
+            tin = launch_counts()  # (k images and the warm-up one)
+            for name, row in rows64:
+                row["launches"] = tin[name] // (k + 1)
+    print("grad-cam ms per image (kernels, host clock): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in per_image.items()) + "; eval-mode "
+        "backward device ms at B=1: n=16 " + ", ".join(
+            f"{u} {v:.4f}" for u, v in small16.items()) + "; n=64 "
+        + ", ".join(f"{u} {v:.4f}" for u, v in small64.items()), flush=True)
+
+    say(f"phase (t) step 4: cli.verify_gpu --batch-sizes {VERIFY_BATCHES}")
+    if not verify_gpu.main(["--batch-sizes", VERIFY_BATCHES]):
+        raise AssertionError("cli.verify_gpu: VERDICT FAIL")
+    torch.cuda.empty_cache()
+    print(f"phase (t): {time.perf_counter() - t_phase:.1f} s; card "
+          f"{card_line()}", flush=True)
+    return [row for _, row in rows16 + rows64]
+
+
 def main() -> int:
     import torch
 
@@ -3091,6 +3357,10 @@ def main() -> int:
     say("phase (s) 96 px STL stage: start")
     stl_path(K, dev)
     say("phase (s) 96 px STL stage: done")
+
+    say("phase (t) Grad-CAM and rollout: start")
+    record += interpret_path(K, dev, g, p, bank, g64, p64, bank64)
+    say("phase (t) Grad-CAM and rollout: done")
 
     print(card_line(), flush=True)
     print(json.dumps({"kernels": record}), flush=True)

@@ -15,8 +15,8 @@ Prints one JSON row per batch size: img/s, ms/step, the first and last
 timed loss and ``torch.cuda.max_memory_allocated``.  The train-time data
 augmentation stays out, as in the JAX bench.  ``obs/analyzer.py``'s
 ``print_analysis`` (FLOPs and parameter breakdown) is printed by
-``cli.train``, not here; the bench's MFU and the measured harness of
-``obs/analyzer`` wait for ROADMAP.md queue 1 item 11.  The flat presets
+``cli.train``, not here; its measured harness runs in
+``cli.verify_gpu``.  The flat presets
 train through the preset's ``attn_impl``: the 224 presets on the branch
 path (``--preset qavit_224_v1_proc --train --batch-sizes 256``; with
 dropout every attention stays on the plain path, as in JAX), and, like

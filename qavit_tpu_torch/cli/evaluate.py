@@ -3,7 +3,8 @@ its dataset's test split (counterpart of ``qavit_tpu/cli/evaluate.py``).
 
     python -m qavit_tpu_torch.cli.evaluate --preset hqavit_proc100_hard \
         [--checkpoint DIR] [--tta] [--out-dir DIR] [--data-root ./data] \
-        [--batch-size 1024] [--batches N] [--device cpu]
+        [--batch-size 1024] [--batches N] [--device cpu] \
+        [--gradcam [--gradcam-images 30]] [--rollout [--rollout-images 30]]
     python -m qavit_tpu_torch.cli.evaluate --preset hqavit_c100 \
         --synthetic --seed 0 --batch-size 1024 --batches 4 [--device cpu]
 
@@ -29,9 +30,19 @@ the evaluated batches), and the best and worst classes by precision.
 (``eval/tta.py``) over the same batches and prints ``TTA top-1``.
 ``--out-dir`` writes the confusion matrix (``.npy``, and ``.png`` where
 matplotlib is installed), the classification report and the best and
-worst classes (JSON) and the prediction grid (``.png``).  Grad-CAM and
-attention rollout (``--gradcam``, ``--rollout``) raise: they wait for
-ROADMAP.md queue 1 item 9.  Runs on the card unless ``--device cpu`` is
+worst classes (JSON) and the prediction grid (``.png``).  ``--gradcam``
+writes Grad-CAM pairs of the first ``--gradcam-images`` test images
+(``interpret/gradcam.py``, one image at a time, the gradient through the
+fused units' eval-mode backward kernels on the card) to
+``<out-dir>/gradcam/gradcam_{i}_pred{p}_true{t}_{heat,overlay}.png``;
+``--rollout`` writes attention-rollout pairs of the first
+``--rollout-images`` (``interpret/rollout.py``), named by the
+evaluation's own predictions, to ``<out-dir>/rollout_{i}_pred{p}_true{t}
+_{heat,overlay}.png``; a hybrid model without a TokenLearner prints
+"rollout skipped" and goes on.  Their images come from the head of the
+test split, normalised by ``eval_batch``; ``--out-dir`` defaults to
+``./eval_out`` for them, as JAX's does.  The PNGs need neither
+matplotlib nor PIL.  Runs on the card unless ``--device cpu`` is
 given.  Serves every preset of ``configs/presets.py``: ``hqavit_c100``
 and the substrate presets of its geometry (``hqavit_proc100``,
 ``hqavit_proc100_hard``, ``hqavit_proc100_hard_finetune``,
@@ -64,6 +75,8 @@ from qavit_tpu_torch.data.pipelines import get_pipeline
 from qavit_tpu_torch.device import resolve_device
 from qavit_tpu_torch.eval import metrics as EM
 from qavit_tpu_torch.eval.tta import make_tta_preprocessors
+from qavit_tpu_torch.interpret import (attention_rollout, gradcam_on_batch,
+                                       save_gradcam_overlay)
 from qavit_tpu_torch.nn.models import build_model
 from qavit_tpu_torch.train.state import create_train_state
 from qavit_tpu_torch.train.steps import make_eval_step
@@ -95,9 +108,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    help="write the confusion matrix, the per-class report, "
                         "the best and worst classes and a prediction grid")
     p.add_argument("--gradcam", action="store_true",
-                   help="not ported (ROADMAP.md queue 1 item 9)")
+                   help="write Grad-CAM overlay PNGs")
+    p.add_argument("--gradcam-images", type=int, default=30)
     p.add_argument("--rollout", action="store_true",
-                   help="not ported (ROADMAP.md queue 1 item 9)")
+                   help="write attention-rollout overlay PNGs (the flat "
+                        "QAViT or hybrid TokenLearner models)")
+    p.add_argument("--rollout-images", type=int, default=30)
     return p.parse_args(argv)
 
 
@@ -124,9 +140,6 @@ def write_analysis(out_dir: Path, r: Dict, num_classes: int,
 
 def main(argv: Optional[List[str]] = None) -> Dict:
     args = parse_args(argv)
-    if args.gradcam or args.rollout:
-        raise NotImplementedError("Grad-CAM and attention rollout are not "
-                                  "ported yet (ROADMAP.md queue 1 item 9)")
     device = resolve_device(args.device)
     preset = get_preset(args.preset)
     mc = preset.model
@@ -192,6 +205,39 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     if args.out_dir:
         write_analysis(Path(args.out_dir), r, mc.num_classes,
                        ds.test_images[:n])
+    out_dir = Path(args.out_dir or "./eval_out")
+
+    def head(k: int):
+        """The first k test images, uint8 and normalised on the device."""
+        u8 = ds.test_images[:k]
+        return u8, eval_batch(torch.from_numpy(u8).to(device), pipe.aug)
+
+    if args.gradcam:
+        u8, norm = head(args.gradcam_images)
+        written = gradcam_on_batch(model, norm, u8, ds.test_labels[:len(u8)],
+                                   str(out_dir / "gradcam"),
+                                   args.gradcam_images)
+        print(f"wrote {len(written)} grad-cam pairs", flush=True)
+        r["gradcam"] = written
+
+    if args.rollout and mc.hybrid and not mc.use_token_learner:
+        # no positional mixing map exists for this family: say so and go
+        # on, so that a --tta asked for with it still runs
+        print("rollout skipped: hybrid models without a TokenLearner have "
+              "no positional mixing map — use --gradcam instead")
+    elif args.rollout:
+        preds = r["logits"].argmax(-1)
+        u8, norm = head(min(args.rollout_images, len(preds)))
+        out_dir.mkdir(parents=True, exist_ok=True)
+        written = []
+        for idx in range(len(u8)):
+            sal = attention_rollout(model, norm[idx])
+            prefix = (f"rollout_{idx}_pred{int(preds[idx])}_true"
+                      f"{int(ds.test_labels[idx])}")
+            written.append(save_gradcam_overlay(sal, u8[idx],
+                                                str(out_dir / prefix)))
+        print(f"wrote {len(written)} attention-rollout pairs", flush=True)
+        r["rollout"] = written
 
     if args.tta:
         preps = make_tta_preprocessors(pipe.aug, seed=args.seed)

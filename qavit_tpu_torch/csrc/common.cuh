@@ -174,7 +174,9 @@ struct CrossTailArgs {
 // pointers are unused), the cotangents, and one float pointer per
 // gradient into slice 0 of the per-block workspace `gws` ([grid,
 // wstride] float32, zeroed by the caller); block i adds into slice i, and
-// the reduction pass writes their sum to `grad` ([wstride]).
+// the reduction pass writes their sum to `grad` ([wstride]).  With
+// d.train 0 a backward is the eval forward's VJP: the recompute draws no
+// dropout or drop-path mask (the eval forward's function).
 struct BwdCommon {
   const float* bank_kr;   // bank rows rounded to the working type
   const float* bank_vr;

@@ -1349,7 +1349,7 @@ __global__ void __launch_bounds__(NTHREADS, 2)
 extern "C" int qv_unit_cga_bwd_mma(const qv::CgaBwdArgs* a, const void* w,
                                    int is_bf16, void* stream) {
   const qv::Dims& d = a->f.d;
-  if (!is_bf16 || !d.train || d.n != qv::NT || d.nw != 1 ||
+  if (!is_bf16 || d.n != qv::NT || d.nw != 1 ||
       d.c != qv::CG_C || d.groups != qv::CG_G || d.cperg != qv::CG_CPERG ||
       d.heads != qv::CG_H || d.bank_s > qv::CG_S || d.grid > d.B)
     return qv::ERR_ARGS;
@@ -1368,7 +1368,7 @@ extern "C" int qv_unit_cga_bwd_mma(const qv::CgaBwdArgs* a, const void* w,
 extern "C" int qv_unit_cga_bwd_mma64(const qv::CgaBwdArgs* a, const void* w,
                                      int is_bf16, void* stream) {
   const qv::Dims& d = a->f.d;
-  if (!is_bf16 || !d.train || d.n != qv::CG_ROWS || d.nw != 4 ||
+  if (!is_bf16 || d.n != qv::CG_ROWS || d.nw != 4 ||
       d.side != 8 || d.c != qv::CG_C || d.groups != qv::CG_G ||
       d.cperg != qv::CG_CPERG || d.heads != qv::CG_H ||
       d.bank_s > qv::CG_S || d.grid > d.B)

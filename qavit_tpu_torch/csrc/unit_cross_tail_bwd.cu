@@ -1250,7 +1250,7 @@ extern "C" int qv_unit_cross_tail_bwd_mma(const qv::CrossTailBwdArgs* a,
                                           const void* w, int is_bf16,
                                           void* stream) {
   const qv::Dims& d = a->f.d;
-  if (!is_bf16 || !d.train || d.n != qv::NT || d.side != qv::WS ||
+  if (!is_bf16 || d.n != qv::NT || d.side != qv::WS ||
       d.c != qv::CB_C || d.heads != qv::CB_H || d.bank_s > qv::CB_S ||
       d.ccf_hidden != qv::CB_HID || d.bottleneck_hidden != qv::CB_HID ||
       d.d_c != qv::CB_DC || !d.stab_ccf || !d.stab_dw || d.grid > d.B)
@@ -1271,7 +1271,7 @@ extern "C" int qv_unit_cross_tail_bwd_mma64(const qv::CrossTailBwdArgs* a,
                                             const void* w, int is_bf16,
                                             void* stream) {
   const qv::Dims& d = a->f.d;
-  if (!is_bf16 || !d.train || d.n != 64 || d.side != 8 ||
+  if (!is_bf16 || d.n != 64 || d.side != 8 ||
       d.c != qv::CB_C || d.heads != qv::CB_H || d.bank_s > qv::CB_S ||
       d.ccf_hidden != qv::CB_HID || d.bottleneck_hidden != qv::CB_HID ||
       d.d_c != qv::CB_DC || !d.stab_ccf || !d.stab_dw || d.grid > d.B)

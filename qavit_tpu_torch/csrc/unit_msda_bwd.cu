@@ -1104,7 +1104,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 extern "C" int qv_unit_msda_bwd_mma(const qv::MsdaBwdArgs* a, const void* w,
                                     int is_bf16, void* stream) {
   const qv::Dims& d = a->f.d;
-  if (!is_bf16 || !d.train || d.n != qv::NT || d.nw != 1 ||
+  if (!is_bf16 || d.n != qv::NT || d.nw != 1 ||
       d.c != qv::MB_C || d.heads != qv::MB_H || d.lin_k != qv::MB_LK ||
       d.bank_s > qv::MB_S || d.msda_keep > qv::MB_KEEP || d.grid > d.B)
     return qv::ERR_ARGS;
@@ -1135,7 +1135,7 @@ extern "C" int qv_unit_msda_bwd_mma64(const qv::MsdaBwdArgs* a,
                                       const void* w, int is_bf16,
                                       void* stream) {
   const qv::Dims& d = a->f.d;
-  if (!is_bf16 || !d.train || d.n != qv::M6_N || d.nw != 4 ||
+  if (!is_bf16 || d.n != qv::M6_N || d.nw != 4 ||
       d.c != qv::MB_C || d.heads != qv::MB_H || d.lin_k != qv::MB_LK ||
       d.bank_s > qv::MB_S || d.msda_keep > qv::M6_KEEP ||
       d.msda_pad < d.msda_keep || d.grid > d.B ||

@@ -729,7 +729,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 extern "C" int qv_unit_swa_bwd_mma(const qv::SwaBwdArgs* a, const void* w,
                                    int is_bf16, void* stream) {
   const qv::Dims& d = a->f.d;
-  if (!is_bf16 || !d.train || d.n != qv::NT || d.nw != 1 ||
+  if (!is_bf16 || d.n != qv::NT || d.nw != 1 ||
       d.c != qv::SB_C || d.heads != qv::SB_H || d.lin_k != qv::SB_LK ||
       d.bank_s > qv::SB_S || d.grid > d.B)
     return qv::ERR_ARGS;
@@ -749,7 +749,7 @@ extern "C" int qv_unit_swa_bwd_mma(const qv::SwaBwdArgs* a, const void* w,
 extern "C" int qv_unit_swa_bwd_mma64(const qv::SwaBwdArgs* a, const void* w,
                                      int is_bf16, void* stream) {
   const qv::Dims& d = a->f.d;
-  if (!is_bf16 || !d.train || d.n != 4 * qv::NT || d.nw != 4 ||
+  if (!is_bf16 || d.n != 4 * qv::NT || d.nw != 4 ||
       d.side != 8 || d.c != qv::SB_C || d.heads != qv::SB_H ||
       d.lin_k != qv::SB_LK || d.bank_s > qv::SB_S || d.grid > 4 * d.B ||
       a->c.wstride % 2 != 0)   // (wgrad_stream stores column pairs)

@@ -16,8 +16,15 @@ CUDA tensor it checks device, dtype, shape and contiguity, allocates its
 outputs and launches its kernel on the current stream, or raises.  In
 training (``train=UnitTrain(...)``) a unit is a ``torch.autograd.Function``:
 the forward kernel saves only the unit's inputs, and the backward kernel
-``unit_*_bwd`` recomputes the unit in-kernel with the same masks.  Every
-launch adds one to ``LAUNCHES[name]``.  The kernels take the geometries of
+``unit_*_bwd`` recomputes the unit in-kernel with the same masks.  In
+eval, where autograd needs the unit's VJP (grad mode on and an input or
+weight requiring grad: Grad-CAM, a gradient of the eval forward), the
+unit is :class:`_EvalUnit`: the eval forward's own kernel, then the
+backward kernel with ``d.train`` off (no masks, no bank partials; JAX's
+``make_cores(train=False)``), or a named ValueError before any launch
+where the backward kernels do not take the geometry
+(:func:`eval_vjp_error`).  Every launch adds one to ``LAUNCHES[name]``.
+The kernels take the geometries of
 :data:`EVAL_GEOMETRIES` (training: :data:`TRAIN_GEOMETRIES`); any other
 raises, naming the reason (:func:`kernel_geometry_error`).  At n=64 in
 bf16 the SWA, MSDA, CGA and cross/tail units run on the tensor cores, in
@@ -664,7 +671,8 @@ def _dims(g: FusedGeom, b: int, p: Params, grid: int, rgrid: int,
              bottleneck_hidden=g.bottleneck_hidden, d_c=g.d_c,
              guard=int(g.guard_nans), stab_ccf=int(g.stabilized_ccfffn),
              stab_dw=int(g.stabilized_dwconv),
-             dw_bias=int("bias" in dw["dwconv"]), grid=grid, rgrid=rgrid)
+             dw_bias=int("bias" in dw["dwconv"]), grid=grid, rgrid=rgrid,
+             keep=1.0, dp_scale=1.0)
     if rng is not None:
         d.train = 1
         d.drop_on = int(rng.rate > 0.0)
@@ -856,7 +864,7 @@ def _fwd_dims(lc: _Launch, p: Params, train: Optional[UnitTrain],
 
 def launch_swa(lib, p: Params, x, bank_k, bank_v, g: FusedGeom, dtype,
                stream=None, train: Optional[UnitTrain] = None,
-               grid: Optional[Grid] = None):
+               grid: Optional[Grid] = None, keep_ws: bool = False):
     lc = _Launch(lib, "unit_swa", g, dtype, x, train is not None)
     c, ps = g.c, p["swa"]
     out, xn = torch.empty_like(x), torch.empty_like(x)
@@ -874,10 +882,12 @@ def launch_swa(lib, p: Params, x, bank_k, bank_v, g: FusedGeom, dtype,
                             ps["qkv"]["kernel"], ps["proj"]["kernel"],
                             train=train, grid=grid, branch="swa",
                             entry=route)
-        return (out, xn) if train is None else (out, xn, part, ws)
+        if train is None:
+            return (out, xn, ws) if keep_ws else (out, xn)
+        return out, xn, part, ws
     if train is None:     # eval: one block per (sample, window)
-        lc.run(a, _dims(g, lc.b, p, lc.b * g.nw, 1, None), stream)
-        return out, xn
+        ws = lc.run(a, _dims(g, lc.b, p, lc.b * g.nw, 1, None), stream)
+        return (out, xn, ws) if keep_ws else (out, xn)
     part = _bank_write(lc, a, p, "swa", train, grid)
     ws = lc.run(a, _fwd_dims(lc, p, train, grid), stream)
     return out, xn, part, ws
@@ -885,7 +895,7 @@ def launch_swa(lib, p: Params, x, bank_k, bank_v, g: FusedGeom, dtype,
 
 def launch_msda(lib, p: Params, xn, bank_k, bank_v, g: FusedGeom, dtype,
                 stream=None, train: Optional[UnitTrain] = None,
-                grid: Optional[Grid] = None):
+                grid: Optional[Grid] = None, keep_ws: bool = False):
     lc = _Launch(lib, "unit_msda", g, dtype, xn, train is not None)
     c, pm = g.c, p["msda"]
     out = torch.empty_like(xn)
@@ -906,13 +916,21 @@ def launch_msda(lib, p: Params, xn, bank_k, bank_v, g: FusedGeom, dtype,
                             pm["qkv_kernel"], pm["proj"]["kernel"],
                             train=train, grid=grid, branch="msda",
                             entry=route)
-        return out if train is None else (out, part, ws)
+        if train is None:
+            return _eval_out(out, ws, keep_ws)
+        return out, part, ws
     if train is None:
-        lc.run(a, _fwd_dims(lc, p, None, None), stream)
-        return out
+        ws = lc.run(a, _fwd_dims(lc, p, None, None), stream)
+        return _eval_out(out, ws, keep_ws)
     part = _bank_write(lc, a, p, "msda", train, grid)
     ws = lc.run(a, _fwd_dims(lc, p, train, grid), stream)
     return out, part, ws
+
+
+def _eval_out(out, ws, keep_ws: bool):
+    """An eval launch's result: its output, and with ``keep_ws`` its
+    guard workspace too (the flag the eval-mode backward reads)."""
+    return (out, ws) if keep_ws else out
 
 
 def _run_mma(lc: _Launch, a, p: Params, stream, error,
@@ -957,7 +975,7 @@ def _run_mma(lc: _Launch, a, p: Params, stream, error,
 
 def launch_cga(lib, p: Params, xn, bank_k, bank_v, g: FusedGeom, dtype,
                stream=None, train: Optional[UnitTrain] = None,
-               grid: Optional[Grid] = None):
+               grid: Optional[Grid] = None, keep_ws: bool = False):
     lc = _Launch(lib, "unit_cga", g, dtype, xn, train is not None)
     c, pc = g.c, p["cga"]
     cpg = c // g.groups
@@ -977,10 +995,12 @@ def launch_cga(lib, p: Params, xn, bank_k, bank_v, g: FusedGeom, dtype,
                             _cga_qkv_packed(p), pc["proj"]["kernel"],
                             train=train, grid=grid, branch="cga",
                             entry=route)
-        return out if train is None else (out, part, ws)
+        if train is None:
+            return _eval_out(out, ws, keep_ws)
+        return out, part, ws
     if train is None:
-        lc.run(a, _fwd_dims(lc, p, None, None), stream)
-        return out
+        ws = lc.run(a, _fwd_dims(lc, p, None, None), stream)
+        return _eval_out(out, ws, keep_ws)
     part = _bank_write(lc, a, p, "cga", train, grid)
     ws = lc.run(a, _fwd_dims(lc, p, train, grid), stream)
     return out, part, ws
@@ -1018,7 +1038,7 @@ def _cross_tail_args(lc: _Launch, p: Params, a: CrossTailArgs) -> None:
 def launch_cross_tail(lib, p: Params, x, xn, out_swa, out_msda, out_cga,
                       bank_k, bank_v, g: FusedGeom, dtype, stream=None,
                       train: Optional[UnitTrain] = None,
-                      grid: Optional[Grid] = None):
+                      grid: Optional[Grid] = None, keep_ws: bool = False):
     lc = _Launch(lib, "unit_cross_tail", g, dtype, x,
                  train is not None)
     y = torch.empty_like(x)
@@ -1034,7 +1054,7 @@ def launch_cross_tail(lib, p: Params, x, xn, out_swa, out_msda, out_cga,
                          entry=route)
     else:
         ws = lc.run(a, _fwd_dims(lc, p, train, grid), stream)
-    return y if train is None else (y, ws)
+    return _eval_out(y, ws, keep_ws) if train is None else (y, ws)
 
 
 def _mma_route(unit: str, error, g: FusedGeom, dtype,
@@ -1092,8 +1112,15 @@ def _cross_tail_packed(p: Params) -> Tuple[torch.Tensor, torch.Tensor]:
 
 # ---------------------------------------------------------------------------
 # backward launches: the forward's inputs, its guard workspace and the
-# output cotangents -> (input cotangents, {gradient field: tensor})
+# output cotangents -> (input cotangents, {gradient field: tensor}).  With
+# ``train`` the unit's masks are replayed; without it (the eval-mode
+# backward, JAX's make_cores(train=False)) the kernels run with d.train
+# off: no dropout, no drop-path, no bank partials.
 # ---------------------------------------------------------------------------
+
+def _rng(train: Optional[UnitTrain]) -> Optional[R.BlockRng]:
+    return None if train is None else train.rng
+
 
 def _leaf(p: Params, path: Tuple[str, ...]):
     node = p
@@ -1193,7 +1220,8 @@ def _bwd_weights(lc: _Launch, *weights: torch.Tensor) -> torch.Tensor:
 
 
 def launch_swa_bwd(lib, p: Params, x, bank_k, bank_v, g: FusedGeom, dtype,
-                   stream, train: UnitTrain, grid: Grid, ws, d_out, d_xn):
+                   stream, train: Optional[UnitTrain], grid: Grid, ws, d_out,
+                   d_xn):
     """-> ((d_x, d_bank_k, d_bank_v), {param path: gradient})"""
     lc = _Launch(lib, "unit_swa", g, dtype, x, True)
     a = SwaBwdArgs()
@@ -1209,7 +1237,7 @@ def launch_swa_bwd(lib, p: Params, x, bank_k, bank_v, g: FusedGeom, dtype,
     entry = bwd_entry("unit_swa", g, dtype)
     mma = entry != "unit_swa_bwd"
     grid = cluster_grid(entry, grid, lc.b, lc.device)
-    f.d = _dims(g, lc.b, p, grid.blocks, grid.reduce, train.rng)
+    f.d = _dims(g, lc.b, p, grid.blocks, grid.reduce, _rng(train))
     grads = _Grads(lc, "unit_swa", p, grid, zero=not mma)
     grads.fill(a.g)
     w16 = scratch = None
@@ -1226,7 +1254,8 @@ def launch_swa_bwd(lib, p: Params, x, bank_k, bank_v, g: FusedGeom, dtype,
 
 
 def launch_msda_bwd(lib, p: Params, xn, bank_k, bank_v, g: FusedGeom, dtype,
-                    stream, train: UnitTrain, grid: Grid, ws, d_out):
+                    stream, train: Optional[UnitTrain], grid: Grid, ws,
+                    d_out):
     """-> ((d_xn, d_bank_k, d_bank_v), {param path: gradient})"""
     lc = _Launch(lib, "unit_msda", g, dtype, xn, True)
     a = MsdaBwdArgs()
@@ -1243,7 +1272,7 @@ def launch_msda_bwd(lib, p: Params, xn, bank_k, bank_v, g: FusedGeom, dtype,
     f.proj_w, f.proj_b = lc.dense(pm["proj"], c, c)
     entry = bwd_entry("unit_msda", g, dtype)
     grid = cluster_grid(entry, grid, lc.b, lc.device)
-    f.d = _dims(g, lc.b, p, grid.blocks, grid.reduce, train.rng)
+    f.d = _dims(g, lc.b, p, grid.blocks, grid.reduce, _rng(train))
     f.d.msda_pad = pad
     grads = _Grads(lc, "unit_msda", p, grid, zero=entry not in CLUSTER_BWD)
     grads.fill(a.g)
@@ -1261,7 +1290,8 @@ def launch_msda_bwd(lib, p: Params, xn, bank_k, bank_v, g: FusedGeom, dtype,
 
 
 def launch_cga_bwd(lib, p: Params, xn, bank_k, bank_v, g: FusedGeom, dtype,
-                   stream, train: UnitTrain, grid: Grid, ws, d_out):
+                   stream, train: Optional[UnitTrain], grid: Grid, ws,
+                   d_out):
     """-> ((d_xn, d_bank_k, d_bank_v), {param path: gradient})"""
     lc = _Launch(lib, "unit_cga", g, dtype, xn, True)
     a = CgaBwdArgs()
@@ -1279,7 +1309,7 @@ def launch_cga_bwd(lib, p: Params, xn, bank_k, bank_v, g: FusedGeom, dtype,
     entry = bwd_entry("unit_cga", g, dtype)
     mma = entry != "unit_cga_bwd"
     grid = cluster_grid(entry, grid, lc.b, lc.device)
-    f.d = _dims(g, lc.b, p, grid.blocks, grid.reduce, train.rng)
+    f.d = _dims(g, lc.b, p, grid.blocks, grid.reduce, _rng(train))
     grads = _Grads(lc, "unit_cga", p, grid, zero=not mma)
     grads.fill(a.g)
     w16 = scratch = None
@@ -1297,7 +1327,7 @@ def launch_cga_bwd(lib, p: Params, xn, bank_k, bank_v, g: FusedGeom, dtype,
 
 def launch_cross_tail_bwd(lib, p: Params, x, xn, out_swa, out_msda, out_cga,
                           bank_k, bank_v, g: FusedGeom, dtype, stream,
-                          train: UnitTrain, grid: Grid, ws, d_y):
+                          train: Optional[UnitTrain], grid: Grid, ws, d_y):
     """-> ((d_x, d_xn, d_swa, d_msda, d_cga, d_bank_k, d_bank_v),
     {param path: gradient})"""
     lc = _Launch(lib, "unit_cross_tail", g, dtype, x, True)
@@ -1309,7 +1339,7 @@ def launch_cross_tail_bwd(lib, p: Params, x, xn, out_swa, out_msda, out_cga,
     _cross_tail_args(lc, p, f)
     entry = bwd_entry("unit_cross_tail", g, dtype)
     grid = cluster_grid(entry, grid, lc.b, lc.device)
-    f.d = _dims(g, lc.b, p, grid.blocks, grid.reduce, train.rng)
+    f.d = _dims(g, lc.b, p, grid.blocks, grid.reduce, _rng(train))
     grads = _Grads(lc, "unit_cross_tail", p, grid,
                    zero=entry not in CLUSTER_BWD)
     grads.fill(a.g)
@@ -1402,6 +1432,86 @@ def _train_unit(unit: str, p: Params, batch, g: FusedGeom, dtype,
                             *weights)
 
 
+class _EvalUnit(torch.autograd.Function):
+    """One unit's eval forward under autograd: the same eval kernel (and
+    C entry) as the forward under ``torch.inference_mode``, so the same
+    outputs bit for bit; its guard workspace is kept for the backward,
+    which launches the unit's backward kernel in eval mode (no masks, no
+    bank partials: JAX's ``make_cores(train=False)`` paired with
+    ``fused_pallas.py:244``'s ``bwd_call``) on the train grid.  The bank
+    rows differentiate as JAX's ``diff`` group does."""
+
+    @staticmethod
+    def forward(ctx, unit, p, g, dtype, n_batch, *tensors):
+        batch = tensors[:n_batch]
+        lib, stream = _cuda(batch[0], unit)
+        *outs, ws = _FWD[unit](lib, p, *batch, g, dtype, stream,
+                               keep_ws=True)
+        LAUNCHES[unit] += 1
+        ctx.save_for_backward(*batch, ws)
+        ctx.unit, ctx.p, ctx.g, ctx.dtype = unit, p, g, dtype
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *cots):
+        *batch, ws = ctx.saved_tensors
+        unit = ctx.unit
+        cots = [t.to(ctx.dtype).contiguous()
+                for t in _zeros_if_none(cots, [batch[0]] * len(cots))]
+        lib, stream = _cuda(batch[0], unit + "_bwd")
+        grid = train_grid(batch[0].device, batch[0].shape[0])
+        d_in, wg = _BWD[unit](lib, ctx.p, *batch, ctx.g, ctx.dtype, stream,
+                              None, grid, ws, *cots)
+        LAUNCHES[unit + "_bwd"] += 1
+        d_w = [wg[path] for path, _ in unit_params(unit, ctx.p)]
+        return (None,) * 5 + tuple(d_in) + tuple(d_w)
+
+
+def eval_vjp_error(unit: str, g: FusedGeom, dtype) -> Optional[str]:
+    """Why a gradient cannot flow through ``unit``'s eval forward on the
+    card (None if it can): its backward kernel must take geometry ``g``
+    in ``dtype``, as in training (float32 at n=64 is ROADMAP queue 2 item
+    2d's)."""
+    err = kernel_geometry_error(g, True, dtype)
+    if err is None:
+        try:
+            bwd_entry(unit, g, dtype)
+        except ValueError as e:
+            err = str(e)
+    if err is None:
+        return None
+    return (f"{unit}: a gradient through the eval forward needs the "
+            f"unit's backward kernel, which cannot run here: {err}")
+
+
+def _wants_vjp(unit: str, p: Params, batch) -> bool:
+    """True where autograd records the eval forward: grad mode on and
+    some input of the unit (a token tensor, a bank row, a weight)
+    requiring a gradient."""
+    if not torch.is_grad_enabled():
+        return False
+    return any(t.requires_grad for t in batch) or any(
+        t.requires_grad for _, t in unit_params(unit, p))
+
+
+def _eval_unit(unit: str, p: Params, batch, g: FusedGeom, dtype):
+    """The unit's eval forward on the card: through :class:`_EvalUnit`
+    where autograd needs its VJP (a shape the backward kernels do not
+    take raises before the launch), else the plain launch."""
+    if _wants_vjp(unit, p, batch):
+        err = eval_vjp_error(unit, g, dtype)
+        if err is not None:
+            raise ValueError(err)
+        weights = [t for _, t in unit_params(unit, p)]
+        out = _EvalUnit.apply(unit, p, g, dtype, len(batch), *batch,
+                              *weights)
+        return out if len(out) > 1 else out[0]
+    lib, stream = _cuda(batch[0], unit)
+    out = _FWD[unit](lib, p, *batch, g, dtype, stream)
+    LAUNCHES[unit] += 1
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the wrappers the fused block calls
 # ---------------------------------------------------------------------------
@@ -1423,10 +1533,7 @@ def unit_swa(p: Params, x, bank_k, bank_v, g: FusedGeom, dtype,
     if train is not None:
         return _train_unit("unit_swa", p, (x, bank_k, bank_v), g, dtype,
                            train)
-    lib, stream = _cuda(x, "unit_swa")
-    out = launch_swa(lib, p, x, bank_k, bank_v, g, dtype, stream)
-    LAUNCHES["unit_swa"] += 1
-    return out
+    return _eval_unit("unit_swa", p, (x, bank_k, bank_v), g, dtype)
 
 
 def unit_msda(p: Params, xn, bank_k, bank_v, g: FusedGeom, dtype,
@@ -1437,10 +1544,7 @@ def unit_msda(p: Params, xn, bank_k, bank_v, g: FusedGeom, dtype,
     if train is not None:
         return _train_unit("unit_msda", p, (xn, bank_k, bank_v), g, dtype,
                            train)
-    lib, stream = _cuda(xn, "unit_msda")
-    out = launch_msda(lib, p, xn, bank_k, bank_v, g, dtype, stream)
-    LAUNCHES["unit_msda"] += 1
-    return out
+    return _eval_unit("unit_msda", p, (xn, bank_k, bank_v), g, dtype)
 
 
 def unit_cga(p: Params, xn, bank_k, bank_v, g: FusedGeom, dtype,
@@ -1451,10 +1555,7 @@ def unit_cga(p: Params, xn, bank_k, bank_v, g: FusedGeom, dtype,
     if train is not None:
         return _train_unit("unit_cga", p, (xn, bank_k, bank_v), g, dtype,
                            train)
-    lib, stream = _cuda(xn, "unit_cga")
-    out = launch_cga(lib, p, xn, bank_k, bank_v, g, dtype, stream)
-    LAUNCHES["unit_cga"] += 1
-    return out
+    return _eval_unit("unit_cga", p, (xn, bank_k, bank_v), g, dtype)
 
 
 def unit_cross_tail(p: Params, x, xn, out_swa, out_msda, out_cga, bank_k,
@@ -1464,12 +1565,7 @@ def unit_cross_tail(p: Params, x, xn, out_swa, out_msda, out_cga, bank_k,
     if x.device.type == "cpu":
         return cross_tail_plain(p, x, xn, out_swa, out_msda, out_cga,
                                 bank_k, bank_v, g, dtype, train)
+    batch = (x, xn, out_swa, out_msda, out_cga, bank_k, bank_v)
     if train is not None:
-        return _train_unit("unit_cross_tail", p,
-                           (x, xn, out_swa, out_msda, out_cga, bank_k,
-                            bank_v), g, dtype, train)[0]
-    lib, stream = _cuda(x, "unit_cross_tail")
-    y = launch_cross_tail(lib, p, x, xn, out_swa, out_msda, out_cga, bank_k,
-                          bank_v, g, dtype, stream)
-    LAUNCHES["unit_cross_tail"] += 1
-    return y
+        return _train_unit("unit_cross_tail", p, batch, g, dtype, train)[0]
+    return _eval_unit("unit_cross_tail", p, batch, g, dtype)

@@ -13,7 +13,7 @@ gradients).  :func:`unit_inputs` makes one set of inputs for every unit.
 from __future__ import annotations
 
 import contextlib
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Optional
 from unittest import mock
 
 import torch
@@ -77,17 +77,21 @@ def _zero_attention(q, k, v, **_):
     return torch.zeros_like(q)
 
 
-def check_unit(lib, unit: str, p, train: K.UnitTrain, batch, g: FusedGeom,
-               dtype, grid: K.Grid, cotangents: List[torch.Tensor],
-               stream=None, guard_tripped: bool = False) -> UnitCheck:
-    """One unit's forward and backward kernels against the plain version.
-    With ``guard_tripped`` the inputs hold a NaN: the kernels must take
-    the guarded path, and the reference is autograd of the plain version
+def check_unit(lib, unit: str, p, train: Optional[K.UnitTrain], batch,
+               g: FusedGeom, dtype, grid: K.Grid,
+               cotangents: List[torch.Tensor], stream=None,
+               guard_tripped: bool = False) -> UnitCheck:
+    """One unit's forward and backward kernels against the plain version
+    (``train=None``: the eval forward and the eval-mode backward).  With
+    ``guard_tripped`` the inputs hold a NaN: the kernels must take the
+    guarded path, and the reference is autograd of the plain version
     with its attention output forced to zero, the function the guard
     computes (its attention passes zero gradient)."""
     n = K._N_DIFF_OUT[unit]
     inputs = [t.detach() for t in batch]
-    *outs, ws = K._FWD[unit](lib, p, *inputs, g, dtype, stream, train, grid)
+    keep = {"keep_ws": True} if train is None else {}
+    *outs, ws = K._FWD[unit](lib, p, *inputs, g, dtype, stream, train, grid,
+                             **keep)
     d_in, wg = K._BWD[unit](lib, p, *inputs, g, dtype, stream, train, grid,
                             ws, *cotangents)
     if torch.cuda.is_available() and inputs[0].is_cuda:

@@ -45,6 +45,7 @@ from qavit_tpu_torch.kernels.fused_params import (BlockDims,
                                                   QuadBlockParams,
                                                   block_dims)
 from qavit_tpu_torch.kernels.fused_ref import make_geom
+from qavit_tpu_torch.nn import taps
 from qavit_tpu_torch.nn.bank import BankState
 from qavit_tpu_torch.nn.branches import (ChannelGroupAttention,
                                          CrossAttentionBranch,
@@ -160,6 +161,7 @@ class TokenLearner(nn.Module):
     def forward(self, x: torch.Tensor, dtype) -> torch.Tensor:
         scores = self.attn_fc(self.attn_norm(x, dtype), dtype)
         w = torch.softmax(scores.float(), dim=1)
+        taps.sow("token_learner.weights", w)     # attention rollout's map
         return torch.einsum("bnm,bnc->bmc", w.to(x.dtype).float(),
                             x.float()).to(x.dtype)
 

@@ -35,6 +35,7 @@ from qavit_tpu_torch.kernels.fused_params import (BlockDims, CGAParams,
 from qavit_tpu_torch.kernels.fused_ref import (bank_write_partial, dense,
                                                layer_norm, merge_heads, mm,
                                                split_heads)
+from qavit_tpu_torch.nn import taps
 from qavit_tpu_torch.nn.bank import BankState, finish_bank_update
 from qavit_tpu_torch.nn.layers import DropoutRng, dropout, param_tree
 
@@ -135,8 +136,10 @@ class SpatialWindowAttention(SWAParams):
         q, k, v = (split_heads(t, cfg.num_heads) for t in qkv.chunk(3, -1))
         k_c, v_c = linformer(p["linformer"], k, v, ws * ws, dtype)
         kb, vb = _bank_heads(state, bw, cfg.num_heads, dtype)
-        out = _attend(cfg, q, torch.cat([k_c, kb], 1),
-                      torch.cat([v_c, vb], 1), rng)
+        k_full = torch.cat([k_c, kb], 1)
+        taps.sow("swa.attn_q", q)            # attention rollout's taps
+        taps.sow("swa.attn_k", k_full)
+        out = _attend(cfg, q, k_full, torch.cat([v_c, vb], 1), rng)
         out = dropout(dense(merge_heads(out), p["proj"], dtype), cfg.dropout,
                       rng)
         out = out.reshape(b, nh, nw, ws, ws, c).permute(0, 1, 3, 2, 4, 5)

@@ -169,7 +169,14 @@ def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor, dtype) -> torch.Tensor:
 
 
 class PatchEmbed(nn.Module):
-    """Non-overlapping patches as reshape + Dense, then LayerNorm."""
+    """Non-overlapping patches as reshape + Dense, then LayerNorm.
+
+    The Grad-CAM hook sits on the pre-norm projection, where the reference
+    hooks ``model.patch_embed.proj`` (``qavit_tpu/nn/layers.py:53-86``):
+    ``perturb``, a zero tensor ``[1, N, C]`` broadcast over the batch, is
+    added there, so the gradient of a score with respect to it is the
+    hook's gradient; ``pre_norm`` returns that activation.  Without them
+    the forward is the projection and the LayerNorm alone."""
 
     def __init__(self, patch_size: int, in_channels: int, embed_dim: int):
         super().__init__()
@@ -179,12 +186,17 @@ class PatchEmbed(nn.Module):
                           init_std=math.sqrt(2.0 / embed_dim))
         self.norm = LayerNorm(embed_dim)
 
-    def forward(self, x: torch.Tensor, dtype) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype,
+                perturb: Optional[torch.Tensor] = None,
+                pre_norm: bool = False) -> torch.Tensor:
         b, h, w, cin = x.shape
         p = self.patch_size
         x = x.reshape(b, h // p, p, w // p, p, cin).permute(0, 1, 3, 2, 4, 5)
         x = x.reshape(b, (h // p) * (w // p), p * p * cin)
-        return self.norm(self.proj(x, dtype), dtype)
+        x = self.proj(x, dtype)
+        if perturb is not None:
+            x = x + perturb.to(x.dtype)
+        return x if pre_norm else self.norm(x, dtype)
 
 
 class Linformer(nn.Module):

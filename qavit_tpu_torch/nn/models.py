@@ -8,7 +8,9 @@ unstacks the scan axis.  Images are NHWC, normalised float; the forward
 returns float32 logits and the bank state after the forward (unchanged
 in eval; in training after three writes per block, for the train step to
 copy into the parameters).  Both models train: ``train=True`` with
-``rng``, the step's ``DropoutRng``.
+``rng``, the step's ``DropoutRng``.  ``patch_perturb`` ([1, N, C], zeros)
+is Grad-CAM's hook on the pre-norm patch projection (``PatchEmbed``): the
+gradient of a logit with respect to it is the hook's gradient.
 """
 
 from __future__ import annotations
@@ -62,7 +64,8 @@ class QAViT(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False, bank_count=0,
                 rng: Optional[DropoutRng] = None,
-                return_features: bool = False
+                return_features: bool = False,
+                patch_perturb: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, BankState]:
         """Logits (or, with ``return_features``, the pooled features) and
         the bank state.  ``train`` needs ``rng``, the step's dropout state
@@ -72,7 +75,8 @@ class QAViT(nn.Module):
             raise ValueError("a train forward needs rng=DropoutRng(...)")
         rng = rng if train else None
         dtype = compute_dtype(self.cfg)
-        t = self.patch_embed(x.to(dtype), dtype) + self.pos_embed.to(dtype)
+        t = self.patch_embed(x.to(dtype), dtype, patch_perturb) \
+            + self.pos_embed.to(dtype)
         t = dropout(t, self.cfg.dropout, rng)
         state = bank_init_state(self.global_bank, bank_count)
         bank_write = self.global_bank.write_params() if train else None
@@ -129,7 +133,8 @@ class HQAViT(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False, bank_count=0,
                 rng: Optional[DropoutRng] = None,
-                return_features: bool = False
+                return_features: bool = False,
+                patch_perturb: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, BankState]:
         """Logits (or, with ``return_features``, the pooled features in
         float32, as SimCLR takes them) and the bank state.  ``train``
@@ -148,7 +153,8 @@ class HQAViT(nn.Module):
             a = getattr(self, f"lmfa{i}")(f, dtype)
             laterals[i] = getattr(self, f"rrcv{i}")(a, (hw, hw), dtype, rng)
 
-        t = self.patch_embed(x, dtype) + self.pos_embed.to(dtype)
+        t = self.patch_embed(x, dtype, patch_perturb) \
+            + self.pos_embed.to(dtype)
         t = dropout(t, cfg.dropout, rng)
         state = bank_init_state(self.global_bank, bank_count)
         bank_write = self.global_bank.write_params() if train else None

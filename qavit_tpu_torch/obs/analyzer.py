@@ -1,19 +1,24 @@
 """Architecture analysis: the parameter breakdown, the analytic forward
 FLOPs and the activation-memory estimate that the trainer prints at
-start (counterpart of ``qavit_tpu/obs/analyzer.py:18-147``; the
-ArchitectureAnalyzer of QAViTv2.py:104-346).
+start, and the measured harness (counterpart of
+``qavit_tpu/obs/analyzer.py``; the ArchitectureAnalyzer of
+QAViTv2.py:104-346 and its benchmark loop, QAViTv2.py:1170-1202).
 
 Parameters are grouped under the JAX package's module paths
 (``train/optim.py`` ``jax_path``: a stack's blocks are one group, as
-JAX's scanned leaf is), so the breakdown reads as JAX's does.  The
-measured harness (``benchmark_fn``, ``batch_size_sweep``,
-``device_memory_stats``) waits for ROADMAP.md queue 1 item 11.
+JAX's scanned leaf is), so the breakdown reads as JAX's does.
+``benchmark_fn`` times a function with CUDA events on the card and the
+host clock on the CPU; ``batch_size_sweep`` goes on past a batch that
+runs out of device memory; ``device_memory_stats`` reads
+``torch.cuda.memory_stats``.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import time
+from typing import Callable, Dict, List, Optional
 
+import torch
 import torch.nn as nn
 
 from qavit_tpu_torch.configs.model import ModelConfig
@@ -151,3 +156,76 @@ def print_analysis(cfg: ModelConfig, model: nn.Module) -> None:
             + mem.get('cnn stem + lmfa + rrcv', (0, 0))[0])
     print(f"  peak (remat, + fp32 params + opt) ≈ "
           f"{live + total * 4 * 3 / 1024**2:.2f}", flush=True)
+
+
+def _first_tensor(out) -> Optional[torch.Tensor]:
+    if isinstance(out, torch.Tensor):
+        return out
+    if isinstance(out, dict):
+        out = list(out.values())
+    if isinstance(out, (tuple, list)):
+        for o in out:
+            t = _first_tensor(o)
+            if t is not None:
+                return t
+    return None
+
+
+def benchmark_fn(fn: Callable, *args, warmup: int = 3, iters: int = 20,
+                 **kw) -> Dict[str, float]:
+    """Latency and throughput of ``fn(*args, **kw)``: ``warmup`` untimed
+    calls, then ``iters`` timed back to back, by CUDA events where the
+    output lies on the card (the torch.cuda.Event timing of
+    QAViTv2.py:1170-1179), else by the host clock."""
+    out = None
+    for _ in range(warmup):
+        out = fn(*args, **kw)
+    t = _first_tensor(out)
+    if t is not None and t.device.type == "cuda":
+        torch.cuda.synchronize(t.device)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(iters):
+            fn(*args, **kw)
+        e1.record()
+        torch.cuda.synchronize(t.device)
+        dt = e0.elapsed_time(e1) / 1e3 / iters
+    else:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn(*args, **kw)
+        dt = (time.perf_counter() - t0) / iters
+    return {"latency_ms": dt * 1e3, "iters_per_sec": 1.0 / dt}
+
+
+def batch_size_sweep(make_batch: Callable[[int], tuple], fn: Callable,
+                     batch_sizes: List[int]) -> List[Dict[str, float]]:
+    """Throughput against batch size; a batch that runs out of device
+    memory gives a row with its error and the sweep goes on
+    (QAViTv2.py:1196-1202)."""
+    rows = []
+    for bs in batch_sizes:
+        try:
+            r = benchmark_fn(fn, *make_batch(bs))
+            r["batch_size"] = bs
+            r["images_per_sec"] = bs * r["iters_per_sec"]
+            rows.append(r)
+        except torch.cuda.OutOfMemoryError as e:
+            torch.cuda.empty_cache()
+            rows.append({"batch_size": bs, "error": str(e)[:200]})
+    return rows
+
+
+def device_memory_stats(device=None) -> Optional[Dict[str, int]]:
+    """The card's bytes in use, their peak and its capacity (the VRAM
+    statistics), or None without CUDA."""
+    if not torch.cuda.is_available():
+        return None
+    stats = torch.cuda.memory_stats(device)
+    return {
+        "bytes_in_use": stats.get("allocated_bytes.all.current", 0),
+        "peak_bytes_in_use": stats.get("allocated_bytes.all.peak", 0),
+        "bytes_limit": torch.cuda.get_device_properties(
+            device or torch.cuda.current_device()).total_memory,
+    }

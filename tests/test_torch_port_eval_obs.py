@@ -183,7 +183,8 @@ def test_analyzer_matches_jax(name, capsys):
 
 def test_cli_evaluate_checkpoint_tta_out_dir(tmp_path):
     """``cli.evaluate`` restores a port checkpoint, runs the five views
-    and writes the analysis files; the unported Grad-CAM raises."""
+    and writes the analysis files; ``--gradcam`` writes JAX's file names
+    for the head of the test split."""
     TP.load_or_generate_proc100_hard(str(tmp_path), n_train=8, n_test=12)
     mc = get_preset("hqavit_proc100_hard").model
     state = create_train_state(build_model(mc, "cpu", seed=4), False)
@@ -203,9 +204,18 @@ def test_cli_evaluate_checkpoint_tta_out_dir(tmp_path):
     assert len(report) == 100
     bw = json.loads((ev / "best_worst_classes.json").read_text())
     assert len(bw["best"]) == len(bw["worst"]) == 10
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        cli_evaluate.main(["--preset", "hqavit_proc100_hard", "--device",
-                           "cpu", "--gradcam"])
+    r = cli_evaluate.main(["--preset", "hqavit_proc100_hard", "--data-root",
+                           str(tmp_path), "--device", "cpu", "--batch-size",
+                           "8", "--checkpoint", str(tmp_path / "ck"),
+                           "--gradcam", "--gradcam-images", "2", "--out-dir",
+                           str(tmp_path / "ev2")])
+    labels = np.load(tmp_path / "proc100_hard.npz")["test_labels"]
+    names = sorted(p.name for p in (tmp_path / "ev2" / "gradcam").iterdir())
+    assert len(names) == 4 and len(r["gradcam"]) == 2
+    for i, (heat, over) in enumerate(r["gradcam"]):
+        assert heat.endswith("_heat.png") and over.endswith("_overlay.png")
+        assert f"gradcam_{i}_pred" in heat
+        assert heat.endswith(f"_true{int(labels[i])}_heat.png")
 
 
 @pytest.mark.slow
