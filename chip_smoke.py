@@ -105,18 +105,20 @@ it stopped:
       per SM and clusters at once (cudaOccupancy*), then the eight
       kernels' device time at B=128 and B=1024;
   (n) the n=64 train path: ``qavit_tpu_torch.cli.bench --preset
-      hqavit_proc_tin --train --batch-sizes 128`` with every launch count
-      set to 0 just before and read just after (each of the eight kernels
-      12 times per step through its n=64 entry, the bank count +36 per
-      step); a float32 step refused before any launch; the bf16 kernel
+      hqavit_proc_tin --train --batch-sizes 128`` at one block a stage
+      (``cut_depth``: 4 blocks of 12) with every launch count set to 0
+      just before and read just after (each of the eight kernels 4 times
+      per step through its n=64 entry, the bank count +12 per step); a float32 step refused before any launch; the bf16 kernel
       step against the float32 and bf16 plain steps on the card (phase
-      (g)'s rule, one block a stage) and bf16 losses over BF16_STEPS steps; the step's time at B=128
+      (g)'s rule) and bf16 losses over BF16_STEPS steps; the step's
+      time at B=128
       and at the largest of 1024, 512 and 256 that fits, with its peak
       memory; each unit through the autograd wrapper at B=128 against the
       plain version, and each n=64 train kernel's time on the device and
       per call against its plain version and bound;
-  (o) the data path: proc100_hard cut to DATA_SPLITS (10,000 + 2,000
-      images) generated into a temporary root and read back by
+  (o) the data path (phases o-q run hqavit_proc100_hard and its
+      finetune preset at one block a stage, ``cut_depth``: 4 blocks of
+      8): proc100_hard cut to DATA_SPLITS (10,000 + 3,000 images) generated into a temporary root and read back by
       ``load_dataset("proc100_hard")``, the root that phase (p) reuses
       (seconds, shapes, dtypes, label range, class counts,
       the val arrays' sha256, not gated: numpy's vectorised cos may differ
@@ -130,22 +132,22 @@ it stopped:
       split through ``IndexLoader`` + ``augment_batch`` at B=1024
       (phases p and q train at the preset's 256), with every launch
       count set to 0 just before (each unit's
-      forward and backward kernel 8 times per step through its tensor-core
-      entry, the bank count +24 per step, every loss finite; ms per step
+      forward and backward kernel 4 times per step through its tensor-core
+      entry, the bank count +12 per step, every loss finite; ms per step
       with and without augmentation, augmentation's share, img/s, peak
       memory; at B=1024 one step traced: the device's busy time and idle
       share); ``qavit_tpu_torch.cli.evaluate --preset
       hqavit_proc100_hard`` over the whole (cut) val split (seed
-      weights: ~1% top-1; each forward unit 8 launches per forward);
+      weights: ~1% top-1; each forward unit 4 launches per forward);
   (p) the train loop on phase (o)'s data: ``qavit_tpu_torch.cli.train
       --preset hqavit_proc100_hard --epochs 2 --max-steps-per-epoch 4``
       into temporary checkpoint and log directories, with every launch
       count set to 0 just before and read just after (each unit's
-      forward 8 times per step and per validation forward, live and EMA,
-      its backward 8 times per step, all through the tensor-core
+      forward 4 times per step and per validation forward, live and EMA,
+      its backward 4 times per step, all through the tensor-core
       entries), ``training_metrics.json`` with exactly the JAX keys, 2
       finite epochs, ``best_model`` and ``best_model_ema`` with their
-      ``meta.json``, the bank count 24 a step; then resume on the card:
+      ``meta.json``, the bank count 12 a step; then resume on the card:
       RESUME_STEPS steps uninterrupted twice against half of them,
       ``save_train_state``, ``restore_train_state`` into a freshly built
       state and the other half, the
@@ -153,16 +155,16 @@ it stopped:
       uninterrupted one held to RESUME_FACTOR x the two uninterrupted
       runs' distance + RESUME_SLACK; then ``cli.evaluate --checkpoint
       <best_model> --tta --batches 2`` (a finite TTA top-1; the five
-      views' forwards launch each forward unit 8 times); each step's
+      views' forwards launch each forward unit 4 times); each step's
       seconds;
   (q) the finetune stage on phase (o)'s data from phase (p)'s
       ``best_model``: ``qavit_tpu_torch.cli.train --preset
       hqavit_proc100_hard_finetune --init-from <best_model> --epochs 2
       --max-steps-per-epoch 4 --grad-accum 2 --debug-grads`` with every
       launch count set to 0 just before and read just after (each unit's
-      forward and backward 8 x 2 times per step, the forward 8 times per
+      forward and backward 4 x 2 times per step, the forward 4 times per
       validation forward, all through the tensor-core entries; the bank
-      count 24 x 2 a step), its printed LR-group table and top grad
+      count 12 x 2 a step), its printed LR-group table and top grad
       layers, its logged ``lr`` equal to ``make_schedule``'s warm-restart
       value at each epoch's step; then three bf16 steps of
       hqavit_proc100_hard at B=256 from the same weights and batches with
@@ -223,7 +225,24 @@ it stopped:
       class equal and the CAM within GRADCAM_FACTOR x the plain path's own
       bf16-vs-float32 CAM distance, ms per image; the rollout of one image
       of hqavit_c100 and of qavit_224_v1_proc; ``cli.verify_gpu
-      --batch-sizes 64,256`` printing ``VERDICT: PASS``.
+      --batch-sizes 64,256`` printing ``VERDICT: PASS``;
+  (u) qavit_v2_extreme_tin under ``fused_block`` (C=192, 256 tokens in 16
+      SWA windows of 16, 128 pooled MSDA rows, bf16, B=256): each unit
+      through the autograd wrapper at n=256 (outputs, bank partials and
+      gradients against the plain version) and its train-mode forward,
+      eval forward and backward timed against the plain version and the
+      bound (rows ``*256_train``, ``*256_bwd``, each call's device time
+      over all the kernels it launches, its TOP_KERNELS longest kernels
+      listed); the kernel step against the
+      plain step at CHECK_DEPTH (phase (g)'s rule), with every launch
+      count set to 0 just before and read just after (each unit's
+      forward and backward once a block a step through its n=256 entry);
+      then ``qavit_tpu_torch.cli.train --preset qavit_v2_extreme_tin
+      --attn-impl fused_block --epochs 2 --max-steps-per-epoch 4`` on a
+      proc_tin cut to TIN256_SPLITS, the counts reset just before (8
+      forwards and backwards of each unit a step, 8 eval forwards a
+      validation forward, through the n=256 entries), a finite two-epoch
+      history.
 
 Prints the kernels' JSON record and the card's name and power limit
 before the last line, and ends with
@@ -337,6 +356,10 @@ FLAT64_BATCH = 256                  # phase (r): route A's batch (the preset's)
 FLAT64_SPLITS = (2048, 1024)        # phase (r): proc100 cut for cli.train
 FLAT64_STEPS = 4                    # phase (r): cli.train's steps per epoch
 FLAT224_BATCH = 256                 # phase (r), route B: the preset's batch
+TIN256_PRESET = "qavit_v2_extreme_tin"       # phase (u)
+TIN256_BATCH = 256                  # phase (u): the preset's batch
+TIN256_SPLITS = (1024, 512)         # phase (u): proc_tin cut for cli.train
+TIN256_STEPS = 4                    # phase (u): cli.train's steps an epoch
 STL_PRESET = "hqavit_tiny_proc_stl"          # phase (s)
 STL_BATCH = 128                     # phase (s): the preset's batch
 SIMCLR_BATCH = 64                   # phase (s): images a view (128 a step)
@@ -373,6 +396,8 @@ STL_RESIZE_TOLERANCE = 1e-5
 FLAT_FLOOR = 1e-2
 FLAT_STEP1 = 1e-5
 FLAT_FACTOR = 4.0
+TOP_KERNELS = 8                     # phase (u): kernels listed a call
+PROFILE_TRIES = 3                   # device_ms: profiled runs at most
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"torch.float32": 67e12, "torch.bfloat16": 989e12}
 REPLACES = {
@@ -844,6 +869,22 @@ def collect_grads(K, cfg, build, loss_and_grad, f32_kernels=True):
     return grads
 
 
+@contextlib.contextmanager
+def cut_depth(*names):
+    """The HQAViT presets ``names`` at one block a stage (``check_depth``)
+    while the context lasts: phases (n)-(q), whose kernels see the same
+    shapes at any depth, run so to keep the smoke under 5 minutes."""
+    from qavit_tpu_torch.configs import presets as P
+
+    cut = {}
+    for name in names:
+        pr = P.PRESETS[name]()
+        cut[name] = (lambda pr=pr: P.Preset(check_depth(pr.model), pr.train,
+                                            pr.dataset))
+    with mock.patch.dict(P.PRESETS, cut):
+        yield
+
+
 def kernel_vs_plain_step(K, cfg, dev, preset="hqavit_c100", batch=BATCH):
     """The kernel train step against the plain step on the same weights,
     batch and seeds, at ``check_depth(cfg)``: the gradients of one step in
@@ -948,14 +989,15 @@ def kernel_row(name, source, replaces, launches, err, ms, plain_ms, work,
 
 
 def train_unit_checks_and_timing(K, cfg, g, p, dev, launches, bsz=BATCH,
-                                 suffix=""):
+                                 suffix="", by_kernel=False):
     """Phases (h), (n): at batch ``bsz`` in bf16 with masks on, each unit
     through the autograd wrapper the train path calls (``_FusedUnit``):
     its outputs and bank partials against the plain version, its gradients
     (the backward kernel, launched by autograd) against autograd through
     the plain version.  Then each train-mode forward kernel and each
     backward kernel (with its reduction pass) timed against its plain
-    version (record names + ``suffix``)."""
+    version (record names + ``suffix``); with ``by_kernel``, each call's
+    longest kernels printed (``device_ms``)."""
     import torch
 
     from qavit_tpu_torch.kernels import build
@@ -1024,22 +1066,23 @@ def train_unit_checks_and_timing(K, cfg, g, p, dev, launches, bsz=BATCH,
                                 grid, ws, *cots)
 
         kern = csrc_kernel(K, unit, g, dtype, train=True)
-        src = (f"qavit_tpu_torch/csrc/{unit}"
-               f"{'_train64' if kern.endswith('_train64_kernel') else ''}.cu")
+        src = unit_source(unit, g, kern=kern or "")
         fwd_rows.append(kernel_row(
             f"{record_name(K, unit, g, dtype)}_train{suffix}", src,
             REPLACES[unit], launches[unit], out_abs,
             cuda_ms(fwd, iters=10), cuda_ms(plain_fwd, iters=10),
             unit_train_work(unit, g, bsz, 2, p), dtype,
-            device_ms(fwd, 10, kern)))
+            device_ms(fwd, 10, kern, by_kernel and f"{unit} train n={g.n} "
+                      f"B={bsz}")))
         name = f"{unit}_bwd"
         bwd_rows.append(kernel_row(
             record_name(K, unit, g, dtype, True) + suffix,
-            f"qavit_tpu_torch/csrc/{name}.cu", REPLACES[name],
+            unit_source(unit, g, True), REPLACES[name],
             launches[name], grad_abs, cuda_ms(bwd, iters=10),
             cuda_ms(plain_bwd, iters=10),
             unit_bwd_work(unit, g, bsz, 2, p), dtype,
-            device_ms(bwd, 10, csrc_kernel(K, unit, g, dtype, True))))
+            device_ms(bwd, 10, csrc_kernel(K, unit, g, dtype, True),
+                      by_kernel and f"{name} n={g.n} B={bsz}")))
         del ref, leaves
     fwd_ms = sum(r["ms"] for r in fwd_rows)
     bwd_ms = sum(r["ms"] for r in bwd_rows)
@@ -1055,7 +1098,10 @@ def train_unit_checks_and_timing(K, cfg, g, p, dev, launches, bsz=BATCH,
 def csrc_kernel(K, unit, g, dtype, backward=False, train=False):
     """The csrc kernel a launch of ``unit`` (its backward; in train mode)
     runs at geometry ``g``: the tensor-core one where the route takes
-    it."""
+    it; None at n=256, where a launch is a sequence of kernels (its device
+    time is theirs, device_ms without a name)."""
+    if g.n == 256:
+        return None
     if backward:
         entry = K.bwd_entry(unit, g, dtype)
         if entry in ("unit_msda_bwd_mma64", "unit_cga_bwd_mma64",
@@ -1078,8 +1124,20 @@ def csrc_kernel(K, unit, g, dtype, backward=False, train=False):
 def record_name(K, unit, g, dtype, backward=False):
     """A row's name in the kernels record: the tensor-core kernel's where
     the launch takes it, else the unit's (``unit_*_bwd``)."""
+    if g.n == 256:        # the n=256 entries' sources: unit_*256.cu
+        return f"{unit[5:]}256" + ("_bwd" if backward else "")
     kern = csrc_kernel(K, unit, g, dtype, backward)
     return kern if "_mma" in kern else unit + ("_bwd" if backward else "")
+
+
+def unit_source(unit, g, backward=False, kern=""):
+    """The csrc file a launch of ``unit`` (its backward) runs at ``g``."""
+    if g.n == 256 and not (backward and unit == "unit_swa"):
+        return f"qavit_tpu_torch/csrc/{unit}256.cu"
+    if backward:
+        return f"qavit_tpu_torch/csrc/{unit}_bwd.cu"
+    return (f"qavit_tpu_torch/csrc/{unit}"
+            f"{'_train64' if kern.endswith('_train64_kernel') else ''}.cu")
 
 
 def mma16_checks(K, g, p, bank, dev, gen, batch):
@@ -1301,11 +1359,15 @@ def device_kernels(prof):
     return sorted(rows, key=lambda r: -r[1])
 
 
-def device_ms(fn, iters: int = 20, kernel=None):
+def device_ms(fn, iters: int = 20, kernel=None, label=None):
     """Device time per call of the kernels ``fn`` launches, from
     ``torch.profiler`` after a warm-up (None where the profiler saw no
     device time); with ``kernel``, of the csrc kernel of that name alone
-    (not the wrapper's casts, memsets or reduction pass).  CUDA events
+    (not the wrapper's casts, memsets or reduction pass), profiled again
+    up to PROFILE_TRIES times while it sees none (a run on an H100 once
+    lost a B=1 call's kernel records).  With ``label``,
+    the TOP_KERNELS longest kernels of a call are printed under it, each
+    with its device ms a call.  CUDA events
     around back-to-back calls measure the host instead when a call's host
     work outlasts its kernel, as the flash wrapper's does at some 0.05
     ms."""
@@ -1316,14 +1378,23 @@ def device_ms(fn, iters: int = 20, kernel=None):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
     pick = re.compile(rf"qv::{kernel}[<(]") if kernel else None
-    total = sum(ms for name, ms, _ in device_kernels(prof)
-                if pick is None or pick.search(name))
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = device_kernels(prof)
+        total = sum(ms for name, ms, _ in rows
+                    if pick is None or pick.search(name))
+        if total > 0:
+            break
+    if label:
+        print(f"device time of {label}: {total / iters:.4f} ms a call, "
+              f"longest kernels:", flush=True)
+        for name, ms, _ in rows[:TOP_KERNELS]:
+            print(f"    {ms / iters:8.4f} ms  {name[:100]}", flush=True)
     return total / iters if total > 0 else None
 
 
@@ -3113,6 +3184,130 @@ def interpret_path(K, dev, g, p, bank, g64, p64, bank64):
     return [row for _, row in rows16 + rows64]
 
 
+def n256_path(K, dev, root):
+    """Phase (u): qavit_v2_extreme_tin under ``fused_block`` on the n=256
+    kernels.  Step 1, at B=TIN256_BATCH in bf16 with masks on: each unit
+    through the autograd wrapper against the plain version, its
+    train-mode forward and backward timed against the plain version and
+    the bound (train_unit_checks_and_timing), and its eval forward's
+    times.  Step 2, with the counts reset just before: the kernel step
+    against the plain step at CHECK_DEPTH blocks, each unit's forward and
+    backward once a block a step through its n=256 entry.  Step 3, the
+    counts reset just before: ``cli.train --attn-impl fused_block
+    --epochs 2`` on a proc_tin cut (8 forwards and backwards of each
+    unit a step, 8 eval forwards a validation forward, all through the
+    n=256 entries), a finite two-epoch history.  Returns the kernel rows,
+    whose launches are step 3's."""
+    from pathlib import Path
+
+    import torch
+
+    from qavit_tpu_torch.cli import train as cli_train
+    from qavit_tpu_torch.configs import get_preset
+    from qavit_tpu_torch.data.procgen import load_or_generate_proc_tin
+    from qavit_tpu_torch.kernels.fused_ref import make_geom
+    from qavit_tpu_torch.nn.layers import param_tree
+
+    t_phase = time.perf_counter()
+    preset = get_preset(TIN256_PRESET)
+    cfg = preset.model.replace(attn_impl="fused_block")
+    g = make_geom(cfg)
+    dtype = torch.bfloat16
+    train256 = {f"{u}_mma_train256" for u in MMA_BWD}
+    eval256 = {f"{u}_mma256" for u in MMA_BWD}
+    bwd256 = {f"{u}_bwd_mma256" for u in MMA_BWD}
+
+    say("phase (u) step 1: the n=256 units against their plain versions")
+    gen = torch.Generator().manual_seed(25)
+    p = param_tree(perturbed_block(cfg, g, gen).to(dev))
+    rows = train_unit_checks_and_timing(K, cfg, g, p, dev,
+                                        {n: 0 for n in K.LAUNCHES},
+                                        TIN256_BATCH, by_kernel=True)
+    bank = tuple((torch.randn(1, g.bank_s, g.c, generator=gen) * 0.5).to(
+        dev) for _ in range(2))
+    x = torch.randn(TIN256_BATCH, g.n, g.c, generator=gen).to(dev, dtype)
+    with torch.inference_mode():
+        for name, (kern, plain) in unit_calls(K, p, g, dtype, x,
+                                              bank).items():
+            err, rel, bound, ok = worst_error(K, kern(), plain())
+            ms = cuda_ms(kern, iters=10)
+            dms = device_ms(kern, 10, label=f"{name} eval n={g.n} "
+                            f"B={TIN256_BATCH}")
+            print(f"check {name} eval n=256 B={TIN256_BATCH}: max_abs_err "
+                  f"{err:.3e} (relative {rel:.2e}, tolerance "
+                  f"{K.TOLERANCE[dtype]:.2e})  {'ok' if ok else 'FAIL'}; "
+                  f"time {ms:.4f} ms, device {dms:.4f} ms, plain "
+                  f"{cuda_ms(plain, iters=5):.4f} ms", flush=True)
+            if not ok:
+                raise AssertionError(f"{name} eval disagrees at n=256")
+            for r in rows:
+                if r["name"] == f"{name[5:]}256_train":
+                    r["eval_ms"], r["eval_device_ms"] = ms, dms
+    del x
+    torch.cuda.empty_cache()
+
+    say("phase (u) step 2: kernel step vs plain step at n=256")
+    reset_launches()
+    kernel_vs_plain_step(K, cfg, dev, TIN256_PRESET, TIN256_BATCH)
+    launches, routes = launch_counts(), dict(K.ROUTES)
+    per = check_depth(cfg).depth * (1 + BF16_STEPS)
+    print(f"n=256 kernel steps ({TIN256_PRESET}, fused_block, "
+          f"{check_depth(cfg).depth} blocks, B={TIN256_BATCH}): launches "
+          f"{launches}; per C entry {routes}", flush=True)
+    want = {n: 0 if n == "flash_attention" else per for n in launches}
+    want_routes = {n: per if n in train256 | bwd256 else 0 for n in routes}
+    if launches != want or routes != want_routes:
+        raise AssertionError(f"n=256 launches {launches}, routes {routes}, "
+                             f"expected {want}, {want_routes}")
+    torch.cuda.empty_cache()
+
+    say("phase (u) step 3: cli.train --preset qavit_v2_extreme_tin "
+        "--attn-impl fused_block")
+    t = time.perf_counter()
+    load_or_generate_proc_tin(root, *TIN256_SPLITS)
+    gen_s = time.perf_counter() - t
+    with tempfile.TemporaryDirectory(prefix="qv_tin_") as out:
+        args = ["--preset", TIN256_PRESET, "--attn-impl", "fused_block",
+                "--data-root", root, "--batch-size", str(TIN256_BATCH),
+                "--max-steps-per-epoch", str(TIN256_STEPS), "--epochs", "2",
+                "--checkpoint-dir", str(Path(out) / "ck"),
+                "--log-dir", str(Path(out) / "lg")]
+        reset_launches()
+        t = time.perf_counter()
+        cli_train.main(args)
+        train_s = time.perf_counter() - t
+        launches, routes = launch_counts(), dict(K.ROUTES)
+        h = json.loads((Path(out) / "lg" / "training_metrics.json")
+                       .read_text())["history"]
+    steps = 2 * TIN256_STEPS
+    val = 2 * math.ceil(TIN256_SPLITS[1] / (2 * TIN256_BATCH))
+    fwd = cfg.depth * steps
+    print(f"n=256 cli.train: 2 epochs x {TIN256_STEPS} steps in "
+          f"{train_s:.1f} s (host clock; proc_tin {TIN256_SPLITS} "
+          f"generated in {gen_s:.1f} s); history {h}; launches {launches}; "
+          f"per C entry {routes}; card {card_line()}", flush=True)
+    want = {n: (fwd + cfg.depth * val if n in K.UNITS else fwd
+                if n.endswith("_bwd") else 0) for n in launches}
+    want_routes = {n: fwd if n in train256 | bwd256 else cfg.depth * val
+                   if n in eval256 else 0 for n in routes}
+    ok = {"epochs": h["epoch"] == [1, 2],
+          "finite": all(math.isfinite(v) for k in h for v in h[k]),
+          "launches": launches == want, "routes": routes == want_routes}
+    print(f"n=256 cli.train checks {ok}", flush=True)
+    if not all(ok.values()):
+        raise AssertionError(f"n=256 cli.train: {ok}, launches {launches} "
+                             f"(expected {want}), routes {routes} "
+                             f"(expected {want_routes})")
+    for r in rows:
+        unit = "unit_" + r["name"].split("256")[0]
+        r["launches"] = launches[unit + ("_bwd" if r["name"].endswith(
+            "_bwd") else "")]
+    torch.cuda.empty_cache()
+    print(f"phase (u): cli.train {train_s:.1f} s; in all "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -3333,22 +3528,24 @@ def main() -> int:
     say("phase (m) n=64 training kernels: done")
 
     say("phase (n) n=64 train path: start")
-    record += n64_train_path(K, dev, g64, p64, fwd_times)
+    with cut_depth(TIN_PRESET):
+        record += n64_train_path(K, dev, g64, p64, fwd_times)
     say("phase (n) n=64 train path: done")
 
     # phase (o) generates proc100_hard once; phases (p) and (q) train on it
     with tempfile.TemporaryDirectory(prefix="qv_data_") as root:
-        say("phase (o) data path: start")
-        data_path(K, dev, root)
-        say("phase (o) data path: done")
+        with cut_depth(DATA_PRESET, FT_PRESET):
+            say("phase (o) data path: start")
+            data_path(K, dev, root)
+            say("phase (o) data path: done")
 
-        say("phase (p) train loop: start")
-        best = train_loop_path(K, dev, root)
-        say("phase (p) train loop: done")
+            say("phase (p) train loop: start")
+            best = train_loop_path(K, dev, root)
+            say("phase (p) train loop: done")
 
-        say("phase (q) finetune stage: start")
-        finetune_path(K, dev, root, best)
-        say("phase (q) finetune stage: done")
+            say("phase (q) finetune stage: start")
+            finetune_path(K, dev, root, best)
+            say("phase (q) finetune stage: done")
 
         say("phase (r) flat QAViT train step: start")
         flat_train_path(K, dev, root)
@@ -3361,6 +3558,11 @@ def main() -> int:
     say("phase (t) Grad-CAM and rollout: start")
     record += interpret_path(K, dev, g, p, bank, g64, p64, bank64)
     say("phase (t) Grad-CAM and rollout: done")
+
+    say("phase (u) n=256 units and train path: start")
+    with tempfile.TemporaryDirectory(prefix="qv_tin256_") as root:
+        record += n256_path(K, dev, root)
+    say("phase (u) n=256 units and train path: done")
 
     print(card_line(), flush=True)
     print(json.dumps({"kernels": record}), flush=True)

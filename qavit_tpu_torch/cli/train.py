@@ -20,7 +20,7 @@ kernels on the card).  The step's metrics stay on the device until a
 evaluates the live and the EMA weights on the val split, logs the
 learning rate and the EMA's distance, prints the reference's epoch
 summary and a ``[phases]`` line (train, eval and checkpoint seconds, the
-bytes saved), writes ``training_metrics.json`` and saves ``best_model``,
+bytes saved, on the card the peak device memory so far), writes ``training_metrics.json`` and saves ``best_model``,
 ``best_model_ema`` and every ``save_freq`` epochs
 ``checkpoint_epoch_{n}`` (``ckpt/checkpoint.py``).
 
@@ -44,7 +44,10 @@ and prints the top layers at each ``print_freq`` boundary.
 The flat QAViT trains too: the 224 presets on the branch path (their
 proc224 split, ~1.8 GB as uint8, stays on the device), and the 32 px
 presets under ``--attn-impl fused_block`` through the n=64 units
-(``--preset qavit_v2_extreme_proc100 --attn-impl fused_block``).
+(``--preset qavit_v2_extreme_proc100 --attn-impl fused_block``) and the
+64 px one through the n=256 units (``--preset qavit_v2_extreme_tin
+--attn-impl fused_block``: 256 tokens in 16 SWA windows, 128 pooled MSDA
+rows; bf16 on the card).
 ``--no-cache`` is accepted and does nothing (JAX's compilation cache),
 so JAX's command lines run unchanged.  Flags whose path is not ported
 raise before the first step, each naming its ROADMAP.md item.  Runs on
@@ -206,10 +209,12 @@ def main(argv: Optional[List[str]] = None) -> float:
     # data ---------------------------------------------------------------
     pipe = get_pipeline(preset.dataset)
     base = pipe.base_dataset
+    t_data = time.time()
     if args.synthetic:
         ds = synthetic_dataset(base, *SIZES[base])
     else:
         ds = load_dataset(base, tc.data_root)
+    t_data = time.time() - t_data
     if ds.synthetic:
         print("WARNING: dataset files not found -> synthetic data")
     if args.labels_per_class:
@@ -221,7 +226,8 @@ def main(argv: Optional[List[str]] = None) -> float:
         _not_ported(f"a dataset of {nbytes / 2 ** 30:.2f} GiB (over 2 GiB: "
                     f"JAX's host-side loader path)", "queue 1 item 3")
     print(f"data placement: device-resident ({nbytes / 1e6:.0f} MB on "
-          f"{device})", flush=True)
+          f"{device}; read, or generated where missing, in {t_data:.1f} s)",
+          flush=True)
     train_x = torch.from_numpy(ds.train_images).to(device)
     train_y = torch.from_numpy(ds.train_labels).long().to(device)
     test_x = torch.from_numpy(ds.test_images).to(device)
@@ -363,9 +369,12 @@ def main(argv: Optional[List[str]] = None) -> float:
             t0 = time.time()
             saved = ckpts.maybe_save(state, epoch, metrics["val_acc"],
                                      ema_val_acc)
+            peak = ("" if device.type != "cuda" else f" | peak "
+                    f"{torch.cuda.max_memory_allocated(device) / 2 ** 30:.2f}"
+                    " GiB")
             print(f"  [phases] train {t_train:.1f}s | eval {t_eval:.1f}s "
                   f"| ckpt {time.time() - t0:.1f}s "
-                  f"({ckpts.bytes_written / 1e6:.1f} MB)")
+                  f"({ckpts.bytes_written / 1e6:.1f} MB){peak}")
             if saved["best"]:
                 print(f"Best model saved! Val Acc: {ckpts.best_acc:.2f}")
             if saved["best_ema"]:

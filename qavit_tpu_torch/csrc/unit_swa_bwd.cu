@@ -761,6 +761,39 @@ extern "C" int qv_unit_swa_bwd_mma64(const qv::SwaBwdArgs* a, const void* w,
   return qv_reduce(a->c.gws, a->c.grad, d.grid, a->c.wstride, d.rgrid, stream);
 }
 
+// bf16 at n = 256 in 16 4x4 windows on a 16 x 16 grid
+// (swa_bwd_mma_kernel<16>, qavit_v2_extreme_tin): as qv_unit_swa_bwd_mma64,
+// the clusters walking the B x 16 windows
+extern "C" int qv_unit_swa_bwd_mma256(const qv::SwaBwdArgs* a, const void* w,
+                                      void* /*scratch: in a->c*/,
+                                      int is_bf16, void* stream) {
+  const qv::Dims& d = a->f.d;
+  if (!is_bf16 || d.n != 16 * qv::NT || d.nw != 16 || d.side != 16 ||
+      d.c != qv::SB_C || d.heads != qv::SB_H || d.lin_k != qv::SB_LK ||
+      d.bank_s > qv::SB_S || d.grid > 16 * d.B || a->c.wstride % 2 != 0)
+    return qv::ERR_ARGS;
+  const qv::SwaBwdMmaArgs m{*a, static_cast<const qv::bf16*>(w)};
+  const int rc = qv_launch_cluster(qv::swa_bwd_mma_kernel<16>, m,
+                                   qv::SB_SMEM_BYTES, stream, d.grid, 2);
+  if (rc != 0) return rc;
+  return qv_reduce(a->c.gws, a->c.grad, d.grid, a->c.wstride, d.rgrid, stream);
+}
+
+extern "C" int qv_unit_swa_bwd_mma256_smem(const qv::Dims*) {
+  return qv::SB_SMEM_BYTES;
+}
+
+extern "C" int qv_unit_swa_bwd_mma256_scratch(const qv::Dims* d) {
+  return qv::swa_bwd_mma_scratch_floats(*d);
+}
+
+// CTAs of swa_bwd_mma_kernel<16> resident per SM and its two-CTA clusters
+// resident at once on the card (0 on the host)
+extern "C" int qv_unit_swa_bwd_mma256_occupancy(int* per_sm, int* clusters) {
+  return qv_cluster_occupancy(qv::swa_bwd_mma_kernel<16>, qv::SB_SMEM_BYTES,
+                              2, per_sm, clusters);
+}
+
 extern "C" int qv_unit_swa_bwd_mma_smem(const qv::Dims*) {
   return qv::SB_SMEM_BYTES;
 }

@@ -39,10 +39,20 @@
 // the window-major rows of a tile hold in another order that its sums
 // do not see) are kept per thread over the block's tiles, and the
 // block's slice is stored once at the end, for the reduction pass to
-// sum.  Both train at n = 16 only (swa_mma_kernel<4, true>,
+// sum.  Both train at n = 16 (swa_mma_kernel<4, true>,
 // msda_mma16_kernel<true>): at n = 64 training is swa_train64_kernel and
 // msda_train64_kernel's, on two-CTA clusters (unit_swa_train64.cu,
-// unit_msda_train64.cu), and <1, true> is not instantiated.
+// unit_msda_train64.cu), and <1, true> at SIDE 8 is not instantiated.
+//
+// SIDE 16 (NS = 1; SWA at n = 256, qavit_v2_extreme_tin, unit_swa256.cu):
+// a tile is a quarter of a sample, four grid rows, whose 16 tokens a
+// window are its four 4x4 windows 4 (tl % 4) .. 4 (tl % 4) + 3, so the
+// window of warp row `win` is still 4 tl + win of the [B nw] windows and
+// row r of a tile still row 64 tl + r of their [B nw 16] rows: the masks
+// and the per-window work are the n = 64 instance's.  In training the
+// gate's softmax spans the sample's four tiles, so the bank-write partials
+// are not formed here but by a pass over the output (bank256_kernel in
+// n256_ops.cuh).
 #pragma once
 #include "mma_ops.cuh"
 
@@ -97,13 +107,19 @@ enum WindowUnit { WIN_SWA, WIN_MSDA };
 // It declares the dynamic shared memory itself: reached through a pointer
 // argument, its buffers took generic addresses (191 registers for the
 // n = 64 instance against 177).
-template <int UNIT, int NS, bool TRAIN, typename M>
+template <int UNIT, int NS, bool TRAIN, typename M, int SIDE = SM_SIDE>
 __device__ __forceinline__ void window_mma(const M& m) {
   constexpr bool MSDA = UNIT == WIN_MSDA;
   constexpr int SN = SM_N / NS;            // rows of a sample
   static_assert(NS == 1 || NS == 4, "one sample of 64 or four of 16");
   static_assert(!MSDA || NS == 4, "MSDA at n = 64 is msda_mma_kernel");
-  static_assert(NS == 4 || !TRAIN, "n = 64 trains in swa_train64_kernel");
+  static_assert(NS == 4 || !TRAIN || SIDE == 16,
+                "n = 64 trains in swa_train64_kernel");
+  static_assert(SIDE == SM_SIDE || (SIDE == 16 && NS == 1 && !MSDA),
+                "SWA at n = 256 over quarter-sample tiles");
+  constexpr int TPS = SIDE * SIDE / SM_N;   // tiles a sample
+  // the bank-write partials: formed here at n = 16 only
+  constexpr bool PARTS = TRAIN && NS == 4;
   constexpr int ATTN_KEY = MSDA ? MSDA_ATTN : SWA_ATTN;
   constexpr int PROJ_KEY = MSDA ? MSDA_PROJ : SWA_PROJ;
   QV_SMEM_DECL
@@ -177,39 +193,46 @@ __device__ __forceinline__ void window_mma(const M& m) {
     }
   }
 
-  const int tiles = NS == 1 ? d.B : (d.B * SN + SM_N - 1) / SM_N;
+  const int tiles = NS == 1 ? d.B * TPS : (d.B * SN + SM_N - 1) / SM_N;
   // the rows of tile tl that hold samples
   auto valid_rows = [&](int tl) {
     if constexpr (NS == 1) return SM_N;
     const int v = d.B * SN - tl * SM_N;
     return v < SM_N ? v : SM_N;
   };
-  // the tile's token of row r
-  auto token = [&](int r) {
+  // the token of tile tl's row r in its sample (its window 4 (tl % TPS)
+  // + r / 16 of the sample's), and the sample's first row of tile tl
+  auto token = [&](int tl, int r) {
     if constexpr (NS == 1) {
       const int i = r & (NT - 1);
-      return window_base(d, r / NT) + (i / WS) * SM_SIDE + i % WS;
+      return window_base(d, (tl % TPS) * SM_NW + r / NT) + (i / WS) * SIDE +
+             i % WS;
     }
     return r;
   };
-  // a tile's rows from shared memory to its tokens, 16 bytes a copy
-  auto store_rows = [&](bf16* dst, const bf16* src, int valid) {
+  auto sample_row = [&](int tl) {
+    return NS == 1 ? (size_t)(tl / TPS) * TPS * SM_N : (size_t)tl * SM_N;
+  };
+  // tile tl's rows from shared memory to its tokens, 16 bytes a copy (dst:
+  // the whole batch's rows)
+  auto store_rows = [&](bf16* dst, const bf16* src, int tl, int valid) {
+    dst += sample_row(tl) * C;
     for (int i = threadIdx.x; i < SM_N * (C / 8); i += blockDim.x) {
       const int r = i / (C / 8), c = (i - r * (C / 8)) * 8;
       if (NS == 1 || r < valid)
-        *reinterpret_cast<uint4*>(dst + token(r) * C + c) =
+        *reinterpret_cast<uint4*>(dst + token(tl, r) * C + c) =
             *reinterpret_cast<const uint4*>(src + r * SM_LDX + c);
     }
   };
   // tile tl's input rows into xs (zeros past its samples')
   auto stage_x = [&](int tl) {
     const bf16* src =
-        static_cast<const bf16*>(input()) + (size_t)tl * SM_N * C;
+        static_cast<const bf16*>(input()) + sample_row(tl) * C;
     const int valid = valid_rows(tl);
     for (int i = threadIdx.x; i < SM_N * (C / 8); i += blockDim.x) {
       const int r = i / (C / 8), c = (i - r * (C / 8)) * 8;
       if (NS == 1 || r < valid)
-        cp_async_16(xs + r * SM_LDX + c, src + token(r) * C + c);
+        cp_async_16(xs + r * SM_LDX + c, src + token(tl, r) * C + c);
       else
         *reinterpret_cast<uint4*>(xs + r * SM_LDX + c) =
             uint4{0u, 0u, 0u, 0u};
@@ -256,8 +279,7 @@ __device__ __forceinline__ void window_mma(const M& m) {
       // xn = norm1(x) in place, then to device memory in token order
       ln_rows<SM_N, SM_C>(xs, xs, SM_LDX, a.norm1_s, a.norm1_b);
       __syncthreads();
-      store_rows(static_cast<bf16*>(a.xn) + (size_t)tl * SM_N * C, xs,
-                 valid);
+      store_rows(static_cast<bf16*>(a.xn), xs, tl, valid);
     }
     {  // kv = kv_in @ W_kv + b: warp w, columns 48w.. of 384, all 64 rows;
        // W_kv streams through kcvc's space
@@ -384,12 +406,11 @@ __device__ __forceinline__ void window_mma(const M& m) {
       }
     }
     __syncthreads();
-    store_rows(static_cast<bf16*>(a.out) + (size_t)tl * SM_N * C, att,
-               valid);
-    if constexpr (TRAIN)
+    store_rows(static_cast<bf16*>(a.out), att, tl, valid);
+    if constexpr (PARTS)
       bank_tile_partials<SN>(att, SM_LDX, valid, a.bw, S, scratch, sums);
   }
-  if constexpr (TRAIN)
+  if constexpr (PARTS)
     bank_store_partials(sums, a.bw, S, scratch,
                         a.bw.part + (size_t)blockIdx.x * 2 * S * C);
   if (d.guard)
@@ -400,8 +421,9 @@ __device__ __forceinline__ void window_mma(const M& m) {
       // summing the whole batch's
       bf16* out = static_cast<bf16*>(a.out);
       if constexpr (TRAIN) {
-        for (int i = threadIdx.x; i < d.grid * 2 * S * C; i += blockDim.x)
-          a.bw.part[i] = 0.f;
+        if constexpr (PARTS)
+          for (int i = threadIdx.x; i < d.grid * 2 * S * C; i += blockDim.x)
+            a.bw.part[i] = 0.f;
         bank_sums_zero(sums);
         for (int tl = 0; tl < tiles; ++tl) {
           const int valid = valid_rows(tl);
@@ -414,14 +436,18 @@ __device__ __forceinline__ void window_mma(const M& m) {
                                               a.proj_b[col + 1])));
           }
           __syncthreads();
-          store_rows(out + (size_t)tl * SM_N * C, att, valid);
-          bank_tile_partials<SN>(att, SM_LDX, valid, a.bw, S, scratch,
-                                 sums);
+          store_rows(out, att, tl, valid);
+          if constexpr (PARTS)
+            bank_tile_partials<SN>(att, SM_LDX, valid, a.bw, S, scratch,
+                                   sums);
+          else
+            __syncthreads();
         }
-        bank_store_partials(sums, a.bw, S, scratch,
-                            a.bw.part + (size_t)blockIdx.x * 2 * S * C);
+        if constexpr (PARTS)
+          bank_store_partials(sums, a.bw, S, scratch,
+                              a.bw.part + (size_t)blockIdx.x * 2 * S * C);
       } else {
-        for (size_t i = threadIdx.x; i < (size_t)d.B * SN * C / 2;
+        for (size_t i = threadIdx.x; i < (size_t)d.B * d.n * C / 2;
              i += blockDim.x) {
           const int col = (int)(2 * i % C);
           store_bf16x2(out + 2 * i,

@@ -51,7 +51,13 @@ and in training (``swa_mma_kernel``, ``msda_mma16_kernel``,
 :func:`msda_bwd_mma_error`, :func:`cga_bwd_mma_error`,
 :func:`cross_tail_bwd_mma_error`); float32, and bf16 at other n=16
 widths, take the CUDA-core kernels (the route is picked by dtype and
-widths before the launch, :func:`bwd_entry`).
+widths before the launch, :func:`bwd_entry`).  At n=256 in sixteen
+windows (qavit_v2_extreme_tin) every unit runs in bf16 only, through its
+own C entries ``qv_unit_*_mma256`` (eval), ``*_mma_train256`` and
+``*_bwd_mma256``, each with a scratch buffer (:func:`_scratch256`): SWA
+on the n=64 tensor-core bodies with a 16x16 grid (``csrc/unit_swa256.cu``,
+backward ``swa_bwd_mma_kernel<16>``), the others as sequences of the
+hand-written kernels of ``csrc/n256_ops.cuh`` (``csrc/unit_*256.cu``).
 ``ROUTES`` counts the launches of each C entry.
 """
 
@@ -82,8 +88,13 @@ _MMA_FWD = tuple(f"{u}_mma" for u in UNITS) + tuple(
     f"{u}_mma_train64" for u in UNITS)
 _MMA_BWD = tuple(f"{u}_bwd_mma" for u in UNITS) + tuple(
     f"{u}_bwd_mma64" for u in UNITS)
+# n=256 (qavit_v2_extreme_tin): eval _mma256, training _mma_train256, the
+# backward _bwd_mma256; each takes a scratch buffer beside its weights
+_MMA_FWD256 = tuple(f"{u}_mma256" for u in UNITS) + tuple(
+    f"{u}_mma_train256" for u in UNITS)
+_MMA_BWD256 = tuple(f"{u}_bwd_mma256" for u in UNITS)
 ROUTES = {n: 0 for n in UNITS + tuple(f"{u}_bwd" for u in UNITS)
-          + _MMA_FWD + _MMA_BWD}
+          + _MMA_FWD + _MMA_BWD + _MMA_FWD256 + _MMA_BWD256}
 
 
 # stated tolerance of a kernel against its plain version, as a fraction of
@@ -428,7 +439,24 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         smem = getattr(lib, f"qv_{name}_smem")
         smem.argtypes = [ctypes.POINTER(Dims)]
         smem.restype = ctypes.c_int
-    for name in ("unit_cross_tail_bwd",) + _MMA_BWD:   # per-block scratch
+    for name in _MMA_FWD256:      # + scratch: (args, w, w, scratch, ..)
+        unit = name[:name.index("_mma")]
+        fn = getattr(lib, f"qv_{name}")
+        fn.argtypes = [ctypes.POINTER(_ENTRY[unit]), _P, _P, _P,
+                       ctypes.c_int, _P]
+        fn.restype = ctypes.c_int
+    for name in _MMA_BWD256:      # (args, w, scratch, is_bf16, stream)
+        unit = name[:name.index("_mma")]
+        fn = getattr(lib, f"qv_{name}")
+        fn.argtypes = [ctypes.POINTER(_ENTRY[unit]), _P, _P, ctypes.c_int,
+                       _P]
+        fn.restype = ctypes.c_int
+    for name in _MMA_FWD256 + _MMA_BWD256:
+        smem = getattr(lib, f"qv_{name}_smem")
+        smem.argtypes = [ctypes.POINTER(Dims)]
+        smem.restype = ctypes.c_int
+    for name in (("unit_cross_tail_bwd",) + _MMA_BWD + _MMA_FWD256
+                 + _MMA_BWD256):  # scratch floats (per block, or per call)
         fn = getattr(lib, f"qv_{name}_scratch")
         fn.argtypes = [ctypes.POINTER(Dims)]
         fn.restype = ctypes.c_int
@@ -446,11 +474,12 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 # token geometries the kernels take: (tokens, SWA windows) -> the most
-# pooled MSDA rows.  n = 16 in one window (hqavit_c100) and n = 64 in four
-# 16-token windows (hqavit_tiny_in), in eval and in training (n = 64 in
-# training: bf16 only, kernel_geometry_error with the dtype)
-EVAL_GEOMETRIES = {(16, 1): 16, (64, 4): 40}
-TRAIN_GEOMETRIES = {(16, 1): 16, (64, 4): 40}
+# pooled MSDA rows.  n = 16 in one window (hqavit_c100), n = 64 in four
+# 16-token windows (hqavit_tiny_in) and n = 256 in sixteen
+# (qavit_v2_extreme_tin), in eval and in training (n = 64 in training and
+# n = 256: bf16 only, kernel_geometry_error with the dtype)
+EVAL_GEOMETRIES = {(16, 1): 16, (64, 4): 40, (256, 16): 128}
+TRAIN_GEOMETRIES = {(16, 1): 16, (64, 4): 40, (256, 16): 128}
 
 
 def kernel_geometry_error(g: FusedGeom, train: bool = False,
@@ -468,6 +497,10 @@ def kernel_geometry_error(g: FusedGeom, train: bool = False,
                              for n, w in table)
         return (f"the CUDA units take {shapes} {mode} (ROADMAP queue 2 item "
                 f"2c); got n={g.n} in {g.nw} window(s) of {g.ws2}")
+    if g.n == 256 and dtype == torch.float32:
+        return ("the CUDA units run n=256 in bf16 only (tensor-core "
+                "kernels); float32 at n=256 is not ported (ROADMAP queue 2 "
+                "item 2d): run in bf16, the default")
     if train and g.n != 16 and dtype == torch.float32:
         return ("the CUDA units train at n=64 in bf16 only (tensor-core "
                 "kernels); float32 at n=64 in training is not ported "
@@ -492,15 +525,16 @@ def msda_mma_error(g: FusedGeom) -> Optional[str]:
     hqavit_tiny_in's widths; ``msda_mma16_kernel`` at n=16, for
     hqavit_c100's, four samples of 16 pooled rows at most to a tile)
     cannot run geometry ``g`` (None if they can), in eval and in
-    training."""
+    training; at n=256 the unit's kernel sequence of
+    ``csrc/unit_msda256.cu``."""
     checks = (
-        ((g.n, g.nw) in ((64, 4), (16, 1)),
-         "n=64 in four SWA windows or n=16 in one"),
+        ((g.n, g.nw) in ((64, 4), (16, 1), (256, 16)),
+         "n=64 in four SWA windows, n=16 in one or n=256 in sixteen"),
         ((g.c, g.heads, g.lin_k) == (192, 4, 32),
          "C=192, 4 heads of 48 and linformer_k=32"),
         (g.bank_s <= 16, "at most 16 bank rows"),
-        (g.msda_keep <= (48 if g.n == 64 else 16),
-         "at most 48 pooled rows at n=64 and 16 at n=16"),
+        (g.msda_keep <= {64: 48, 256: 128}.get(g.n, 16),
+         "at most 48 pooled rows at n=64, 128 at n=256 and 16 at n=16"),
         (g.pool_stride <= 8, "a landmark pooling stride of at most 8"),
     )
     for ok, need in checks:
@@ -514,8 +548,9 @@ def swa_mma_error(g: FusedGeom) -> Optional[str]:
     hqavit_tiny_in's and hqavit_c100's widths) cannot run geometry ``g``
     (None if it can), in eval and in training."""
     checks = (
-        ((g.n, g.nw, g.ws2) in ((64, 4, 16), (16, 1, 16)),
-         "n=64 on an 8x8 grid in four 4x4 windows, or n=16 in one"),
+        ((g.n, g.nw, g.ws2) in ((64, 4, 16), (16, 1, 16), (256, 16, 16)),
+         "n=64 on an 8x8 grid in four 4x4 windows, n=256 on a 16x16 grid "
+         "in sixteen, or n=16 in one"),
         ((g.c, g.heads, g.lin_k) == (192, 4, 32),
          "C=192, 4 heads of 48 and linformer_k=32"),
         (g.bank_s <= 16, "at most 16 bank rows"),
@@ -532,8 +567,8 @@ def cga_mma_error(g: FusedGeom) -> Optional[str]:
     (None if it can), n=16 in one SWA window or n=64 in four, in eval and
     in training."""
     checks = (
-        ((g.n, g.nw) in ((16, 1), (64, 4)),
-         "n=16 in one SWA window or n=64 in four"),
+        ((g.n, g.nw) in ((16, 1), (64, 4), (256, 16)),
+         "n=16 in one SWA window, n=64 in four or n=256 in sixteen"),
         ((g.c, g.groups, g.cperg, g.heads) == (192, 6, 16, 4),
          "C=192 in 6 channel groups of 32, cperg 16 and 4 heads"),
         (g.bank_s <= 16, "at most 16 bank rows"),
@@ -549,7 +584,8 @@ def cross_tail_mma_error(g: FusedGeom) -> Optional[str]:
     for hqavit_tiny_in's and hqavit_c100's widths) cannot run geometry
     ``g`` (None if it can), in eval and in training."""
     checks = (
-        (g.n in (16, 64), "n=16 on a 4x4 grid or n=64 on an 8x8 grid"),
+        (g.n in (16, 64, 256),
+         "n=16 on a 4x4 grid, n=64 on an 8x8 or n=256 on a 16x16 grid"),
         ((g.c, g.heads) == (192, 4), "C=192 and 4 heads of 48"),
         ((g.ccf_hidden, g.bottleneck_hidden, g.d_c) == (96, 96, 48),
          "CCF-FFN and bottleneck hidden widths of 96 and d_c=48"),
@@ -568,8 +604,9 @@ def swa_bwd_mma_error(g: FusedGeom) -> Optional[str]:
     for hqavit_c100's and hqavit_tiny_in's widths) cannot run geometry
     ``g`` (None if it can)."""
     checks = (
-        ((g.n, g.nw, g.ws2) in ((16, 1, 16), (64, 4, 16)),
-         "n=16 in one SWA window or n=64 on an 8x8 grid in four"),
+        ((g.n, g.nw, g.ws2) in ((16, 1, 16), (64, 4, 16), (256, 16, 16)),
+         "n=16 in one SWA window, n=64 on an 8x8 grid in four or n=256 on "
+         "a 16x16 grid in sixteen"),
         ((g.c, g.heads, g.lin_k) == (192, 4, 32),
          "C=192, 4 heads of 48 and linformer_k=32"),
         (g.bank_s <= 16, "at most 16 bank rows"),
@@ -586,12 +623,12 @@ def msda_bwd_mma_error(g: FusedGeom) -> Optional[str]:
     hqavit_tiny_in's widths) cannot run geometry ``g`` (None if they
     can)."""
     checks = (
-        ((g.n, g.nw) in ((16, 1), (64, 4)),
-         "n=16 in one SWA window or n=64 in four"),
+        ((g.n, g.nw) in ((16, 1), (64, 4), (256, 16)),
+         "n=16 in one SWA window, n=64 in four or n=256 in sixteen"),
         ((g.c, g.heads, g.lin_k) == (192, 4, 32),
          "C=192, 4 heads of 48 and linformer_k=32"),
-        (g.msda_keep <= (16 if g.n == 16 else 48),
-         "at most 16 pooled rows at n=16 and 48 at n=64"),
+        (g.msda_keep <= {16: 16, 64: 48, 256: 128}.get(g.n, 0),
+         "at most 16 pooled rows at n=16, 48 at n=64 and 128 at n=256"),
         (g.bank_s <= 16, "at most 16 bank rows"),
     )
     for ok, need in checks:
@@ -606,7 +643,8 @@ def cross_tail_bwd_mma_error(g: FusedGeom) -> Optional[str]:
     hqavit_tiny_in's widths) cannot run geometry ``g`` (None if it
     can)."""
     checks = (
-        (g.n in (16, 64), "n=16 on a 4x4 grid or n=64 on an 8x8 grid"),
+        (g.n in (16, 64, 256),
+         "n=16 on a 4x4 grid, n=64 on an 8x8 or n=256 on a 16x16 grid"),
         ((g.c, g.heads) == (192, 4), "C=192 and 4 heads of 48"),
         ((g.ccf_hidden, g.bottleneck_hidden, g.d_c) == (96, 96, 48),
          "CCF-FFN and bottleneck hidden widths of 96 and d_c=48"),
@@ -626,8 +664,8 @@ def cga_bwd_mma_error(g: FusedGeom) -> Optional[str]:
     for hqavit_c100's and hqavit_tiny_in's widths) cannot run geometry
     ``g`` (None if it can)."""
     checks = (
-        ((g.n, g.nw) in ((16, 1), (64, 4)),
-         "n=16 in one SWA window or n=64 in four"),
+        ((g.n, g.nw) in ((16, 1), (64, 4), (256, 16)),
+         "n=16 in one SWA window, n=64 in four or n=256 in sixteen"),
         ((g.c, g.groups, g.cperg, g.heads) == (192, 6, 16, 4),
          "C=192 in 6 channel groups of 32, cperg 16 and 4 heads"),
         (g.bank_s <= 16, "at most 16 bank rows"),
@@ -658,7 +696,7 @@ def bwd_entry(unit: str, g: FusedGeom, dtype) -> str:
     err = kernel_geometry_error(g, True, dtype) or err
     if err is not None:
         raise ValueError(f"{unit}_bwd: {err}")
-    return f"{unit}_bwd_mma64"
+    return f"{unit}_bwd_mma256" if g.n == 256 else f"{unit}_bwd_mma64"
 
 
 def _dims(g: FusedGeom, b: int, p: Params, grid: int, rgrid: int,
@@ -708,7 +746,8 @@ def train_grid(device: torch.device, b: int) -> "Grid":
 # the n=64 backward entries that run on clusters of two CTAs: the CTAs
 # resident per SM (shared memory and registers allow)
 CLUSTER_BWD = {"unit_swa_bwd_mma64": 1, "unit_msda_bwd_mma64": 1,
-               "unit_cross_tail_bwd_mma64": 1, "unit_cga_bwd_mma64": 2}
+               "unit_cross_tail_bwd_mma64": 1, "unit_cga_bwd_mma64": 2,
+               "unit_swa_bwd_mma256": 1}
 # the n=64 train-mode forward entries that do, a sample a cluster
 CLUSTER_FWD = {"unit_swa_mma_train64": 2, "unit_msda_mma_train64": 2,
                "unit_cross_tail_mma_train64": 2}
@@ -722,13 +761,15 @@ def cluster_grid(entry: str, grid: "Grid", b: int,
     sample, at most one an SM): for a two-CTA-cluster entry
     (:data:`CLUSTERS`), as many clusters as the SMs hold at once, at most
     one a work item (a sample; SWA's a window), each with its own slice.
-    The SMs are ``grid.blocks``, times SWA's four windows a sample on
-    ``device``'s card, at most its SMs (so at B=128 SWA's 512 windows fill
-    132 SMs); any other entry keeps ``grid``."""
+    The SMs are ``grid.blocks``, times SWA's windows a sample (four at
+    n=64, sixteen at n=256) on ``device``'s card, at most its SMs (so at
+    B=128 SWA's 512 windows fill 132 SMs); any other entry keeps
+    ``grid``."""
     per_sm = CLUSTERS.get(entry)
     if per_sm is None:
         return grid
-    per_sample = 4 if entry == "unit_swa_bwd_mma64" else 1   # SWA: windows
+    per_sample = {"unit_swa_bwd_mma64": 4,        # SWA: windows
+                  "unit_swa_bwd_mma256": 16}.get(entry, 1)
     sms = grid.blocks
     if device is not None and device.type == "cuda":
         sms = min(grid.blocks * per_sample, _sm_count(device))
@@ -966,11 +1007,22 @@ def _run_mma(lc: _Launch, a, p: Params, stream, error,
     if train is not None and branch is not None:
         part = _bank_write(lc, a, p, branch, train,
                            Grid(blocks, grid.reduce))
-    ws = lc.run(a, _dims(lc.g, lc.b, p, blocks,
-                         1 if grid is None else grid.reduce,
-                         None if train is None else train.rng), stream,
-                entry=entry, extra=tuple(w.data_ptr() for w in w16))
+    d = _dims(lc.g, lc.b, p, blocks, 1 if grid is None else grid.reduce,
+              None if train is None else train.rng)
+    extra = tuple(w.data_ptr() for w in w16)
+    if entry in _MMA_FWD256:      # and the unit's scratch
+        extra += (_scratch256(lc, entry, d).data_ptr(),)
+    ws = lc.run(a, d, stream, entry=entry, extra=extra)
     return ws, part
+
+
+def _scratch256(lc: _Launch, entry: str, d: Dims) -> torch.Tensor:
+    """The scratch buffer of one call of n=256 C entry ``qv_{entry}``
+    (its intermediates), held by the launch."""
+    n = getattr(lc.lib, f"qv_{entry}_scratch")(ctypes.byref(d))
+    t = torch.empty(max(n, 1), device=lc.device)
+    lc.held.append(t)
+    return t
 
 
 def launch_cga(lib, p: Params, xn, bank_k, bank_v, g: FusedGeom, dtype,
@@ -1066,6 +1118,8 @@ def _mma_route(unit: str, error, g: FusedGeom, dtype,
     in eval and in training; float32, and bf16 at other n=16 widths, on
     the CUDA cores (float32 at n=64 in eval; in training it raises before
     this, kernel_geometry_error)."""
+    if dtype == torch.bfloat16 and g.n == 256:
+        return f"{unit}_mma_train256" if train else f"{unit}_mma256"
     if dtype == torch.bfloat16 and g.n != 16 and train:
         return f"{unit}_mma_train64"
     if dtype == torch.bfloat16 and (g.n != 16 or error(g) is None):
@@ -1192,20 +1246,35 @@ def _bwd_common(lc: _Launch, bc: BwdCommon, bank_k, bank_v, ws, grads: _Grads,
 
 
 def _run_bwd(lc: _Launch, args, d: Dims, stream, entry: str,
-             w16: Optional[torch.Tensor] = None) -> None:
+             w16: Optional[torch.Tensor] = None,
+             call_scratch: Optional[torch.Tensor] = None) -> None:
     """Launch backward C entry ``qv_{entry}`` (:func:`bwd_entry`); the
-    tensor-core entries also take the packed bf16 weights ``w16``."""
+    tensor-core entries also take the packed bf16 weights ``w16``, the
+    n=256 ones a scratch buffer of the call (``call_scratch``, or none)."""
     smem = getattr(lc.lib, f"qv_{entry}_smem")(ctypes.byref(d))
     if smem > SMEM_LIMIT:
         raise ValueError(f"{entry}: needs {smem} B of shared memory > "
                          f"{SMEM_LIMIT}")
     extra = () if w16 is None else (w16.data_ptr(),)
+    if entry in _MMA_BWD256:
+        extra += (0 if call_scratch is None else call_scratch.data_ptr(),)
     rc = getattr(lc.lib, f"qv_{entry}")(
         ctypes.byref(args), *extra, int(lc.dtype == torch.bfloat16), stream)
     if rc != 0:
         raise RuntimeError(f"{entry}: kernel launch failed with CUDA error "
                            f"{rc}")
     ROUTES[entry] += 1
+
+
+def _bwd_scratch(lc: _Launch, entry: str, d: Dims, grid: Grid):
+    """(the per-block scratch ``BwdCommon.scratch`` points at, the scratch
+    of the call an n=256 entry takes beside its weights): the SWA n=256
+    backward is the n=64 kernel's and takes the former, the other n=256
+    backwards the latter (their kernel sequences' intermediates)."""
+    per = getattr(lc.lib, f"qv_{entry}_scratch")(ctypes.byref(d))
+    if entry in _MMA_BWD256 and entry != "unit_swa_bwd_mma256":
+        return None, _scratch256(lc, entry, d)
+    return torch.empty(grid.blocks * per, device=lc.device), None
 
 
 def _bwd_weights(lc: _Launch, *weights: torch.Tensor) -> torch.Tensor:
@@ -1240,15 +1309,14 @@ def launch_swa_bwd(lib, p: Params, x, bank_k, bank_v, g: FusedGeom, dtype,
     f.d = _dims(g, lc.b, p, grid.blocks, grid.reduce, _rng(train))
     grads = _Grads(lc, "unit_swa", p, grid, zero=not mma)
     grads.fill(a.g)
-    w16 = scratch = None
+    w16 = scratch = big = None
     if mma:                          # qkv, proj, then both transposed
         w16 = _bwd_weights(lc, ps["qkv"]["kernel"], ps["proj"]["kernel"])
-        per = getattr(lib, f"qv_{entry}_scratch")(ctypes.byref(f.d))
-        scratch = torch.empty(grid.blocks * per, device=lc.device)
+        scratch, big = _bwd_scratch(lc, entry, f.d, grid)
     _bwd_common(lc, a.c, bank_k, bank_v, ws, grads, scratch)
     d_x = torch.empty_like(x)
     a.d_out, a.d_xn, a.d_x = lc.act(d_out), lc.act(d_xn), lc.act(d_x)
-    _run_bwd(lc, a, f.d, stream, entry, w16)
+    _run_bwd(lc, a, f.d, stream, entry, w16, big)
     r = grads.result()
     return (d_x, r.pop(("bank_k",)), r.pop(("bank_v",))), r
 
@@ -1276,15 +1344,14 @@ def launch_msda_bwd(lib, p: Params, xn, bank_k, bank_v, g: FusedGeom, dtype,
     f.d.msda_pad = pad
     grads = _Grads(lc, "unit_msda", p, grid, zero=entry not in CLUSTER_BWD)
     grads.fill(a.g)
-    w16 = scratch = None
+    w16 = scratch = big = None
     if entry != "unit_msda_bwd":         # qkv, proj, then both transposed
         w16 = _bwd_weights(lc, pm["qkv_kernel"], pm["proj"]["kernel"])
-        per = getattr(lib, f"qv_{entry}_scratch")(ctypes.byref(f.d))
-        scratch = torch.empty(grid.blocks * per, device=lc.device)
+        scratch, big = _bwd_scratch(lc, entry, f.d, grid)
     _bwd_common(lc, a.c, bank_k, bank_v, ws, grads, scratch)
     d_xn = torch.empty_like(xn)
     a.d_out, a.d_xn = lc.act(d_out), lc.act(d_xn)
-    _run_bwd(lc, a, f.d, stream, entry, w16)
+    _run_bwd(lc, a, f.d, stream, entry, w16, big)
     r = grads.result()
     return (d_xn, r.pop(("bank_k",)), r.pop(("bank_v",))), r
 
@@ -1310,17 +1377,18 @@ def launch_cga_bwd(lib, p: Params, xn, bank_k, bank_v, g: FusedGeom, dtype,
     mma = entry != "unit_cga_bwd"
     grid = cluster_grid(entry, grid, lc.b, lc.device)
     f.d = _dims(g, lc.b, p, grid.blocks, grid.reduce, _rng(train))
-    grads = _Grads(lc, "unit_cga", p, grid, zero=not mma)
+    # (the n=256 backward adds into its slices)
+    grads = _Grads(lc, "unit_cga", p, grid,
+                   zero=not mma or entry in _MMA_BWD256)
     grads.fill(a.g)
-    w16 = scratch = None
+    w16 = scratch = big = None
     if mma:                 # q | k | v, proj, then both transposed
         w16 = _bwd_weights(lc, _cga_qkv_packed(p), pc["proj"]["kernel"])
-        per = getattr(lib, f"qv_{entry}_scratch")(ctypes.byref(f.d))
-        scratch = torch.empty(grid.blocks * per, device=lc.device)
+        scratch, big = _bwd_scratch(lc, entry, f.d, grid)
     _bwd_common(lc, a.c, bank_k, bank_v, ws, grads, scratch)
     d_xn = torch.empty_like(xn)
     a.d_out, a.d_xn = lc.act(d_out), lc.act(d_xn)
-    _run_bwd(lc, a, f.d, stream, entry, w16)
+    _run_bwd(lc, a, f.d, stream, entry, w16, big)
     r = grads.result()
     return (d_xn, r.pop(("bank_k",)), r.pop(("bank_v",))), r
 
@@ -1343,8 +1411,7 @@ def launch_cross_tail_bwd(lib, p: Params, x, xn, out_swa, out_msda, out_cga,
     grads = _Grads(lc, "unit_cross_tail", p, grid,
                    zero=entry not in CLUSTER_BWD)
     grads.fill(a.g)
-    per = getattr(lib, f"qv_{entry}_scratch")(ctypes.byref(f.d))
-    scratch = torch.empty(grid.blocks * per, device=lc.device)
+    scratch, big = _bwd_scratch(lc, entry, f.d, grid)
     _bwd_common(lc, a.c, bank_k, bank_v, ws, grads, scratch)
     outs = [torch.empty_like(x) for _ in range(5)]
     a.d_y = lc.act(d_y)
@@ -1352,7 +1419,7 @@ def launch_cross_tail_bwd(lib, p: Params, x, xn, out_swa, out_msda, out_cga,
     w16 = None
     if entry != "unit_cross_tail_bwd":       # w1, w2, then both transposed
         w16 = _bwd_weights(lc, *_cross_tail_packed(p))
-    _run_bwd(lc, a, f.d, stream, entry, w16)
+    _run_bwd(lc, a, f.d, stream, entry, w16, big)
     r = grads.result()
     return tuple(outs) + (r.pop(("bank_k",)), r.pop(("bank_v",))), r
 
@@ -1473,6 +1540,10 @@ def eval_vjp_error(unit: str, g: FusedGeom, dtype) -> Optional[str]:
     in ``dtype``, as in training (float32 at n=64 is ROADMAP queue 2 item
     2d's)."""
     err = kernel_geometry_error(g, True, dtype)
+    if err is None and g.n == 256:
+        err = ("the eval-mode backward at n=256 (Grad-CAM and rollout on "
+               "qavit_v2_extreme_tin's blocks) is not ported (ROADMAP queue "
+               "2 item 2e)")
     if err is None:
         try:
             bwd_entry(unit, g, dtype)

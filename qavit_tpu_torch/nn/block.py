@@ -26,7 +26,10 @@ flax path's function (``tests/test_fused_block.py:128``).  The unit
 kernels take the learned-token geometries of both HQAViT families, in
 eval and in training: n=16 in one SWA window (``hqavit_c100``) and n=64
 in four (``hqavit_tiny_in``; on the card it trains in bf16, float32
-raising before the launch, ROADMAP queue 2 item 2d).
+raising before the launch, ROADMAP queue 2 item 2d), and the flat
+QAViT's n=64 (``qavit_v2_extreme_proc100``) and n=256 in sixteen windows
+(``qavit_v2_extreme_tin``, bf16 only in eval and training); n=196 (the
+224 presets) raises, naming queue 2 item 2c.
 """
 
 from __future__ import annotations
@@ -142,8 +145,10 @@ class BranchQuadBlock(QuadBlockParams):
 
 def flat_block(cfg: ModelConfig, drop_path: float = 0.0) -> nn.Module:
     """The flat QAViT's block: the fused units when ``attn_impl`` is
-    "fused_block" and they cover the geometry, else the branch path
-    (``nn/block.py:58-75``).  ``drop_path`` is the block's stochastic
+    "fused_block" and ``make_geom`` covers the grid (n=64 and n=256 run
+    on the kernels; n=196 raises at the first launch, naming its ROADMAP
+    item), else the branch path (``nn/block.py:58-75``).  ``drop_path``
+    is the block's stochastic
     depth rate, which both blocks read in training."""
     if cfg.attn_impl == "fused_block" and make_geom(cfg) is not None:
         return QuadAttentionBlock(cfg, drop_path)

@@ -48,11 +48,12 @@ def check_train_geometry(mc: ModelConfig) -> None:
     the blocks ``mc`` trains through the fused units: HQAViT's always, the
     flat QAViT's under ``attn_impl="fused_block"`` when ``make_geom``
     covers its grid (``flat_block``).  The kernels take n=16 in one SWA
-    window (hqavit_c100) and n=64 in four (hqavit_tiny_in,
-    hqavit_proc_tin, qavit_v2_extreme_proc100); the flat branch path has
-    no kernel geometry to check.  The working dtype is checked at each
-    launch: on the card n=64 trains in bf16 only, while the CPU's plain
-    units take both dtypes."""
+    window (hqavit_c100), n=64 in four (hqavit_tiny_in, hqavit_proc_tin,
+    qavit_v2_extreme_proc100) and n=256 in sixteen
+    (qavit_v2_extreme_tin); the flat branch path has no kernel geometry
+    to check.  The working dtype is checked at each launch: on the card
+    n=64 and n=256 train in bf16 only, while the CPU's plain units take
+    both dtypes."""
     fused = mc.hybrid or mc.attn_impl == "fused_block"
     geom = make_geom(mc) if fused else None
     if geom is None and not mc.hybrid:
@@ -61,7 +62,7 @@ def check_train_geometry(mc: ModelConfig) -> None:
            else kernel_geometry_error(geom, train=True))
     if err is not None:
         _not_ported(f"{mc.name}'s train step: {err}",
-                    "queue 2 item 2c, n=196 and n=256")
+                    "queue 2 item 2c, n=196")
 
 
 def step_seed(seed: int, step: int) -> int:

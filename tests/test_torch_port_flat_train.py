@@ -304,16 +304,26 @@ def test_flat64_presets_match_jax(name):
 
 
 def test_check_train_geometry_on_flat_configs():
-    """Under fused_block the n=64 presets pass and the n=256 preset
-    raises naming queue 2 item 2c; the branch path checks nothing."""
+    """Under fused_block the n=64 and n=256 presets pass (their kernels
+    train in bf16; float32 at n=256 is refused at the launch, naming
+    queue 2 item 2d) and the n=196 preset raises naming queue 2 item 2c;
+    the branch path checks nothing."""
+    from qavit_tpu_torch.kernels import fused_kernels as K
+    from qavit_tpu_torch.kernels.fused_ref import make_geom
+
     fused = dict(attn_impl="fused_block")
-    check_train_geometry(get_preset("qavit_v2_extreme_proc100").model
-                         .replace(**fused))
+    for name in ("qavit_v2_extreme_proc100", "qavit_v2_extreme_tin"):
+        check_train_geometry(get_preset(name).model.replace(**fused))
+    tin = get_preset("qavit_v2_extreme_tin").model.replace(**fused)
+    assert K.kernel_geometry_error(make_geom(tin), True,
+                                   torch.bfloat16) is None
+    err = K.kernel_geometry_error(make_geom(tin), True, torch.float32)
+    assert "float32 at n=256" in err and "queue 2 item 2d" in err, err
     for name in ("qavit_v2_extreme_tin", "qavit_224_v1_proc"):
-        mc = get_preset(name).model
-        check_train_geometry(mc)
-        with pytest.raises(NotImplementedError, match="queue 2 item 2c"):
-            check_train_geometry(mc.replace(**fused))
+        check_train_geometry(get_preset(name).model)
+    with pytest.raises(NotImplementedError, match="queue 2 item 2c"):
+        check_train_geometry(get_preset("qavit_224_v1_proc").model
+                             .replace(**fused))
 
 
 @pytest.mark.parametrize("name", ["qavit_v2_extreme_proc100",

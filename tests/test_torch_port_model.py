@@ -149,10 +149,10 @@ def test_wrappers_never_fall_back_off_the_cpu(unit):
 
 
 def test_kernel_geometry_covers_the_flagship():
-    """n=16 in one window and n=64 in four windows, in eval and training
-    (n=64 training in bf16: float32 refused with a named reason); n=196
-    (the 224 presets under fused_block) and n=256 in 16 windows refused
-    with a named reason, in both modes."""
+    """n=16 in one window, n=64 in four and n=256 in sixteen windows, in
+    eval and training (n=64 training and n=256 in bf16: float32 refused
+    with a named reason, queue 2 item 2d); n=196 (the 224 presets under
+    fused_block) refused with a named reason, in both modes."""
     from qavit_tpu_torch.configs import get_preset
     from qavit_tpu_torch.kernels.fused_ref import make_geom
 
@@ -169,20 +169,28 @@ def test_kernel_geometry_covers_the_flagship():
     assert "float32 at n=64 in training" in err and "item 2d" in err, err
     g196 = make_geom(get_preset("qavit_224_v1_proc").model)
     g256 = make_geom(cfg.replace(img_size=128, num_learned_tokens=256))
+    tin = make_geom(get_preset("qavit_v2_extreme_tin").model)
     assert (g196.n, g256.n, g256.nw) == (196, 256, 16)
-    for g in (g196, g256):
+    assert (tin.n, tin.nw, tin.ws2, tin.msda_keep) == (256, 16, 16, 128)
+    for g in (g256, tin):
         for train in (False, True):
-            err = K.kernel_geometry_error(g, train=train)
-            assert f"got n={g.n} in {g.nw} window(s)" in err, err
-            assert "queue 2 item 2c" in err
+            assert K.kernel_geometry_error(g, train=train) is None
+            assert K.kernel_geometry_error(g, train, torch.bfloat16) is None
+            err = K.kernel_geometry_error(g, train, torch.float32)
+            assert "float32 at n=256" in err and "item 2d" in err, err
+    for train in (False, True):
+        err = K.kernel_geometry_error(g196, train=train)
+        assert f"got n={g196.n} in {g196.nw} window(s)" in err, err
+        assert "queue 2 item 2c" in err
 
 
 @pytest.mark.parametrize("unit", ["swa", "msda", "cga", "cross_tail"])
 def test_launches_refuse_an_uncovered_geometry(unit):
     """Every launch checks the geometry and dtype before it touches the
     library or a tensor, naming the reason: the 224 presets' n=196 in
-    eval, n=256 in 16 windows in train mode, and hqavit_proc_tin's n=64
-    in train mode in float32 (its kernels train in bf16)."""
+    eval, n=256 in 16 windows in float32 in train mode and in eval, and
+    hqavit_proc_tin's n=64 in train mode in float32 (the n=64 and n=256
+    kernels run in bf16)."""
     from qavit_tpu_torch.configs import get_preset
     from qavit_tpu_torch.kernels import fused_ref as R
     from qavit_tpu_torch.kernels.fused_ref import make_geom
@@ -194,7 +202,9 @@ def test_launches_refuse_an_uncovered_geometry(unit):
     for cfg, mode, reason in (
             (get_preset("qavit_224_v1_proc").model, None, "got n=196 in 4"),
             (c100.replace(img_size=128, num_learned_tokens=256), train,
-             "got n=256 in 16"),
+             "float32 at n=256"),
+            (get_preset("qavit_v2_extreme_tin").model, None,
+             "float32 at n=256"),
             (get_preset("hqavit_proc_tin").model, train,
              "float32 at n=64 in training")):
         g = make_geom(cfg)
